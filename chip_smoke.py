@@ -1,0 +1,607 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one card.
+
+    python3 chip_smoke.py            # from the root of a checkout
+
+1. Setup: prints the card's name and power limit (nvidia-smi), builds the
+   hand-written kernels from ``src/repro_torch/kernels/csrc`` into
+   ``build/kernels/`` and prints the build time and ptxas register counts.
+2. Kernels vs plain versions on the card: ``fused_pyramid_stage0`` (base
+   224, chunk 256, levels {112, 56, 28}; grid extremes, the 56 px rgb 2x32
+   case and the planned stage-0s, each f32 and int8: levels ``torch.equal``,
+   scores within SCORE_TOL) and ``matmul`` (the evaluator's 0/1 shapes
+   exactly, random f32/bf16 within the reference test's tolerances), with
+   kernel, plain, bound and library times.
+3. Query path: three predicates, each with a 361-model bank over the paper
+   grid (random weights from a seeded generator), ``system_from_bank`` on
+   512-frame splits, the streaming cascade-space evaluator through the
+   matmul kernel (checked against the dense evaluator), a joint plan, and
+   ``ScanEngine`` over 8192 dyadic 224 px frames resident on the card,
+   fused through the pyramid+stage-0 kernel, f32 and int8, each held
+   against ``naive_scan``. Launch counts are reset just before this phase
+   and read just after it; a kernel of the path with 0 launches fails.
+   The f32 scan is then rerun under ``torch.profiler``: device time by
+   kernel and the device's idle share.
+4. One ``{"kernels": [...]}`` line, then the result line
+   ``{"ok": true, "device": {...}}``.
+
+Any failed check raises and the run exits non-zero. Without a CUDA device,
+or outside a checkout of the repo, it exits non-zero and prints no result.
+``--rehearse`` runs the same phases at toy sizes on the CPU (plain
+versions only; exits 3 and never prints a result).
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+
+# Per-card peaks for the bounds (NVIDIA data sheets): memory bytes/s and
+# f32 FLOP/s outside the tensor cores (the kernels are f32 FFMA).
+PEAKS = (("H100 PCIe", 2.0e12, 51e12), ("H100 NVL", 3.9e12, 60e12),
+         ("H100", 3.35e12, 67e12))
+SCORE_TOL = 1e-4   # |kernel - plain| on sigmoid scores: f32 sums in another
+#                    order (conv dot products of up to 9*48 terms, dense of up
+#                    to 6272); an indexing fault shows as O(0.1)
+MM_TOL = {"float32": 1e-3, "bfloat16": 3e-2}   # tests/test_kernels.py
+
+FULL = dict(base=224, chunk=256, out_res=(112, 56, 28), split=512,
+            corpus=8192, gen_batch=512, resolutions=(28, 56, 112, 224),
+            small_grid=False, mm_shapes=((33, 17, 65), (256, 64, 130),
+                                         (128, 512, 1805)), iters=10)
+REHEARSE = dict(base=32, chunk=32, out_res=(16, 8, 4), split=48, corpus=96,
+                gen_batch=48, resolutions=(4, 8, 16, 32), small_grid=True,
+                mm_shapes=((33, 17, 65),), iters=1)
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--rehearse", action="store_true")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    import torch
+    if not (SRC / "repro_torch").is_dir():
+        print("chip_smoke.py must run from a checkout of the repo "
+              "(src/repro_torch is missing)", file=sys.stderr)
+        return 2
+    if not args.rehearse and not torch.cuda.is_available():
+        print("no CUDA device: chip_smoke.py runs on the card",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(SRC))
+    cfg = REHEARSE if args.rehearse else FULL
+    dev = torch.device("cpu" if args.rehearse else "cuda")
+
+    card = setup(dev)
+    kern = check_kernels(dev, cfg, card, args.seed)
+    launches = query_path(dev, cfg, card, kern, args.seed)
+    kernels_line(kern, launches)
+    if args.rehearse:
+        log("rehearsal on the CPU: plain versions only, no result")
+        return 3
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+# ------------------------------------------------------------ phase 1 --
+def setup(dev):
+    import torch
+
+    from repro_torch.device import resolve_device
+    resolve_device(dev)                 # TF32 off, cudnn.benchmark off
+    if dev.type != "cuda":
+        return {"name": "cpu", "bw": 1.0, "flops": 1.0}
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    log(smi)
+    name = torch.cuda.get_device_name(0)
+    bw, flops = next((b, f) for key, b, f in PEAKS if key in name)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda}; peaks used "
+        f"for bounds: {bw / 1e12:.2f} TB/s, {flops / 1e12:.0f} TFLOP/s f32")
+    from repro_torch.kernels import build
+    build.build_all()
+    info = build.BUILD_INFO
+    log(f"kernel build: {info['seconds']:.1f} s into {info['dir']} "
+        f"(built {info['built']})")
+    for stem, text in info["logs"].items():
+        for line in dict.fromkeys(text.splitlines()):
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas {stem}: {line.strip()}")
+    return {"name": name, "smi": smi, "bw": bw, "flops": flops}
+
+
+# ------------------------------------------------------------ phase 2 --
+def time_ms(fn, dev, iters: int) -> float:
+    import torch
+    fn()
+    if dev.type != "cuda":
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        return (time.perf_counter() - t0) * 1e3 / iters
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def stage0_for(arch, rep, gen, dev):
+    from repro_torch.configs.base import TahomaCNNConfig
+    from repro_torch.core.executor import Stage0
+    from repro_torch.models.cnn import init_cnn, quantize_cnn
+    cfg = TahomaCNNConfig(arch[0], arch[1], arch[2], input_hw=rep.resolution,
+                          input_channels=rep.channels)
+    params = init_cnn(gen, cfg, device=dev)
+    return Stage0(params, rep, quantize_cnn(params)), cfg
+
+
+def dyadic(n, hw, gen, dev):
+    import torch
+    return torch.randint(0, 256, (n, hw, hw, 3), generator=gen,
+                         device=gen.device).to(dev).float() / 256.0
+
+
+def check_stage0(imgs, out_res, s0, label) -> float:
+    """Kernel vs plain version, f32 and int8: levels torch.equal, scores
+    within SCORE_TOL. Returns the largest score deviation."""
+    import torch
+
+    from repro_torch.kernels.image_transform import fused_pyramid_stage0
+    from repro_torch.kernels.ref import fused_pyramid_stage0_ref
+    worst = 0.0
+    for qp, kind in ((None, "f32"), (s0.qparams, "int8")):
+        lv, sc = fused_pyramid_stage0(imgs, out_res, s0.params, s0.rep,
+                                      qparams=qp)
+        rl, rs = fused_pyramid_stage0_ref(imgs, out_res, s0.params, s0.rep,
+                                          qparams=qp)
+        for r in out_res:
+            if not torch.equal(lv[r], rl[r]):
+                raise AssertionError(f"{label} {kind}: level {r} differs "
+                                     f"from the plain version")
+        if sc.shape != rs.shape or not torch.isfinite(sc).all():
+            raise AssertionError(f"{label} {kind}: bad scores")
+        err = float((sc - rs).abs().max())
+        log(f"  fused_pyramid_stage0 {label} {kind}: levels equal, "
+            f"max |score err| {err:.3g}")
+        if err > SCORE_TOL:
+            raise AssertionError(f"{label} {kind}: score error {err} > "
+                                 f"{SCORE_TOL}")
+        worst = max(worst, err)
+    return worst
+
+
+def stage0_bound_ms(card, b, base, out_res, s0, cfg) -> tuple[float, str]:
+    """Least time for one chunk: each input byte read once (frames and
+    weights), each output written once, vs the f32 FLOPs of the pooling
+    adds, color projection and CNN."""
+    from repro_torch.core.transforms import plan_pyramid
+    from repro_torch.models.cnn import cnn_flops
+    wbytes = sum(t.numel() * t.element_size() for t in _leaves(s0.params))
+    nbytes = (b * base * base * 3 * 4 + wbytes + b * 4
+              + sum(b * r * r * 3 * 4 for r in out_res))
+    steps = plan_pyramid(set(out_res) | {s0.rep.resolution}, base)
+    ops = b * (sum(st.source ** 2 * 3 for st in steps)
+               + 5 * s0.rep.resolution ** 2 + cnn_flops(cfg))
+    t_mem, t_ops = nbytes / card["bw"], ops / card["flops"]
+    return max(t_mem, t_ops) * 1e3, "bytes" if t_mem > t_ops else "operations"
+
+
+def _leaves(tree):
+    import torch
+    if torch.is_tensor(tree):
+        return [tree]
+    vals = tree.values() if isinstance(tree, dict) else tree
+    return [t for v in vals for t in _leaves(v)]
+
+
+def check_kernels(dev, cfg, card, seed):
+    import torch
+
+    from repro_torch.core.transforms import Representation
+    from repro_torch.kernels.matmul import matmul
+    from repro_torch.kernels.ref import matmul_ref
+    log("== kernels vs plain versions")
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    b, base = cfg["chunk"], cfg["base"]
+    res = cfg["resolutions"]
+    imgs = dyadic(b, base, gen, dev)
+    out_res = list(cfg["out_res"])
+    # grid extremes, the main-path-sized case, and the trusted model
+    cases = [((1, 16, 16), Representation(res[0], "gray")),
+             ((4, 32, 64), Representation(res[3], "rgb")),
+             ((2, 32, 64), Representation(res[1], "rgb")),
+             ((3, 48, 64), Representation(res[3], "rgb"))]
+    from repro_torch.kernels.image_transform import fused_pyramid_stage0
+    from repro_torch.kernels.ref import fused_pyramid_stage0_ref
+    worst = 0.0
+    for arch, rep in cases:
+        s0, s0cfg = stage0_for(arch, rep, gen, dev)
+        worst = max(worst, check_stage0(imgs, out_res, s0,
+                                        f"{rep.name} {arch}"))
+        ms = time_ms(lambda: fused_pyramid_stage0(imgs, out_res, s0.params,
+                                                  s0.rep), dev, cfg["iters"])
+        plain = time_ms(lambda: fused_pyramid_stage0_ref(imgs, out_res,
+                                                         s0.params, s0.rep),
+                        dev, cfg["iters"])
+        bound, by = stage0_bound_ms(card, b, base, out_res, s0, s0cfg)
+        log(f"  fused_pyramid_stage0 {rep.name} {arch} chunk {b} f32: "
+            f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {bound:.4f} "
+            f"ms ({by})")
+
+    mm = {"max_abs_err": 0.0}
+    for m, k, n in cfg["mm_shapes"]:
+        for dt, out_dt in ((torch.float32, torch.float32),
+                           (torch.bfloat16, torch.bfloat16),
+                           (torch.bfloat16, torch.float32)):
+            a = torch.randn((m, k), generator=gen, device=dev).to(dt)
+            bm = torch.randn((k, n), generator=gen, device=dev).to(dt)
+            got = matmul(a, bm, out_dtype=out_dt).float()
+            want = matmul_ref(a, bm, out_dt).float()
+            tol = MM_TOL[str(dt).split(".")[1]]
+            bad = (got - want).abs() > tol + tol * want.abs()
+            err = float((got - want).abs().max())
+            log(f"  matmul ({m},{k})@({k},{n}) {dt}->{out_dt}: max |err| "
+                f"{err:.3g} (tol {tol})")
+            if bad.any():
+                raise AssertionError(f"matmul {m},{k},{n} {dt}: {err}")
+    return {"stage0": {"worst": worst}, "matmul": mm}
+
+
+# ------------------------------------------------------------ phase 3 --
+def build_bank(gen, dev, cfg):
+    from repro_torch.configs.base import TahomaCNNConfig
+    from repro_torch.configs.tahoma_cnn import architecture_space
+    from repro_torch.core.pipeline import ModelBank, ModelEntry
+    from repro_torch.core.transforms import Representation, COLOR_REPS
+    from repro_torch.models.cnn import init_cnn
+    archs = architecture_space(small=cfg["small_grid"])
+    reps = [Representation(r, c) for r in cfg["resolutions"]
+            for c in COLOR_REPS]
+    entries = []
+    for a in archs:
+        for rep in reps:
+            c = TahomaCNNConfig(a.n_conv_layers, a.conv_nodes, a.dense_nodes,
+                                input_hw=rep.resolution,
+                                input_channels=rep.channels)
+            entries.append(ModelEntry(f"{c.arch_id}_{rep.name}", c, rep,
+                                      init_cnn(gen, c, device=dev)))
+    t = TahomaCNNConfig(3, 48, 64, input_hw=cfg["base"], input_channels=3)
+    entries.append(ModelEntry(f"trusted_{t.arch_id}", t,
+                              Representation(cfg["base"], "rgb"),
+                              init_cnn(gen, t, device=dev), trusted=True))
+    return ModelBank(entries, device=dev)
+
+
+def make_corpus_on(dev, cfg, specs, seed):
+    """Dyadic multi-predicate corpus, generated in batches on the host and
+    kept on the device as one tensor."""
+    import torch
+
+    from repro_torch.data.synthetic import make_multi_corpus
+    n, hw, gb = cfg["corpus"], cfg["base"], cfg["gen_batch"]
+    corpus = torch.empty((n, hw, hw, 3), device=dev)
+    for i, lo in enumerate(range(0, n, gb)):
+        x, _ = make_multi_corpus(specs, min(gb, n - lo), hw=hw,
+                                 seed=seed + 100 + i, positive_rate=0.4)
+        corpus[lo:lo + len(x)] = torch.from_numpy(x).to(dev)
+    return corpus
+
+
+def check_stream_vs_dense(name, system):
+    """The streaming frontier (kernel path) against the dense evaluator:
+    every dense-frontier cascade is in the streaming survivor set (or
+    tied with one to 1e-6), and matched cascades agree to f32 tolerance
+    (the reference's test_streaming_matches_dense)."""
+    from repro_torch.core.pareto import pareto_indices
+    st = system.space_cache[("CAMERA", 3, True)]
+    sp = system.cascade_space("CAMERA")
+    if st.evaluated != len(sp):
+        raise AssertionError(f"{name}: streaming scored {st.evaluated} "
+                             f"cascades, dense {len(sp)}")
+    lookup = {(int(k), int(a), int(b)): j for j, (k, a, b) in
+              enumerate(zip(sp.kind, sp.i1, sp.i2))}
+    for j in range(len(st)):
+        d = lookup[(int(st.kind[j]), int(st.i1[j]), int(st.i2[j]))]
+        if abs(st.acc[j] - sp.acc[d]) > 1e-5 or \
+                abs(st.time_s[j] - sp.time_s[d]) > 2e-5 * sp.time_s[d]:
+            raise AssertionError(f"{name}: cascade {d} differs")
+    ids = {(int(k), int(a), int(b)) for k, a, b in
+           zip(st.kind, st.i1, st.i2)}
+    for i in pareto_indices(sp.acc, sp.throughput):
+        ident = (int(sp.kind[i]), int(sp.i1[i]), int(sp.i2[i]))
+        if ident not in ids and not any(
+                abs(sp.acc[i] - st.acc[j]) < 1e-6
+                and abs(sp.time_s[i] - st.time_s[j]) < 1e-6 * sp.time_s[i]
+                for j in range(len(st))):
+            raise AssertionError(f"{name}: frontier cascade {ident} lost")
+    log(f"  {name}: streaming frontier ({len(st)} of {st.evaluated} "
+        f"cascades) == dense frontier")
+
+
+def boundary_rows(corpus, casc0, rows, int8, chunk):
+    """Of ``rows`` (where engine and naive scan disagree), those whose
+    first-cascade level-0 scores from the kernel and from the plain
+    version (at the scan's batch width) fall on opposite sides of one of
+    that level's f32 thresholds: a flip explained by the stated f32 score
+    tolerance. Raises on any other row."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.image_transform import fused_pyramid_stage0
+    from repro_torch.kernels.ref import fused_pyramid_stage0_ref
+    out = []
+    s0 = casc0.stage0
+    qp = s0.qparams if int8 else None
+    lo, hi = casc0.thresholds[0]
+    ts = [float(np.float32(t)) for t in ([0.5] if lo is None else [lo, hi])]
+    for at in range(0, len(rows), chunk):
+        part = np.asarray(rows[at:at + chunk], np.int64)
+        idx = np.concatenate([part, np.repeat(part[-1:],
+                                              chunk - len(part))])
+        imgs = corpus[torch.as_tensor(idx, device=corpus.device)]
+        _, sk = fused_pyramid_stage0(imgs, [], s0.params, s0.rep,
+                                     qparams=qp)
+        _, sp = fused_pyramid_stage0_ref(imgs, [], s0.params, s0.rep,
+                                         qparams=qp)
+        for r, a, b in zip(part, sk.tolist(), sp.tolist()):
+            flips = any((a >= t) != (b >= t) or (a <= t) != (b <= t)
+                        for t in ts)
+            if abs(a - b) > SCORE_TOL or not flips:
+                raise AssertionError(
+                    f"row {r}: engine and naive_scan differ (kernel {a!r}, "
+                    f"plain {b!r}, thresholds {ts})")
+            out.append((int(r), a, b))
+    return out
+
+
+def query_path(dev, cfg, card, kern, seed):
+    import numpy as np
+    import torch
+
+    from repro_torch.core.pipeline import system_from_bank
+    from repro_torch.data.synthetic import DEFAULT_PREDICATES, make_corpus
+    from repro_torch.engine.planner import (PredicateClause, QuerySpec,
+                                            plan_query)
+    from repro_torch.engine.scan import ScanEngine, level_schedule, naive_scan
+    from repro_torch.kernels import ops
+
+    log("== query path")
+    specs = DEFAULT_PREDICATES[:3]
+    gen = torch.Generator(device=dev).manual_seed(seed + 2)
+    t0 = time.perf_counter()
+    systems = {}
+    for k, spec in enumerate(specs):
+        bank = build_bank(gen, dev, cfg)
+        cf = make_corpus(spec, cfg["split"], hw=cfg["base"], seed=seed + 10)
+        ev = make_corpus(spec, cfg["split"], hw=cfg["base"], seed=seed + 20)
+        systems[spec.name] = system_from_bank(bank, cf, ev)
+        log(f"  {spec.name}: bank of {len(bank.entries)} models, system "
+            f"from {cfg['split']}-frame splits")
+    log(f"  banks + systems: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    corpus = make_corpus_on(dev, cfg, specs, seed)
+    log(f"  corpus {tuple(corpus.shape)} on {corpus.device}: "
+        f"{corpus.numel() * 4 / 1e9:.2f} GB, {time.perf_counter() - t0:.1f} s")
+    query = QuerySpec(predicates=[PredicateClause(s.name) for s in specs])
+
+    # ---- the main path, with the launch counts read around it
+    ops.reset_launch_counts()
+    _sync(dev)
+    t0 = time.perf_counter()
+    for system in systems.values():      # the matmul kernel's caller
+        system.cascade_space("CAMERA", streaming=True)
+    _sync(dev)
+    t_eval = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plan = plan_query(systems, query, scenario="CAMERA", joint=True)
+    t_plan = time.perf_counter() - t0
+    runs = {}
+    for int8 in (False, True):
+        # a cold scan, then the timed one on a fresh store (same work; the
+        # first also pays one-time allocator and library set-up)
+        eng = ScanEngine(corpus, chunk=cfg["chunk"], int8=int8, device=dev)
+        cold = eng.execute(plan.cascades)
+        eng.reset_cache()
+        _sync(dev)
+        t0 = time.perf_counter()
+        res = eng.execute(plan.cascades)
+        _sync(dev)
+        runs[int8] = (res, time.perf_counter() - t0, eng)
+        if not np.array_equal(cold.indices, res.indices):
+            raise AssertionError("a re-run on a fresh store differs")
+    launches = dict(ops.LAUNCHES)
+    log(f"  streaming evaluation (3 concepts): {t_eval:.3f} s; joint plan "
+        f"(dense numpy spaces): {t_plan:.2f} s")
+    log(plan.explain(n_rows=cfg["corpus"], base_hw=cfg["base"],
+                     actual=runs[False][0].stats))
+    log(f"  launches on the main path: {launches}")
+    if dev.type == "cuda":
+        for name, n in launches.items():
+            if n == 0:
+                raise AssertionError(f"{name} was not launched on the path")
+
+    for name, system in systems.items():
+        check_stream_vs_dense(name, system)
+    casc0 = plan.cascades[0]
+    for int8, (res, secs, _) in runs.items():
+        st = res.stats
+        kind = "int8" if int8 else "f32"
+        log(f"  scan {kind}: {len(res.indices)} rows of {cfg['corpus']}, "
+            f"{st.chunks} chunks, {secs * 1e3 / st.chunks:.3f} ms/chunk, "
+            f"{cfg['corpus'] / secs:.0f} rows/s, rows evaluated per stage "
+            f"{[s.rows_evaluated for s in st.stages]}, level rows "
+            f"{st.level_rows}")
+        t0 = time.perf_counter()
+        ref = naive_scan(corpus, plan.cascades, chunk=cfg["chunk"],
+                         int8=int8, device=dev)
+        t_naive = time.perf_counter() - t0
+        diff = np.setxor1d(res.indices, ref)
+        exempt = boundary_rows(corpus, casc0, diff, int8, cfg["chunk"])
+        log(f"  naive_scan {kind}: {len(ref)} rows in {t_naive:.2f} s; "
+            f"identical rows: {not len(diff)}"
+            + (f" except {len(exempt)} threshold-boundary rows "
+               f"{exempt}" if exempt else ""))
+    if dev.type == "cuda":
+        _, secs, eng = runs[False]
+        profile_scan(eng, plan.cascades, dev, secs)
+
+    # the kernel's time and bound at the main path's own stage-0 shapes
+    from repro_torch.kernels.image_transform import fused_pyramid_stage0
+    from repro_torch.kernels.ref import fused_pyramid_stage0_ref
+    base = cfg["base"]
+    _, carry, _ = level_schedule(plan.cascades, base, True)
+    out_res = sorted(({r.resolution for r in casc0.reps}
+                      | set(carry[1] if len(carry) > 1 else ())) - {base},
+                     reverse=True)
+    imgs = corpus[:cfg["chunk"]]
+    s0 = casc0.stage0
+    worst = check_stage0(imgs, out_res, s0, f"main path {s0.rep.name}")
+    k0 = next(e for e in systems[casc0.concept].bank.entries
+              if e.params is s0.params)
+    ms = time_ms(lambda: fused_pyramid_stage0(imgs, out_res, s0.params,
+                                              s0.rep), dev, cfg["iters"])
+    plain = time_ms(lambda: fused_pyramid_stage0_ref(imgs, out_res,
+                                                     s0.params, s0.rep),
+                    dev, cfg["iters"])
+    bound, by = stage0_bound_ms(card, cfg["chunk"], base, out_res, s0,
+                                k0.arch)
+    kern["stage0"].update(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
+                          max_abs_err=max(worst, kern["stage0"]["worst"]),
+                          shape=f"{k0.name} chunk {cfg['chunk']} base {base} "
+                                f"levels {out_res}")
+    log(f"  fused_pyramid_stage0 main path ({k0.name}, levels {out_res}): "
+        f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {bound:.4f} ms "
+        f"({by})")
+    matmul_main_path(dev, cfg, card, kern, systems[casc0.concept])
+    return launches
+
+
+def profile_scan(eng, cascades, dev, wall_s, top=12):
+    """Where one f32 scan's device time goes: torch.profiler over a rerun
+    of the timed scan (fresh store, same work), device time summed by
+    kernel name, and the device's idle share against the unprofiled scan's
+    wall time ``wall_s`` (the profiler slows the host, not the kernels)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    eng.reset_cache()
+    _sync(dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        eng.execute(cascades)
+        _sync(dev)
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    if not spans:
+        log("  scan profile: the profiler saw no device events; the "
+            "breakdown and idle share are not measured")
+        return
+    busy, end = 0.0, float("-inf")
+    by_name: dict[str, list] = {}
+    for s, e, name in spans:
+        busy += max(0.0, e - max(s, end))   # union of device intervals
+        end = max(end, e)
+        acc = by_name.setdefault(name, [0, 0.0])
+        acc[0] += 1
+        acc[1] += e - s
+    log(f"  scan profile (f32): device busy {busy / 1e3:.3f} ms of the "
+        f"unprofiled scan's {wall_s * 1e3:.3f} ms wall; device idle share "
+        f"{1 - busy / (wall_s * 1e6):.3f}")
+    for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1]
+                                )[:top]:
+        log(f"    {us / 1e3:9.3f} ms {100 * us / busy:5.1f}% {n:6d}x "
+            f"{name[:90]}")
+
+
+def matmul_main_path(dev, cfg, card, kern, system):
+    """The evaluator's own products: (128, I) @ (I, M) and (128, I) @
+    (I, A) on its 0/1 indicator matrices — exact against the plain
+    version — and the kernel/plain/torch.matmul times at (128, I)@(I, A)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.cascade import _certainty_stats
+    from repro_torch.kernels.matmul import matmul
+    from repro_torch.kernels.ref import matmul_ref
+    st = _certainty_stats(system.eval_scores, system.eval_truth,
+                          system.p_low, system.p_high)
+    c = torch.as_tensor(st["c"], device=dev)
+    ca = c[:128].contiguous()
+    c_t = c.T.contiguous()
+    cf_t = torch.as_tensor(np.ascontiguousarray(st["corr_final"].T),
+                           device=dev)
+    err = 0.0
+    for b in (cf_t, c_t):
+        got, want = matmul(ca, b, out_dtype=torch.float32), matmul_ref(ca, b)
+        e = float((got - want).abs().max())
+        log(f"  matmul evaluator {tuple(ca.shape)}@{tuple(b.shape)} 0/1: "
+            f"max |err| {e}")
+        if e != 0.0:
+            raise AssertionError("matmul on 0/1 indicators is not exact")
+        err = max(err, e)
+    it = max(cfg["iters"], 1) * 10
+    ms = time_ms(lambda: matmul(ca, c_t, out_dtype=torch.float32), dev, it)
+    plain = time_ms(lambda: matmul_ref(ca, c_t), dev, it)
+    lib = time_ms(lambda: torch.matmul(ca, c_t), dev, it)
+    m, k = ca.shape
+    n = c_t.shape[1]
+    t_mem = (m * k + k * n + m * n) * 4 / card["bw"]
+    t_ops = 2.0 * m * n * k / card["flops"]
+    kern["matmul"].update(ms=ms, plain_ms=plain, library_ms=lib,
+                          bound_ms=max(t_mem, t_ops) * 1e3,
+                          bound_by="bytes" if t_mem > t_ops else "operations",
+                          max_abs_err=err, shape=f"({m},{k})@({k},{n}) f32")
+    log(f"  matmul ({m},{k})@({k},{n}): kernel {ms:.4f} ms, plain "
+        f"{plain:.4f} ms, torch.matmul {lib:.4f} ms, bound "
+        f"{kern['matmul']['bound_ms']:.4f} ms")
+
+
+def _sync(dev):
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+# ------------------------------------------------------------ phase 4 --
+def kernels_line(kern, launches):
+    meta = {
+        "fused_pyramid_stage0": (
+            "src/repro_torch/kernels/csrc/pyramid_stage0.cu",
+            "src/repro/kernels/image_transform.py:280", kern["stage0"]),
+        "matmul": ("src/repro_torch/kernels/csrc/matmul.cu",
+                   "src/repro/kernels/matmul.py:46", kern["matmul"]),
+    }
+    out = []
+    for name, (src, replaces, k) in meta.items():
+        out.append({"name": name, "route": "cuda", "source": src,
+                    "replaces": replaces, "launches": launches[name],
+                    "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+                    "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+                    "bound_by": k["bound_by"],
+                    "library_ms": k.get("library_ms"),
+                    "shape": k["shape"]})
+    print(json.dumps({"kernels": out}), flush=True)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,104 @@
+"""ctypes bindings of the hand-written CUDA kernels, and their launch
+counters.
+
+Each ``launch_*`` function takes tensors that already lie on the card
+(the wrappers in ``image_transform.py`` and ``matmul.py`` validate and
+allocate), launches on ``torch.cuda.current_stream()`` without
+synchronizing, raises if the C entry point reports a CUDA error, and adds
+one to its kernel's count in ``LAUNCHES`` — there and nowhere else.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels.build import library
+
+MAX_STEPS = 8
+MAX_CONV = 8
+PS0_THREADS = 512   # THREADS in csrc/pyramid_stage0.cu: one per dense unit
+
+LAUNCHES = {"fused_pyramid_stage0": 0, "matmul": 0}
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+class PS0Params(ctypes.Structure):
+    """Mirror of ``struct PS0Params`` in csrc/pyramid_stage0.cu."""
+    _fields_ = [
+        ("img", ctypes.c_void_p),
+        ("scores", ctypes.c_void_p),
+        ("scratch", ctypes.c_void_p),
+        ("step_out", ctypes.c_void_p * MAX_STEPS),
+        ("conv_w", ctypes.c_void_p * MAX_CONV),
+        ("conv_b", ctypes.c_void_p * MAX_CONV),
+        ("dense_w", ctypes.c_void_p),
+        ("dense_b", ctypes.c_void_p),
+        ("out_w", ctypes.c_void_p),
+        ("out_b", ctypes.c_void_p),
+        ("scratch_stride", ctypes.c_longlong),
+        ("B", ctypes.c_int), ("H", ctypes.c_int), ("n_steps", ctypes.c_int),
+        ("s0_step", ctypes.c_int), ("s0_res", ctypes.c_int),
+        ("C", ctypes.c_int), ("n_conv", ctypes.c_int),
+        ("dense_n", ctypes.c_int),
+        ("step_res", ctypes.c_int * MAX_STEPS),
+        ("step_src", ctypes.c_int * MAX_STEPS),
+        ("conv_cout", ctypes.c_int * MAX_CONV),
+        ("cw", ctypes.c_float * 9),
+        ("conv_scale", ctypes.c_float * MAX_CONV),
+        ("dense_scale", ctypes.c_float),
+        ("out_scale", ctypes.c_float),
+    ]
+
+
+def _stream() -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+
+def _check(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA error {rc} at launch")
+
+
+def _ps0_fn():
+    lib = library("pyramid_stage0")
+    fn = lib.repro_pyramid_stage0
+    if fn.argtypes is None:
+        lib.repro_ps0_params_size.restype = ctypes.c_int
+        size = lib.repro_ps0_params_size()
+        if size != ctypes.sizeof(PS0Params):
+            raise RuntimeError(f"PS0Params layout mismatch: C {size} bytes, "
+                               f"ctypes {ctypes.sizeof(PS0Params)}")
+        fn.argtypes = [ctypes.POINTER(PS0Params), ctypes.c_int,
+                       ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def launch_pyramid_stage0(prm: PS0Params, int8_weights: bool) -> None:
+    """Every pointer in ``prm`` must reference a live CUDA tensor the
+    caller keeps alive until the stream has run the kernel."""
+    fn = _ps0_fn()
+    _check(fn(ctypes.byref(prm), int(int8_weights), _stream()),
+           "fused_pyramid_stage0")
+    LAUNCHES["fused_pyramid_stage0"] += 1
+
+
+def launch_matmul(a: torch.Tensor, b: torch.Tensor, out: torch.Tensor
+                  ) -> None:
+    lib = library("matmul")
+    fn = lib.repro_matmul
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    m, k = a.shape
+    n = b.shape[1]
+    _check(fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k,
+              int(a.dtype == torch.bfloat16),
+              int(out.dtype == torch.bfloat16), _stream()), "matmul")
+    LAUNCHES["matmul"] += 1

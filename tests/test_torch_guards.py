@@ -1,0 +1,174 @@
+"""Boundary guards of the PyTorch/CUDA port (src/repro_torch):
+
+* the package imports neither ``jax`` nor the reference package;
+* ``chip_smoke.py`` imports neither;
+* entry points default to ``cuda`` and raise without a card instead of
+  carrying on quietly on the CPU, and the kernel wrappers never run a CUDA
+  request on the CPU.
+"""
+import ast
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _is_forbidden(mod: str) -> bool:
+    top = mod.split(".")[0]
+    return top in ("jax", "jaxlib", "repro")
+
+
+def test_port_imports_neither_jax_nor_reference():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import repro_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(\n"
+        "    repro_torch.__path__, 'repro_torch.')]\n"
+        "for n in names:\n"
+        "    importlib.import_module(n)\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in\n"
+        "             ('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
+        "print(len(names))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 25     # every module was imported
+
+
+@pytest.mark.parametrize("path", ["chip_smoke.py"] + sorted(
+    str(p.relative_to(ROOT)) for p in (ROOT / "src" / "repro_torch")
+    .rglob("*.py")))
+def test_no_jax_or_reference_import_statements(path):
+    tree = ast.parse((ROOT / path).read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        assert not any(_is_forbidden(n) for n in names), (path, names)
+
+
+def _no_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is usable")
+
+
+def test_entry_points_default_to_cuda_and_raise_without_a_card():
+    _no_card()
+    from repro_torch.configs.base import TahomaCNNConfig
+    from repro_torch.core.cascade import evaluate_cascades_streaming
+    from repro_torch.core.costs import CostProfile
+    from repro_torch.core.pipeline import ModelBank, build_scan_engine
+    from repro_torch.core.transforms import Representation
+    from repro_torch.engine.scan import ScanEngine, naive_scan
+    from repro_torch.models.cnn import init_cnn, params_from_jax
+
+    images = np.zeros((4, 8, 8, 3), np.float32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ScanEngine(images)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_scan_engine(images)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        naive_scan(images, [])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ModelBank()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        params_from_jax({"w": np.zeros(2, np.float32)})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_cnn(torch.Generator(), TahomaCNNConfig(input_hw=8))
+    reps = [Representation(8, "rgb"), Representation(4, "gray")]
+    prof = CostProfile.modeled({"a": 1e-4, "b": 1e-4}, reps, base_hw=8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        evaluate_cascades_streaming(
+            np.full((2, 6), 0.5, np.float32), np.array([0, 1] * 3),
+            np.zeros((2, 1)), np.ones((2, 1)), reps, [1e-4, 1e-4], prof,
+            "CAMERA", trusted=1)
+    # asking for the CPU explicitly works
+    assert ScanEngine(images, device="cpu").n_rows == 4
+
+
+def test_kernel_wrappers_never_run_a_cuda_request_on_the_cpu():
+    _no_card()
+    from repro_torch.core.transforms import Representation
+    from repro_torch.kernels import build, ops
+    from repro_torch.kernels.image_transform import fused_pyramid_stage0
+    from repro_torch.kernels.matmul import matmul
+
+    # a CUDA operand cannot even be made without a card (a CPU-only torch
+    # raises AssertionError, a CUDA build without a device RuntimeError)
+    with pytest.raises((AssertionError, RuntimeError)):
+        matmul(torch.zeros(2, 2, device="cuda"), torch.zeros(2, 2,
+                                                             device="cuda"))
+    # any other device is refused by the wrapper itself, not computed on
+    # the CPU
+    meta = torch.zeros(2, 2, device="meta")
+    with pytest.raises(ValueError):
+        matmul(meta, meta)
+    with pytest.raises(ValueError):
+        fused_pyramid_stage0(torch.zeros(1, 8, 8, 3, device="meta"), [4],
+                             {}, Representation(4, "rgb"))
+    # the launch path needs the built kernel: without nvcc it raises,
+    # and it counts no launch
+    if build._LIBS:
+        pytest.skip("kernels already loaded in this process")
+    before = dict(ops.LAUNCHES)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        ops.launch_matmul(torch.zeros(2, 2), torch.zeros(2, 2),
+                          torch.zeros(2, 2))
+    assert ops.LAUNCHES == before
+
+
+def test_cpu_tensors_use_the_plain_versions():
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.matmul import matmul
+    from repro_torch.kernels.ref import matmul_ref
+
+    ops.reset_launch_counts()
+    a = torch.randn(5, 7, generator=torch.Generator().manual_seed(0))
+    b = torch.randn(7, 3, generator=torch.Generator().manual_seed(1))
+    assert torch.equal(matmul(a, b), matmul_ref(a, b))
+    assert ops.LAUNCHES == {"fused_pyramid_stage0": 0, "matmul": 0}
+
+
+def _smoke(args, cwd):
+    # one intra-op thread: beside the suite's other workers, torch's
+    # default of one thread per core oversubscribes the CPU many times
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    env.pop("PYTHONPATH", None)
+    return subprocess.run([sys.executable, "chip_smoke.py", *args], cwd=cwd,
+                          env=env, capture_output=True, text=True,
+                          timeout=600)
+
+
+def test_chip_smoke_refuses_without_a_card_or_a_checkout(tmp_path):
+    _no_card()
+    out = _smoke([], ROOT)
+    assert out.returncode != 0 and '"ok"' not in out.stdout
+    (tmp_path / "chip_smoke.py").write_text(
+        (ROOT / "chip_smoke.py").read_text())
+    out = _smoke([], tmp_path)
+    assert out.returncode != 0 and '"ok"' not in out.stdout
+
+
+def test_chip_smoke_rehearsal_runs_every_phase_on_the_cpu():
+    out = _smoke(["--rehearse"], ROOT)
+    assert out.returncode == 3, out.stderr[-2000:]
+    assert '"ok"' not in out.stdout
+    assert "identical rows: True" in out.stdout
+    kernels = [ln for ln in out.stdout.splitlines()
+               if ln.startswith('{"kernels"')]
+    assert len(kernels) == 1
+    names = [k["name"] for k in json.loads(kernels[0])["kernels"]]
+    assert names == ["fused_pyramid_stage0", "matmul"]

@@ -22,7 +22,19 @@
    and read just after it; a kernel of the path with 0 launches fails.
    The f32 scan is then rerun under ``torch.profiler``: device time by
    kernel and the device's idle share.
-4. One ``{"kernels": [...]}`` line, then the result line
+4. LM serve path: zamba2-1.2b at full width (38 Mamba-2 layers, the shared
+   attention+MLP block after every 6th; random bf16 weights from a seeded
+   generator) serves 8 prompts of 512 tokens with 32 greedy decode steps
+   and bf16 KV through ``launch.serve.serve``. Launch counts are reset just
+   before the timed serve and read just after it: one prefill must launch
+   ``flash_attention`` 6 times and ``ssd_scan`` 38 times. Both kernels are
+   then held against their plain versions on the card at the path's shapes
+   and at the reference tests' shapes (kernel, plain, bound and library
+   times); prefill and a decode step are profiled; and an f32 copy of the
+   model must give the same logits from ``prefill`` on the first 256
+   tokens + one ``decode_step`` as from ``forward`` over all 512 tokens at
+   that position (the kernel path against the plain decode recurrences).
+5. One ``{"kernels": [...]}`` line, then the result line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises and the run exits non-zero. Without a CUDA device,
@@ -42,22 +54,45 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-# Per-card peaks for the bounds (NVIDIA data sheets): memory bytes/s and
-# f32 FLOP/s outside the tensor cores (the kernels are f32 FFMA).
-PEAKS = (("H100 PCIe", 2.0e12, 51e12), ("H100 NVL", 3.9e12, 60e12),
-         ("H100", 3.35e12, 67e12))
+# Per-card peaks for the bounds (NVIDIA data sheets): memory bytes/s, f32
+# FLOP/s outside the tensor cores (f32 FFMA), and dense bf16 tensor-core
+# FLOP/s (the least time attention's bf16 products could take).
+PEAKS = (("H100 PCIe", 2.0e12, 51e12, 756e12),
+         ("H100 NVL", 3.9e12, 60e12, 835e12),
+         ("H100", 3.35e12, 67e12, 989e12))
 SCORE_TOL = 1e-4   # |kernel - plain| on sigmoid scores: f32 sums in another
 #                    order (conv dot products of up to 9*48 terms, dense of up
 #                    to 6272); an indexing fault shows as O(0.1)
 MM_TOL = {"float32": 1e-3, "bfloat16": 3e-2}   # tests/test_kernels.py
+FLASH_TOL = 2e-3    # f32 kernel vs f32 plain, atol = rtol: same tests
+# bf16 kernel vs the plain version on the same inputs widened to f32, atol
+# and rtol. The kernel's scores are f32 sums of exact bf16 products; what
+# it rounds is P to bf16 before P V and the output to bf16. The first adds
+# at most 2^-9 * sum_j p_j |v_j| / l over the keys whose p is not exactly
+# 1: 2^-10 max|v| (~2.6e-3 for the 0.5-scaled inputs below) on a row of
+# two keys, less over many. The second is half an ulp, <= 2^-8 of |out|.
+# A KV tile dropped or rescaled wrongly moves the later rows by ~1e-2.
+FLASH_BF16_TOL = (4e-3, 2.0 ** -8)
+SSD_TOL = (5e-4, 5e-3)       # atol, rtol: tests/test_kernels.py::test_ssd_*
+# prefill + decode_step vs forward, f32 at full width: max |diff| over the
+# largest |logit|. f32 sums run in other orders (the chunked SSD kernel vs
+# the decode recurrence through 38 layers, the flash kernel vs sdpa over
+# the cache); a state, position or mask fault moves logits by O(1).
+CONSIST_TOL = 1e-3
+FLASH_TEST_SHAPES = ((1, 2, 64, 32), (2, 3, 128, 64), (1, 1, 256, 16))
+SSD_TEST_SHAPES = ((1, 64, 2, 8, 16), (2, 128, 3, 16, 32))
 
 FULL = dict(base=224, chunk=256, out_res=(112, 56, 28), split=512,
             corpus=8192, gen_batch=512, resolutions=(28, 56, 112, 224),
             small_grid=False, mm_shapes=((33, 17, 65), (256, 64, 130),
-                                         (128, 512, 1805)), iters=10)
+                                         (128, 512, 1805)), iters=10,
+            lm=dict(arch="zamba2-1.2b", full=True, batch=8, prompt=512,
+                    gen=32, check_at=256))
 REHEARSE = dict(base=32, chunk=32, out_res=(16, 8, 4), split=48, corpus=96,
                 gen_batch=48, resolutions=(4, 8, 16, 32), small_grid=True,
-                mm_shapes=((33, 17, 65),), iters=1)
+                mm_shapes=((33, 17, 65),), iters=1,
+                lm=dict(arch="zamba2-1.2b", full=False, batch=2, prompt=64,
+                        gen=4, check_at=32))
 
 
 def log(msg: str) -> None:
@@ -86,6 +121,7 @@ def main(argv=None) -> int:
     card = setup(dev)
     kern = check_kernels(dev, cfg, card, args.seed)
     launches = query_path(dev, cfg, card, kern, args.seed)
+    launches.update(lm_path(dev, cfg, card, kern, args.seed))
     kernels_line(kern, launches)
     if args.rehearse:
         log("rehearsal on the CPU: plain versions only, no result")
@@ -103,16 +139,18 @@ def setup(dev):
     from repro_torch.device import resolve_device
     resolve_device(dev)                 # TF32 off, cudnn.benchmark off
     if dev.type != "cuda":
-        return {"name": "cpu", "bw": 1.0, "flops": 1.0}
+        return {"name": "cpu", "bw": 1.0, "flops": 1.0, "bf16": 1.0}
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     log(smi)
     name = torch.cuda.get_device_name(0)
-    bw, flops = next((b, f) for key, b, f in PEAKS if key in name)
+    bw, flops, bf16 = next((b, f, h) for key, b, f, h in PEAKS
+                           if key in name)
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; peaks used "
-        f"for bounds: {bw / 1e12:.2f} TB/s, {flops / 1e12:.0f} TFLOP/s f32")
+        f"for bounds: {bw / 1e12:.2f} TB/s, {flops / 1e12:.0f} TFLOP/s f32, "
+        f"{bf16 / 1e12:.0f} TFLOP/s bf16 tensor cores")
     from repro_torch.kernels import build
     build.build_all()
     info = build.BUILD_INFO
@@ -122,7 +160,7 @@ def setup(dev):
         for line in dict.fromkeys(text.splitlines()):
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {stem}: {line.strip()}")
-    return {"name": name, "smi": smi, "bw": bw, "flops": flops}
+    return {"name": name, "smi": smi, "bw": bw, "flops": flops, "bf16": bf16}
 
 
 # ------------------------------------------------------------ phase 2 --
@@ -434,6 +472,7 @@ def query_path(dev, cfg, card, kern, seed):
         f"(dense numpy spaces): {t_plan:.2f} s")
     log(plan.explain(n_rows=cfg["corpus"], base_hw=cfg["base"],
                      actual=runs[False][0].stats))
+    launches = {k: launches[k] for k in ("fused_pyramid_stage0", "matmul")}
     log(f"  launches on the main path: {launches}")
     if dev.type == "cuda":
         for name, n in launches.items():
@@ -463,7 +502,9 @@ def query_path(dev, cfg, card, kern, seed):
                f"{exempt}" if exempt else ""))
     if dev.type == "cuda":
         _, secs, eng = runs[False]
-        profile_scan(eng, plan.cascades, dev, secs)
+        eng.reset_cache()      # rerun the timed scan: fresh store, same work
+        device_profile(lambda: eng.execute(plan.cascades), dev, secs,
+                       "scan profile (f32)")
 
     # the kernel's time and bound at the main path's own stage-0 shapes
     from repro_torch.kernels.image_transform import fused_pyramid_stage0
@@ -496,25 +537,23 @@ def query_path(dev, cfg, card, kern, seed):
     return launches
 
 
-def profile_scan(eng, cascades, dev, wall_s, top=12):
-    """Where one f32 scan's device time goes: torch.profiler over a rerun
-    of the timed scan (fresh store, same work), device time summed by
-    kernel name, and the device's idle share against the unprofiled scan's
-    wall time ``wall_s`` (the profiler slows the host, not the kernels)."""
-    import torch
+def device_profile(run, dev, wall_s, label, top=12):
+    """Where ``run()``'s device time goes: torch.profiler over it, device
+    time summed by kernel name, and the device's idle share against the
+    unprofiled run's wall time ``wall_s`` (the profiler slows the host, not
+    the kernels)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    eng.reset_cache()
     _sync(dev)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        eng.execute(cascades)
+        run()
         _sync(dev)
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
                    for e in prof.events() if e.device_type == DeviceType.CUDA)
     if not spans:
-        log("  scan profile: the profiler saw no device events; the "
-            "breakdown and idle share are not measured")
+        log(f"  {label}: the profiler saw no device events; the breakdown "
+            f"and idle share are not measured")
         return
     busy, end = 0.0, float("-inf")
     by_name: dict[str, list] = {}
@@ -524,8 +563,8 @@ def profile_scan(eng, cascades, dev, wall_s, top=12):
         acc = by_name.setdefault(name, [0, 0.0])
         acc[0] += 1
         acc[1] += e - s
-    log(f"  scan profile (f32): device busy {busy / 1e3:.3f} ms of the "
-        f"unprofiled scan's {wall_s * 1e3:.3f} ms wall; device idle share "
+    log(f"  {label}: device busy {busy / 1e3:.3f} ms of the unprofiled "
+        f"run's {wall_s * 1e3:.3f} ms wall; device idle share "
         f"{1 - busy / (wall_s * 1e6):.3f}")
     for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1]
                                 )[:top]:
@@ -583,6 +622,211 @@ def _sync(dev):
 
 
 # ------------------------------------------------------------ phase 4 --
+def lm_path(dev, cfg, card, kern, seed):
+    """zamba2-1.2b prefill + greedy decode through ``launch.serve.serve``;
+    returns the launch counts of the timed serve."""
+    import torch
+
+    from repro_torch.configs.registry import get_arch, smoke_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.factory import build_model, count_params
+    lm = cfg["lm"]
+    log("== LM serve path")
+    arch = get_arch(lm["arch"]) if lm["full"] else smoke_config(lm["arch"])
+    model = build_model(arch)
+    gen = torch.Generator(device=dev).manual_seed(seed + 3)
+    t0 = time.perf_counter()
+    params = model.init(gen, device=dev)
+    _sync(dev)
+    log(f"  {arch.name}: {count_params(params):,} parameters ({arch.dtype}), "
+        f"d_model {arch.d_model}, {arch.n_layers} Mamba-2 layers, the shared "
+        f"attention block after every {arch.hybrid_attn_every}; random "
+        f"weights in {time.perf_counter() - t0:.3f} s")
+    b, s, n_gen = lm["batch"], lm["prompt"], lm["gen"]
+    prompts = torch.randint(0, arch.vocab_size, (b, s), generator=gen,
+                            device=dev)
+    serve(model, params, prompts, 2, "bfloat16", device=dev)   # warm-up
+
+    # ---- the main path, with the launch counts read around it
+    ops.reset_launch_counts()
+    res = serve(model, params, prompts, n_gen, "bfloat16", device=dev)
+    launches = {k: ops.LAUNCHES[k] for k in ("flash_attention", "ssd_scan")}
+    expect = {"flash_attention": arch.n_layers // arch.hybrid_attn_every,
+              "ssd_scan": arch.n_layers}
+    log(f"  served {b} prompts x {s} tokens + {n_gen} greedy decode steps, "
+        f"bf16 KV: prefill {res.prefill_s * 1e3:.3f} ms "
+        f"({b * s / res.prefill_s:.0f} prompt tok/s), decode "
+        f"{res.decode_s * 1e3 / n_gen:.3f} ms/step "
+        f"({b * n_gen / res.decode_s:.1f} tok/s)")
+    log(f"  launches on the serve path: {launches} (one prefill; expected "
+        f"{expect})")
+    if dev.type == "cuda" and launches != expect:
+        raise AssertionError(f"serve path launches {launches} != {expect}")
+    toks, lg = res.tokens, res.logits
+    if tuple(toks.shape) != (b, n_gen + 1) or not torch.isfinite(lg).all() \
+            or int(toks.max()) >= arch.vocab_size or int(toks.min()) < 0:
+        raise AssertionError("serve produced bad tokens or logits")
+    log(f"  sample tokens: {toks[0, :8].tolist()}")
+    if dev.type == "cuda":
+        device_profile(lambda: serve(model, params, prompts, 0, "bfloat16",
+                                     device=dev), dev, res.prefill_s,
+                       "prefill profile (bf16)")
+        steps = 4
+        t0 = time.perf_counter()
+        serve(model, params, prompts[:, :8], steps, device=dev)
+        log(f"  (decode profile: {steps} steps after an 8-token prefill)")
+        device_profile(lambda: serve(model, params, prompts[:, :8], steps,
+                                     device=dev), dev,
+                       time.perf_counter() - t0, "prefill(8) + decode profile")
+    check_lm_kernels(dev, cfg, card, kern, arch, gen)
+    consistency(lm, arch, params, prompts)
+    return launches
+
+
+def _close(got, want, atol, rtol):
+    got, want = got.float(), want.float()
+    err = float((got - want).abs().max())
+    ok = bool(((got - want).abs() <= atol + rtol * want.abs()).all())
+    return err, ok
+
+
+def check_lm_kernels(dev, cfg, card, kern, arch, gen):
+    """Both LM kernels against their plain versions at the serve path's
+    shapes and at the reference tests' shapes, and their times."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import flash_attention_ref, ssd_scan_ref
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    lm = cfg["lm"]
+    b, s = lm["batch"], lm["prompt"]
+    bf = torch.bfloat16
+
+    def randn(*shape, dtype=torch.float32, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale
+                ).to(dtype)
+
+    fl = {"max_abs_err": 0.0}
+    path = (b, arch.n_heads, s, arch.head_dim)
+    cases = [(shp, c, dt) for shp, c in [(path, True)] + [
+        (shp, c) for shp in FLASH_TEST_SHAPES for c in (True, False)]
+        for dt in (torch.float32, bf)]
+    for shp, causal, dt in cases:
+        q, k, v = (randn(*shp, dtype=dt, scale=0.5) for _ in range(3))
+        # bf16 is held against the plain version in f32, which rounds
+        # neither the scores nor P: see FLASH_BF16_TOL
+        tol = FLASH_BF16_TOL if dt == bf else (FLASH_TOL, FLASH_TOL)
+        want = flash_attention_ref(q.float(), k.float(), v.float(),
+                                   causal=causal)
+        err, ok = _close(flash_attention(q, k, v, causal=causal), want, *tol)
+        log(f"  flash_attention {shp} {dt} causal={causal}: max |err| "
+            f"{err:.3g} (atol, rtol {tol[0]:.3g}, {tol[1]:.3g}; mean "
+            f"|out| {float(want.abs().mean()):.3g})")
+        if not ok:
+            raise AssertionError(f"flash_attention {shp} {dt}: {err}")
+        fl["max_abs_err"] = max(fl["max_abs_err"], err)
+    q, k, v = (randn(*path, dtype=bf) for _ in range(3))
+    it = cfg["iters"]
+    fl["ms"] = time_ms(lambda: flash_attention(q, k, v), dev, it)
+    fl["plain_ms"] = time_ms(lambda: flash_attention_ref(q, k, v), dev, it)
+    fl["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True), dev, it)
+    bb, h, _, d = path
+    t_ops = 4.0 * bb * h * d * s * (s + 1) / 2 / card["bf16"]
+    t_mem = 4.0 * bb * h * s * d * 2 / card["bw"]
+    fl.update(bound_ms=max(t_ops, t_mem) * 1e3,
+              bound_by="operations" if t_ops > t_mem else "bytes",
+              shape=f"q,k,v {path} bf16 causal")
+    log(f"  flash_attention {path} bf16 causal: kernel {fl['ms']:.4f} ms, "
+        f"plain {fl['plain_ms']:.4f} ms, sdpa {fl['library_ms']:.4f} ms, "
+        f"bound {fl['bound_ms']:.4f} ms ({fl['bound_by']})")
+    x = randn(bb, s, h, d, dtype=bf)
+    perm = time_ms(lambda: x.transpose(1, 2).contiguous(), dev, it)
+    log(f"  (B,S,H,D) -> (B,H,S,D) copy of one {tuple(x.shape)} bf16 tensor: "
+        f"{perm:.4f} ms (the shared block makes 4 per call: q, k, v in, the "
+        f"output back)")
+
+    ss = {"max_abs_err": 0.0}
+    h, p, n = arch.ssm_heads, arch.ssm.head_dim, arch.ssm.d_state
+    chunk = arch.ssm.chunk_size
+
+    def ssd_inputs(bb, sl, hh, pp, nn, dt):
+        return (randn(bb, sl, hh, pp, dtype=dt, scale=0.5),
+                torch.rand((bb, sl, hh), generator=gen, device=dev) * 0.1,
+                -torch.rand((hh,), generator=gen, device=dev) * 2,
+                randn(bb, sl, nn, dtype=dt, scale=0.3),
+                randn(bb, sl, nn, dtype=dt, scale=0.3))
+
+    cases = [((b, s, h, p, n), chunk, bf)] + [
+        (shp, c, torch.float32) for shp in SSD_TEST_SHAPES
+        for c in (16, 32, 64)]
+    for shp, c, dt in cases:
+        args = ssd_inputs(*shp, dt)
+        (y, fin), (yr, fr) = (ssd_scan(*args, chunk=c),
+                              ssd_scan_ref(*args, chunk=c))
+        ey, oky = _close(y, yr, *SSD_TOL)
+        ef, okf = _close(fin, fr, *SSD_TOL)
+        log(f"  ssd_scan x {shp[:4]} N {shp[4]} {dt} chunk {c}: max |err| "
+            f"y {ey:.3g}, final state {ef:.3g} (tol {SSD_TOL})")
+        if not (oky and okf):
+            raise AssertionError(f"ssd_scan {shp} chunk {c}: {ey}, {ef}")
+        ss["max_abs_err"] = max(ss["max_abs_err"], ey, ef)
+    args = ssd_inputs(b, s, h, p, n, bf)
+    ss["ms"] = time_ms(lambda: ssd_scan(*args, chunk=chunk), dev, it)
+    ss["plain_ms"] = time_ms(lambda: ssd_scan_ref(*args, chunk=chunk), dev,
+                             it)
+    t_ops = 4.0 * b * s * h * p * n / card["flops"]
+    nbytes = (b * s * h * p * 2 + b * s * h * 4 + h * 4 + 2 * b * s * n * 2
+              + b * s * h * p * 4 + b * h * p * n * 4)
+    t_mem = nbytes / card["bw"]
+    ss.update(bound_ms=max(t_ops, t_mem) * 1e3,
+              bound_by="operations" if t_ops > t_mem else "bytes",
+              library_ms=None,
+              shape=f"x ({b},{s},{h},{p}) bf16, N {n}, chunk {chunk}")
+    log(f"  ssd_scan x ({b},{s},{h},{p}) bf16 N {n}: kernel {ss['ms']:.4f} "
+        f"ms, plain {ss['plain_ms']:.4f} ms, bound {ss['bound_ms']:.4f} ms "
+        f"({ss['bound_by']}); no single PyTorch call computes it")
+    kern["flash_attention"], kern["ssd_scan"] = fl, ss
+
+
+def consistency(lm, arch, params, prompts):
+    """In an f32 copy of the model: ``prefill`` on the first ``check_at``
+    tokens, then one ``decode_step``, against ``forward`` over all of them
+    at those positions (the kernel path vs the plain decode recurrences)."""
+    import torch
+
+    from repro_torch.launch.serve import grow_cache
+    from repro_torch.models.factory import build_model
+    c = lm["check_at"]
+    m32 = build_model(arch.replace(dtype="float32"))
+
+    def f32(tree):
+        if isinstance(tree, dict):
+            return {k: f32(v) for k, v in tree.items()}
+        return tree.float()
+
+    p32 = f32(params)
+    full, _, _ = m32.forward(p32, {"tokens": prompts})
+    last, cache = m32.prefill(p32, {"tokens": prompts[:, :c]},
+                              kv_dtype="float32")
+    step, _ = m32.decode(p32, grow_cache(cache, 1),
+                         {"tokens": prompts[:, c:c + 1]})
+    for name, got, want in (("prefill", last, full[:, c - 1]),
+                            ("decode_step", step, full[:, c])):
+        rel = float((got - want).abs().max() / want.abs().max())
+        same = bool(torch.equal(got.argmax(-1), want.argmax(-1)))
+        log(f"  f32 {name} at position {c - (name == 'prefill')} vs "
+            f"forward over {prompts.shape[1]} tokens: max |diff| / max "
+            f"|logit| {rel:.3g} (tol {CONSIST_TOL}), argmax identical: {same}")
+        if rel > CONSIST_TOL or not same or not torch.isfinite(got).all():
+            raise AssertionError(f"{name} disagrees with forward: {rel}")
+    log("  prefill + decode_step == forward (f32, kernel path vs the plain "
+        "decode recurrences)")
+
+
+# ------------------------------------------------------------ phase 5 --
 def kernels_line(kern, launches):
     meta = {
         "fused_pyramid_stage0": (
@@ -590,6 +834,11 @@ def kernels_line(kern, launches):
             "src/repro/kernels/image_transform.py:280", kern["stage0"]),
         "matmul": ("src/repro_torch/kernels/csrc/matmul.cu",
                    "src/repro/kernels/matmul.py:46", kern["matmul"]),
+        "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention.py:78",
+                            kern["flash_attention"]),
+        "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
+                     "src/repro/kernels/ssd_scan.py:81", kern["ssd_scan"]),
     }
     out = []
     for name, (src, replaces, k) in meta.items():

@@ -2,8 +2,8 @@
 counters.
 
 Each ``launch_*`` function takes tensors that already lie on the card
-(the wrappers in ``image_transform.py`` and ``matmul.py`` validate and
-allocate), launches on ``torch.cuda.current_stream()`` without
+(the wrappers in ``image_transform.py``, ``matmul.py``,
+``flash_attention.py`` and ``ssd_scan.py`` validate and allocate), launches on ``torch.cuda.current_stream()`` without
 synchronizing, raises if the C entry point reports a CUDA error, and adds
 one to its kernel's count in ``LAUNCHES`` — there and nowhere else.
 """
@@ -19,7 +19,8 @@ MAX_STEPS = 8
 MAX_CONV = 8
 PS0_THREADS = 512   # THREADS in csrc/pyramid_stage0.cu: one per dense unit
 
-LAUNCHES = {"fused_pyramid_stage0": 0, "matmul": 0}
+LAUNCHES = {"fused_pyramid_stage0": 0, "matmul": 0, "flash_attention": 0,
+            "ssd_scan": 0}
 
 
 def reset_launch_counts() -> None:
@@ -88,17 +89,43 @@ def launch_pyramid_stage0(prm: PS0Params, int8_weights: bool) -> None:
     LAUNCHES["fused_pyramid_stage0"] += 1
 
 
+def _bind(stem: str, name: str, argtypes):
+    fn = getattr(library(stem), name)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fn
+
+
 def launch_matmul(a: torch.Tensor, b: torch.Tensor, out: torch.Tensor
                   ) -> None:
-    lib = library("matmul")
-    fn = lib.repro_matmul
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [
-            ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+    fn = _bind("matmul", "repro_matmul",
+               [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     m, k = a.shape
     n = b.shape[1]
     _check(fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k,
               int(a.dtype == torch.bfloat16),
               int(out.dtype == torch.bfloat16), _stream()), "matmul")
     LAUNCHES["matmul"] += 1
+
+
+def launch_ssd_scan(x, dt, a, bmat, cmat, y, final) -> None:
+    fn = _bind("ssd_scan", "repro_ssd_scan",
+               [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    b, s, h, p = x.shape
+    n = bmat.shape[-1]
+    _check(fn(x.data_ptr(), dt.data_ptr(), a.data_ptr(), bmat.data_ptr(),
+              cmat.data_ptr(), y.data_ptr(), final.data_ptr(), b, s, h, p, n,
+              int(x.dtype == torch.bfloat16), _stream()), "ssd_scan")
+    LAUNCHES["ssd_scan"] += 1
+
+
+def launch_flash_attention(q, k, v, out, causal: bool) -> None:
+    fn = _bind("flash_attention", "repro_flash_attention",
+               [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+               + [ctypes.c_float, ctypes.c_void_p])
+    b, h, s, d = q.shape
+    _check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+              b * h, s, k.shape[2], d, int(q.dtype == torch.bfloat16),
+              int(causal), d ** -0.5, _stream()), "flash_attention")
+    LAUNCHES["flash_attention"] += 1

@@ -26,3 +26,24 @@ def fused_pyramid_stage0_ref(images, out_res, params, rep, qparams=None):
 def matmul_ref(a, b, out_dtype=None):
     out = a.to(torch.float32) @ b.to(torch.float32)
     return out.to(out_dtype or a.dtype)
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True):
+    """q (B,H,S,D); k/v (B,H,T,D), KV heads already repeated."""
+    s = torch.einsum("bhqd,bhkd->bhqk", q, k).to(torch.float32)
+    s = s * (q.shape[-1] ** -0.5)
+    if causal:
+        qn, kn = q.shape[2], k.shape[2]
+        mask = (torch.arange(qn, device=q.device)[:, None]
+                >= torch.arange(kn, device=q.device)[None, :])
+        s = s.masked_fill(~mask[None, None], float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p.to(q.dtype), v)
+
+
+def ssd_scan_ref(x, dt, a, bmat, cmat, *, chunk: int = 128):
+    """The model layer's plain SSD (models/ssm.ssd_chunked) with no
+    initial state: returns y (B,S,H,P) f32 and the final state (B,H,P,N)
+    f32."""
+    from repro_torch.models.ssm import ssd_chunked   # ssm imports ssd_scan
+    return ssd_chunked(x, dt, a, bmat, cmat, chunk)

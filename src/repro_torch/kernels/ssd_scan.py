@@ -1,0 +1,56 @@
+"""Mamba-2 SSD chunk scan: y and the final state of every (batch, head)
+stream.
+
+``ssd_scan`` picks by the device of its inputs: on CPU tensors it runs the
+plain version (kernels/ref.ssd_scan_ref, the model layer's
+``ssd_chunked``); on CUDA tensors it launches the hand-written kernel
+(csrc/ssd_scan.cu) or raises. x (B,S,H,P) and bmat/cmat (B,S,N) share one
+dtype (f32 or bf16), dt (B,S,H) and a (H,) are f32; returns y (B,S,H,P)
+f32 and the final state (B,H,P,N) f32. ``chunk`` is the plain version's
+chunk length; the kernel runs its own 64-token chunk, and the result does
+not depend on it beyond f32 rounding. Both refuse a sequence that is not
+a multiple of ``min(chunk, S)``, as the reference does. A head width and
+state size whose tiles exceed a block's shared memory (above 128 x 128)
+fail at launch, and the wrapper raises.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.kernels.ref import ssd_scan_ref
+
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def ssd_scan(x, dt, a, bmat, cmat, *, chunk: int = 128):
+    args = (x, dt, a, bmat, cmat)
+    if all(t.device.type == "cpu" for t in args):
+        return ssd_scan_ref(x, dt, a, bmat, cmat, chunk=chunk)
+    if x.device.type != "cuda" or any(t.device != x.device for t in args):
+        raise ValueError(f"ssd_scan: operands on "
+                         f"{sorted({str(t.device) for t in args})}")
+    if x.dim() != 4:
+        raise ValueError(f"ssd_scan: x {tuple(x.shape)} is not (B,S,H,P)")
+    b, s, h, p = x.shape
+    n = bmat.shape[-1]
+    if (tuple(dt.shape) != (b, s, h) or tuple(a.shape) != (h,)
+            or tuple(bmat.shape) != (b, s, n)
+            or tuple(cmat.shape) != (b, s, n)):
+        raise ValueError(f"ssd_scan: shapes x {tuple(x.shape)}, dt "
+                         f"{tuple(dt.shape)}, a {tuple(a.shape)}, b "
+                         f"{tuple(bmat.shape)}, c {tuple(cmat.shape)}")
+    if s % min(chunk, max(s, 1)):
+        raise ValueError(f"sequence {s} is not a multiple of chunk {chunk}")
+    if (x.dtype not in _DTYPES or bmat.dtype != x.dtype
+            or cmat.dtype != x.dtype or dt.dtype != torch.float32
+            or a.dtype != torch.float32):
+        raise ValueError(f"ssd_scan: dtypes x {x.dtype}, b {bmat.dtype}, "
+                         f"c {cmat.dtype}, dt {dt.dtype}, a {a.dtype}")
+    y = torch.empty((b, s, h, p), dtype=torch.float32, device=x.device)
+    final = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
+    if not y.numel():
+        return y, final.zero_()
+    ops.launch_ssd_scan(x.contiguous(), dt.contiguous(), a.contiguous(),
+                        bmat.contiguous(), cmat.contiguous(), y, final)
+    return y, final

@@ -1,0 +1,119 @@
+"""Shared LM building blocks, ported from the reference's
+``models/common.py``.
+
+* ``init_*`` functions return nested dicts of tensors with the reference's
+  tree and leaf names, drawn from a ``torch.Generator`` with the
+  reference's shapes and scales (the numbers differ from JAX's: parity
+  tests carry weights over with ``transformer.params_from_jax``).
+* Norms compute in float32 and cast back; params live in ``cfg.dtype``.
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def pdtype(cfg) -> torch.dtype:
+    return DTYPES[cfg.dtype]
+
+
+def _normal(gen, shape, device):
+    return torch.randn(shape, generator=gen, device=gen.device).to(device)
+
+
+def _uniform(gen, shape, lo, hi, device):
+    u = torch.rand(shape, generator=gen, device=gen.device).to(device)
+    return u * (hi - lo) + lo
+
+
+def dense_init(gen, shape, in_axis: int = 0, dtype=torch.bfloat16,
+               scale=1.0, *, device):
+    std = scale / math.sqrt(max(shape[in_axis], 1))
+    return (_normal(gen, shape, device) * std).to(dtype)
+
+
+def embed_init(gen, shape, dtype=torch.bfloat16, *, device):
+    return (_normal(gen, shape, device) * 0.02).to(dtype)
+
+
+# ---------------------------------------------------------------- norms ----
+def init_norm(cfg, *, device):
+    p = {"scale": torch.ones((cfg.d_model,), dtype=pdtype(cfg),
+                             device=device)}
+    if cfg.norm == "layernorm":
+        p["bias"] = torch.zeros((cfg.d_model,), dtype=pdtype(cfg),
+                                device=device)
+    return p
+
+
+def apply_norm(p, x, cfg):
+    xf = x.to(torch.float32)
+    if cfg.norm == "rmsnorm":
+        xf = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True)
+                              + cfg.norm_eps)
+    else:  # layernorm
+        mu = torch.mean(xf, dim=-1, keepdim=True)
+        var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+        xf = (xf - mu) * torch.rsqrt(var + cfg.norm_eps)
+    out = xf * p["scale"].to(torch.float32)
+    if "bias" in p:
+        out = out + p["bias"].to(torch.float32)
+    return out.to(x.dtype)
+
+
+# ----------------------------------------------------------------- RoPE ----
+def rope_angles(positions, dim: int, theta: float):
+    """positions (...,) int -> cos/sin of shape (..., dim//2), float32."""
+    inv = 1.0 / (theta ** (np.arange(0, dim, 2, dtype=np.float32) / dim))
+    inv = torch.from_numpy(np.asarray(inv, np.float32)).to(positions.device)
+    ang = positions.to(torch.float32)[..., None] * inv[None, :]
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x, cos, sin):
+    """x (..., dim); cos/sin broadcastable to (..., dim//2). Pairs are the
+    llama 'rotate_half' convention (first/second half split)."""
+    d = x.shape[-1] // 2
+    xf1, xf2 = x[..., :d].to(torch.float32), x[..., d:].to(torch.float32)
+    out = torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin], -1)
+    return out.to(x.dtype)
+
+
+def rope_for_heads(positions, head_dim: int, theta: float):
+    """positions (B, S) -> cos/sin (B, S, 1, head_dim//2) for (B,S,H,D) q/k."""
+    cos, sin = rope_angles(positions, head_dim, theta)
+    return cos[:, :, None, :], sin[:, :, None, :]
+
+
+# ----------------------------------------------------------- embeddings ----
+def init_embedding(gen, cfg, *, device):
+    return {"embedding": embed_init(gen, (cfg.padded_vocab(), cfg.d_model),
+                                    pdtype(cfg), device=device)}
+
+
+def embed_tokens(p, tokens, cfg):
+    return p["embedding"][tokens.long()]
+
+
+def init_lm_head(gen, cfg, *, device):
+    if cfg.tie_embeddings:
+        return {}
+    return {"lm_head": dense_init(gen, (cfg.d_model, cfg.padded_vocab()), 0,
+                                  pdtype(cfg), device=device)}
+
+
+def lm_logits(head_p, embed_p, h, cfg):
+    if cfg.tie_embeddings:
+        return h @ embed_p["embedding"].T
+    return h @ head_p["lm_head"]
+
+
+def activation(name: str):
+    return {"silu": F.silu,
+            "gelu": lambda x: F.gelu(x, approximate="tanh"),  # jax default
+            "relu": F.relu}[name]

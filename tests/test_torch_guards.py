@@ -95,16 +95,36 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
             np.full((2, 6), 0.5, np.float32), np.array([0, 1] * 3),
             np.zeros((2, 1)), np.ones((2, 1)), reps, [1e-4, 1e-4], prof,
             "CAMERA", trusted=1)
+    # the LM serving path
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import transformer
+    from repro_torch.models.factory import build_model
+    model = build_model(smoke_config("zamba2-1.2b"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        model.init(torch.Generator())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        transformer.params_from_jax({"embed": {"embedding": np.zeros(
+            (4, 2), np.float32)}})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        model.init_cache(2, 8)
+    cpu_params = model.init(torch.Generator(), device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve(model, cpu_params, np.zeros((1, 4), np.int64), 1)
     # asking for the CPU explicitly works
     assert ScanEngine(images, device="cpu").n_rows == 4
+    assert serve(model, cpu_params, np.zeros((1, 4), np.int64), 1,
+                 device="cpu").tokens.shape == (1, 2)
 
 
 def test_kernel_wrappers_never_run_a_cuda_request_on_the_cpu():
     _no_card()
     from repro_torch.core.transforms import Representation
     from repro_torch.kernels import build, ops
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.image_transform import fused_pyramid_stage0
     from repro_torch.kernels.matmul import matmul
+    from repro_torch.kernels.ssd_scan import ssd_scan
 
     # a CUDA operand cannot even be made without a card (a CPU-only torch
     # raises AssertionError, a CUDA build without a device RuntimeError)
@@ -119,6 +139,18 @@ def test_kernel_wrappers_never_run_a_cuda_request_on_the_cpu():
     with pytest.raises(ValueError):
         fused_pyramid_stage0(torch.zeros(1, 8, 8, 3, device="meta"), [4],
                              {}, Representation(4, "rgb"))
+    with pytest.raises(ValueError):
+        flash_attention(*(torch.zeros(1, 2, 8, 16, device="meta"),) * 3)
+    with pytest.raises(ValueError):
+        ssd_scan(torch.zeros(1, 8, 2, 4, device="meta"),
+                 torch.zeros(1, 8, 2, device="meta"),
+                 torch.zeros(2, device="meta"),
+                 torch.zeros(1, 8, 4, device="meta"),
+                 torch.zeros(1, 8, 4, device="meta"))
+    # a CPU tensor beside a CUDA request is refused too, not computed
+    with pytest.raises(ValueError):
+        flash_attention(torch.zeros(1, 2, 8, 16), torch.zeros(
+            1, 2, 8, 16, device="meta"), torch.zeros(1, 2, 8, 16))
     # the launch path needs the built kernel: without nvcc it raises,
     # and it counts no launch
     if build._LIBS:
@@ -127,6 +159,14 @@ def test_kernel_wrappers_never_run_a_cuda_request_on_the_cpu():
     with pytest.raises(RuntimeError, match="nvcc"):
         ops.launch_matmul(torch.zeros(2, 2), torch.zeros(2, 2),
                           torch.zeros(2, 2))
+    q = torch.zeros(1, 1, 4, 16)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        ops.launch_flash_attention(q, q, q, q, True)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        ops.launch_ssd_scan(torch.zeros(1, 4, 1, 2), torch.zeros(1, 4, 1),
+                            torch.zeros(1), torch.zeros(1, 4, 2),
+                            torch.zeros(1, 4, 2), torch.zeros(1, 4, 1, 2),
+                            torch.zeros(1, 1, 2, 2))
     assert ops.LAUNCHES == before
 
 
@@ -139,7 +179,22 @@ def test_cpu_tensors_use_the_plain_versions():
     a = torch.randn(5, 7, generator=torch.Generator().manual_seed(0))
     b = torch.randn(7, 3, generator=torch.Generator().manual_seed(1))
     assert torch.equal(matmul(a, b), matmul_ref(a, b))
-    assert ops.LAUNCHES == {"fused_pyramid_stage0": 0, "matmul": 0}
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import flash_attention_ref, ssd_scan_ref
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    g = torch.Generator().manual_seed(2)
+    q, k, v = (torch.randn(1, 2, 8, 16, generator=g) for _ in range(3))
+    assert torch.equal(flash_attention(q, k, v),
+                       flash_attention_ref(q, k, v))
+    args = (torch.randn(1, 8, 2, 4, generator=g), torch.rand(1, 8, 2,
+                                                               generator=g),
+            -torch.rand(2, generator=g), torch.randn(1, 8, 3, generator=g),
+            torch.randn(1, 8, 3, generator=g))
+    for got, want in zip(ssd_scan(*args, chunk=4),
+                         ssd_scan_ref(*args, chunk=4)):
+        assert torch.equal(got, want)
+    assert ops.LAUNCHES == {"fused_pyramid_stage0": 0, "matmul": 0,
+                            "flash_attention": 0, "ssd_scan": 0}
 
 
 def _smoke(args, cwd):
@@ -171,4 +226,6 @@ def test_chip_smoke_rehearsal_runs_every_phase_on_the_cpu():
                if ln.startswith('{"kernels"')]
     assert len(kernels) == 1
     names = [k["name"] for k in json.loads(kernels[0])["kernels"]]
-    assert names == ["fused_pyramid_stage0", "matmul"]
+    assert names == ["fused_pyramid_stage0", "matmul", "flash_attention",
+                     "ssd_scan"]
+    assert "prefill + decode_step == forward" in out.stdout

@@ -34,7 +34,17 @@
    model must give the same logits from ``prefill`` on the first 256
    tokens + one ``decode_step`` as from ``forward`` over all 512 tokens at
    that position (the kernel path against the plain decode recurrences).
-5. One ``{"kernels": [...]}`` line, then the result line
+5. Kernel entry points (``kernels/ops``), the twin of the reference's
+   ``bench_transform_kernel`` at the query path's width: a chunk of 256
+   dyadic 224 px frames through ``pyramid_transform_op`` with all 20
+   (resolution, color) specs of the bank's representation space in one
+   launch, and through ``transform_op`` once per spec. Launch counts are
+   reset just before and read just after: 20 ``fused_transform`` and 1
+   ``fused_pyramid_transform``. Every output is held against its plain
+   version (rgb/r/g/b ``torch.equal``, gray within TRANSFORM_GRAY_TOL), and
+   again on ``torch.rand`` frames within TRANSFORM_TOL; then kernel, plain,
+   bound and library (``F.conv2d``) times.
+6. One ``{"kernels": [...]}`` line, then the result line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises and the run exits non-zero. Without a CUDA device,
@@ -79,6 +89,12 @@ SSD_TOL = (5e-4, 5e-3)       # atol, rtol: tests/test_kernels.py::test_ssd_*
 # the decode recurrence through 38 layers, the flash kernel vs sdpa over
 # the cache); a state, position or mask fault moves logits by O(1).
 CONSIST_TOL = 1e-3
+# transform kernels vs plain versions. On dyadic (k/256) pixels the pooled
+# sums are exact and x1/x0 projections too, so rgb/r/g/b must be equal;
+# gray sums three products in another order (|err| <= ~2 ulp of 1, x4 by
+# the normalization); on torch.rand pixels, tests/test_kernels.py's atol.
+TRANSFORM_GRAY_TOL = 1e-6
+TRANSFORM_TOL = 1e-5
 FLASH_TEST_SHAPES = ((1, 2, 64, 32), (2, 3, 128, 64), (1, 1, 256, 16))
 SSD_TEST_SHAPES = ((1, 64, 2, 8, 16), (2, 128, 3, 16, 32))
 
@@ -122,6 +138,7 @@ def main(argv=None) -> int:
     kern = check_kernels(dev, cfg, card, args.seed)
     launches = query_path(dev, cfg, card, kern, args.seed)
     launches.update(lm_path(dev, cfg, card, kern, args.seed))
+    launches.update(ops_path(dev, cfg, card, kern, args.seed))
     kernels_line(kern, launches)
     if args.rehearse:
         log("rehearsal on the CPU: plain versions only, no result")
@@ -827,6 +844,146 @@ def consistency(lm, arch, params, prompts):
 
 
 # ------------------------------------------------------------ phase 5 --
+def ops_path(dev, cfg, card, kern, seed):
+    """The two transform kernels through the ``kernels/ops`` entry points
+    at the query path's chunk and base; returns their launch counts."""
+    import torch
+
+    from repro_torch.core.transforms import COLOR_REPS
+    from repro_torch.kernels import ops
+    log("== kernel entry points (kernels/ops)")
+    gen = torch.Generator(device=dev).manual_seed(seed + 4)
+    b, base = cfg["chunk"], cfg["base"]
+    specs = tuple((r, c) for r in cfg["resolutions"] for c in COLOR_REPS)
+    imgs = dyadic(b, base, gen, dev)
+
+    def run(x):
+        return {"fused_pyramid_transform": ops.pyramid_transform_op(
+                    x, specs=specs),
+                "fused_transform": [ops.transform_op(x, res=r, color=c)
+                                    for r, c in specs]}
+
+    # ---- the main path, with the launch counts read around it
+    ops.reset_launch_counts()
+    outs = run(imgs)
+    _sync(dev)
+    names = ("fused_transform", "fused_pyramid_transform")
+    launches = {k: ops.LAUNCHES[k] for k in names}
+    expect = {"fused_transform": len(specs), "fused_pyramid_transform": 1}
+    log(f"  {len(specs)} specs {specs[0]}..{specs[-1]} on {b} x {base} px "
+        f"frames; launches on the entry points: {launches} (expected "
+        f"{expect})")
+    if dev.type == "cuda" and launches != expect:
+        raise AssertionError(f"entry-point launches {launches} != {expect}")
+
+    worst = dict.fromkeys(names, 0.0)
+
+    def hold(label, x, got):
+        exact_input = label == "dyadic"
+        wants = [_transform_ref(x, r, c) for r, c in specs]
+        for name in names:
+            err_by = {"gray": 0.0, "other": 0.0}
+            for o, want, (r, c) in zip(got[name], wants, specs):
+                if o.shape != want.shape or not torch.isfinite(o).all():
+                    raise AssertionError(f"{name} ({r}, {c}): bad output")
+                err = float((o - want).abs().max())
+                if exact_input and c != "gray":
+                    ok = torch.equal(o, want)
+                else:
+                    ok = err <= (TRANSFORM_GRAY_TOL if exact_input
+                                 else TRANSFORM_TOL)
+                if not ok:
+                    raise AssertionError(f"{name} ({r}, {c}) on {label} "
+                                         f"frames: max |err| {err}")
+                key = "gray" if c == "gray" else "other"
+                err_by[key] = max(err_by[key], err)
+            worst[name] = max(worst[name], *err_by.values())
+            log(f"  {name} on {label} frames, all {len(specs)} outputs: "
+                + (f"rgb/r/g/b equal, gray max |err| {err_by['gray']:.3g} "
+                   f"(tol {TRANSFORM_GRAY_TOL})" if exact_input else
+                   f"max |err| {max(err_by.values()):.3g} (tol "
+                   f"{TRANSFORM_TOL})"))
+
+    hold("dyadic", imgs, outs)
+    del outs
+    x = torch.rand((b, base, base, 3), generator=gen, device=dev)
+    hold("torch.rand", x, run(x))
+    transform_times(dev, cfg, card, kern, imgs, specs, worst)
+    return launches
+
+
+def _transform_ref(x, res, color):
+    from repro_torch.kernels.ops import COLOR_WEIGHTS
+    from repro_torch.kernels.ref import fused_transform_ref
+    return fused_transform_ref(x, COLOR_WEIGHTS[color], res)
+
+
+def transform_times(dev, cfg, card, kern, imgs, specs, worst):
+    """Each transform kernel's time at one stated shape: the kernel alone
+    (a prepared launch; through the entry point on the CPU), the entry
+    point, the plain version, one F.conv2d where one computes the same
+    function, and the bytes/operations bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.core.transforms import plan_pyramid
+    from repro_torch.kernels import bindings, ops
+    from repro_torch.kernels.image_transform import transform_params
+    from repro_torch.kernels.ref import fused_pyramid_transform_ref
+    b, base = imgs.shape[0], imgs.shape[1]
+    it = cfg["iters"] * 10
+    r1, c1 = cfg["resolutions"][1], "gray"    # 224 -> 56: factor 4
+    cases = (("fused_transform", ((r1, c1),), bindings.launch_fused_transform,
+              lambda: ops.transform_op(imgs, res=r1, color=c1)),
+             ("fused_pyramid_transform", specs,
+              bindings.launch_fused_pyramid_transform,
+              lambda: ops.pyramid_transform_op(imgs, specs=specs)))
+    for name, sp, launch, entry in cases:
+        cws = [(r, ops.COLOR_WEIGHTS[c]) for r, c in sp]
+        entry_ms = time_ms(entry, dev, it)
+        if dev.type == "cuda":
+            prm, _outs = transform_params(imgs, cws)   # outputs kept alive
+            ms = time_ms(lambda: launch(prm), dev, it)
+        else:
+            ms = entry_ms
+        plain = time_ms(lambda: fused_pyramid_transform_ref(imgs, cws), dev,
+                        it)
+        nbytes = 4 * b * (base * base * 3 + sum(
+            r * r * ops.COLOR_WEIGHTS[c].shape[1] for r, c in sp))
+        # pooling adds along the plan, then 3 products + 2 adds per output
+        # value and its normalization (2)
+        nops = b * (sum(st.source ** 2 * 3 for st in plan_pyramid(
+            [r for r, _ in sp], base)) + sum(
+                r * r * ops.COLOR_WEIGHTS[c].shape[1] * 7 for r, c in sp))
+        t_mem, t_ops = nbytes / card["bw"], nops / card["flops"]
+        k = {"max_abs_err": worst[name], "ms": ms, "plain_ms": plain,
+             "bound_ms": max(t_mem, t_ops) * 1e3,
+             "bound_by": "bytes" if t_mem > t_ops else "operations",
+             "library_ms": None,
+             "shape": f"{b} x {base} px -> " + (
+                 f"{sp[0]}" if len(sp) == 1 else f"all {len(sp)} specs")}
+        lib = ""
+        if name == "fused_transform":
+            r, c = sp[0]
+            f = base // r
+            cw = torch.as_tensor(ops.COLOR_WEIGHTS[c], device=dev)
+            w = (cw.T / (f * f * 0.25)).reshape(-1, 3, 1, 1).expand(
+                -1, 3, f, f).contiguous()
+            bias = torch.full((cw.shape[1],), -0.5 / 0.25, device=dev)
+            nchw = imgs.permute(0, 3, 1, 2)      # channels-last view
+            k["library_ms"] = time_ms(
+                lambda: F.conv2d(nchw, w, bias, stride=f), dev, it)
+            got = F.conv2d(nchw, w, bias, stride=f).permute(0, 2, 3, 1)
+            lib_err = float((got - _transform_ref(imgs, r, c)).abs().max())
+            lib = (f", F.conv2d {k['library_ms']:.4f} ms (max |diff| "
+                   f"{lib_err:.3g})")
+        kern[name] = k
+        log(f"  {name} {k['shape']}: kernel {ms:.4f} ms (entry point "
+            f"{entry_ms:.4f} ms), plain {plain:.4f} ms{lib}, bound "
+            f"{k['bound_ms']:.4f} ms ({k['bound_by']})")
+
+
+# ------------------------------------------------------------ phase 6 --
 def kernels_line(kern, launches):
     meta = {
         "fused_pyramid_stage0": (
@@ -839,6 +996,13 @@ def kernels_line(kern, launches):
                             kern["flash_attention"]),
         "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
                      "src/repro/kernels/ssd_scan.py:81", kern["ssd_scan"]),
+        "fused_transform": ("src/repro_torch/kernels/csrc/image_transform.cu",
+                            "src/repro/kernels/image_transform.py:73",
+                            kern["fused_transform"]),
+        "fused_pyramid_transform": (
+            "src/repro_torch/kernels/csrc/image_transform.cu",
+            "src/repro/kernels/image_transform.py:125",
+            kern["fused_pyramid_transform"]),
     }
     out = []
     for name, (src, replaces, k) in meta.items():

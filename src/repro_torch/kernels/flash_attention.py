@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import bindings
 from repro_torch.kernels.ref import flash_attention_ref
 
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -39,6 +39,6 @@ def flash_attention(q, k, v, *, causal: bool = True):
     if not k.shape[2]:
         return out.zero_()         # no keys: the kernel's 0 / max(0, 1e-30)
     if out.numel():
-        ops.launch_flash_attention(q.contiguous(), k.contiguous(),
+        bindings.launch_flash_attention(q.contiguous(), k.contiguous(),
                                    v.contiguous(), out, causal)
     return out

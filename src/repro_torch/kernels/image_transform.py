@@ -1,21 +1,39 @@
-"""Fused pyramid + stage-0 pass (the per-chunk hot path of the scan
-engine): one read of the raw base per image emits the raw pooled RGB
-pyramid levels the engine carries between cascade stages AND the stage-0
-cascade model's sigmoid scores.
+"""Fused physical-representation transforms of raw frames.
 
-``fused_pyramid_stage0`` picks by the device of ``images``: on a CPU
-tensor it runs the plain version (kernels/ref.py); on a CUDA tensor it
-launches the hand-written kernel (csrc/pyramid_stage0.cu) or raises.
-There is no fallback between the two.
+* ``fused_transform``: area-average resize to one resolution, the
+  channel projection of one color representation, and normalization.
+* ``fused_pyramid_transform``: every (resolution, color) representation of
+  a list from one read of the base, levels pooled progressively along
+  ``core.transforms.plan_pyramid``.
+* ``fused_pyramid_stage0`` (the per-chunk hot path of the scan engine):
+  one read of the raw base per image emits the raw pooled RGB pyramid
+  levels the engine carries between cascade stages AND the stage-0
+  cascade model's sigmoid scores.
+
+Each picks by the device of ``images``: on a CPU tensor it runs the plain
+version (kernels/ref.py); on a CUDA tensor it launches the hand-written
+kernel (csrc/image_transform.cu, csrc/pyramid_stage0.cu) or raises; any
+other device is refused. There is no fallback between the two.
 """
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
 
 from repro_torch.core.transforms import _GRAY, plan_pyramid
-from repro_torch.kernels import ops
-from repro_torch.kernels.ref import fused_pyramid_stage0_ref
+from repro_torch.kernels import bindings
+from repro_torch.kernels.ref import (fused_pyramid_stage0_ref,
+                                     fused_pyramid_transform_ref,
+                                     fused_transform_ref)
+
+# A transform block's base tile stays within TILE_BYTES where the pooling
+# factors allow (~28 KB of shared memory with its levels, so registers,
+# not shared memory, cap the blocks on an SM); no block may take more
+# than SMEM_MAX, a block's limit on an H100.
+TILE_BYTES = 24 * 1024
+SMEM_MAX = 227 * 1024
 
 
 def color_weight_matrix(color: str) -> np.ndarray:
@@ -29,6 +47,147 @@ def color_weight_matrix(color: str) -> np.ndarray:
     w = np.zeros((3, 1), np.float32)
     w[idx, 0] = 1.0
     return w
+
+
+def _square(images: torch.Tensor, name: str) -> int:
+    if images.dim() != 4 or images.shape[1] != images.shape[2] \
+            or images.shape[3] != 3:
+        raise ValueError(f"{name}: images must be (B, H, H, 3), got "
+                         f"{tuple(images.shape)}")
+    return int(images.shape[1])
+
+
+def _on_card(images: torch.Tensor, name: str) -> bool:
+    """False for a CPU tensor (the plain version), True for a CUDA one."""
+    if images.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {images.device}")
+    return images.device.type == "cuda"
+
+
+def fused_transform(images: torch.Tensor, channel_weights, res: int,
+                    mean: float = 0.5, std: float = 0.25) -> torch.Tensor:
+    """images (B, H, H, 3) float; channel_weights (3, C') encodes the
+    color representation (identity columns / unit column / gray weights;
+    C' is 1 or 3 on the card). -> (B, res, res, C') float32,
+    (area-average @ channel_weights - mean) / std."""
+    h = _square(images, "fused_transform")
+    res = int(res)
+    if not 1 <= res <= h or h % res:
+        raise ValueError(f"fused_transform: {res} does not divide {h}")
+    if not _on_card(images, "fused_transform"):
+        return fused_transform_ref(images, channel_weights, res, mean, std)
+    (out,) = _launch_transform(images, [(res, channel_weights)], mean, std,
+                               bindings.launch_fused_transform)
+    return out
+
+
+def fused_pyramid_transform(images: torch.Tensor, rep_specs,
+                            mean: float = 0.5, std: float = 0.25) -> tuple:
+    """images (B, H, H, 3) float -> one (B, res_i, res_i, C'_i) float32
+    tensor per (res_i, channel_weights_i) of ``rep_specs``, all from a
+    single read of the base on the card. Raises ValueError when a
+    resolution does not nest under H (``plan_pyramid``)."""
+    h = _square(images, "fused_pyramid_transform")
+    specs = [(int(r), cw) for r, cw in rep_specs]
+    if any(r < 1 for r, _ in specs):
+        raise ValueError(f"fused_pyramid_transform: resolutions "
+                         f"{[r for r, _ in specs]}")
+    plan_pyramid([r for r, _ in specs], h)
+    if not _on_card(images, "fused_pyramid_transform"):
+        return fused_pyramid_transform_ref(images, specs, mean, std)
+    return _launch_transform(images, specs, mean, std,
+                             bindings.launch_fused_pyramid_transform)
+
+
+def transform_tiling(h: int, steps) -> tuple[int, int, list[int], int]:
+    """The transform kernel's tile for base ``h`` and pyramid ``steps``:
+    (tile_h, tile_w, each step's float offset in shared memory, shared
+    bytes). Both sides are multiples of every pooling factor from the base
+    and divide ``h``; a strip of full rows is preferred (one contiguous
+    span of the frame), as tall as TILE_BYTES allows. Raises ValueError
+    when even the smallest tile exceeds SMEM_MAX."""
+    unit = math.lcm(1, *(h // st.resolution for st in steps))
+    sides = [unit * m for m in range(1, h // unit + 1)
+             if (h // unit) % m == 0]
+
+    def tallest(width):
+        return max((s for s in sides if s * width * 12 <= TILE_BYTES),
+                   default=unit)
+
+    tile_h = tallest(h)
+    tile_w = h if tile_h * h * 12 <= TILE_BYTES else tallest(unit)
+    offsets, floats = [], tile_h * tile_w * 3
+    for st in steps:
+        f = h // st.resolution
+        offsets.append(floats)
+        floats += (tile_h // f) * (tile_w // f) * 3
+    if floats * 4 > SMEM_MAX:
+        raise ValueError(f"pooling factor {unit} under {h} needs "
+                         f"{floats * 4} bytes of shared memory per block, "
+                         f"above {SMEM_MAX}")
+    return tile_h, tile_w, offsets, floats * 4
+
+
+def _launch_transform(images, specs, mean, std, launch) -> tuple:
+    images = images.to(torch.float32).contiguous()
+    prm, outs = transform_params(images, specs, mean, std)
+    if prm is not None:
+        launch(prm)
+    return outs
+
+
+def transform_params(images: torch.Tensor, specs, mean: float = 0.5,
+                     std: float = 0.25):
+    """The transform kernel's launch parameters for contiguous float32
+    (B, H, H, 3) CUDA ``images`` and (res, channel_weights) ``specs``, and
+    the outputs they point at: (ITParams, outputs), or (None, outputs)
+    when there is nothing to launch. The caller keeps ``images`` and the
+    outputs alive while a launch with the parameters may run."""
+    if images.dtype != torch.float32 or not images.is_contiguous():
+        raise ValueError("transform_params: images must be contiguous "
+                         "float32")
+    b, h = int(images.shape[0]), int(images.shape[1])
+    cws = []
+    for _, cw in specs:
+        cw = np.asarray(cw.detach().cpu() if torch.is_tensor(cw) else cw,
+                        np.float32)
+        if cw.ndim != 2 or cw.shape[0] != 3 or cw.shape[1] not in (1, 3):
+            raise ValueError(f"channel weights must be (3, 1) or (3, 3) on "
+                             f"the card, got {cw.shape}")
+        cws.append(cw)
+    if len(specs) > bindings.IT_MAX_OUTPUTS:
+        raise ValueError(f"at most {bindings.IT_MAX_OUTPUTS} outputs")
+    steps = plan_pyramid([r for r, _ in specs], h)
+    if len(steps) > bindings.IT_MAX_LEVELS:
+        raise ValueError(f"at most {bindings.IT_MAX_LEVELS} pyramid levels")
+    tile_h, tile_w, offsets, smem = transform_tiling(h, steps)
+    if b * (h // tile_h) * (h // tile_w) >= 2 ** 31:
+        raise ValueError(f"{b} images of {h} px exceed one launch's grid")
+    outs = tuple(torch.empty((b, r, r, cw.shape[1]), device=images.device)
+                 for (r, _), cw in zip(specs, cws))
+    if not b or not outs:
+        return None, outs
+    level = {st.resolution: i for i, st in enumerate(steps)}
+    prm = bindings.ITParams()
+    prm.img = images.data_ptr()
+    prm.B, prm.H, prm.tile_h, prm.tile_w = b, h, tile_h, tile_w
+    prm.vec4 = int(h % 4 == 0 and tile_w % 4 == 0
+                   and images.data_ptr() % 16 == 0)
+    prm.smem_bytes = smem
+    prm.n_levels = len(steps)
+    for i, st in enumerate(steps):
+        prm.level_res[i] = st.resolution
+        prm.level_src[i] = -1 if st.source == h else level[st.source]
+        prm.level_off[i] = offsets[i]
+    prm.n_out = len(outs)
+    for o, ((r, _), cw, out) in enumerate(zip(specs, cws, outs)):
+        prm.out[o] = out.data_ptr()
+        prm.out_level[o] = -1 if r == h else level[r]
+        prm.out_ch[o] = cw.shape[1]
+        for k, v in enumerate(cw.reshape(-1)):
+            prm.out_cw[9 * o + k] = float(v)
+    prm.mean, prm.inv_std = mean, 1.0 / std
+    return prm, outs
 
 
 def fused_pyramid_stage0(images: torch.Tensor, out_res, params, rep, *,
@@ -86,18 +245,18 @@ def _launch(images, out_res, params, rep, qparams):
         raise ValueError("fused_pyramid_stage0: empty batch")
     s0_res = int(rep.resolution)
     steps = plan_pyramid(set(out_res) | {s0_res}, h)
-    if len(steps) > ops.MAX_STEPS:
-        raise ValueError(f"at most {ops.MAX_STEPS} pyramid steps")
+    if len(steps) > bindings.MAX_STEPS:
+        raise ValueError(f"at most {bindings.MAX_STEPS} pyramid steps")
     weights = _weight_operands(params, qparams)
     *conv, (dense_w, dense_s, dense_b), (out_w, out_s, out_b) = weights
-    if len(conv) > ops.MAX_CONV:
-        raise ValueError(f"at most {ops.MAX_CONV} conv layers")
+    if len(conv) > bindings.MAX_CONV:
+        raise ValueError(f"at most {bindings.MAX_CONV} conv layers")
     cw = color_weight_matrix(rep.color)
     c = cw.shape[1]
     dense_n = dense_w.shape[1]
-    if dense_n > ops.PS0_THREADS:
+    if dense_n > bindings.PS0_THREADS:
         raise ValueError(f"dense layer wider than the kernel's "
-                         f"{ops.PS0_THREADS} threads")
+                         f"{bindings.PS0_THREADS} threads")
 
     # scratch: two ping-pong activation buffers per image, each large
     # enough for the projected input and for every pooled conv output
@@ -124,7 +283,7 @@ def _launch(images, out_res, params, rep, qparams):
     scratch = torch.empty(b * 2 * need, device=dev)
     index = {st.resolution: i for i, st in enumerate(steps)}
 
-    prm = ops.PS0Params()
+    prm = bindings.PS0Params()
     prm.img = images.data_ptr()
     prm.scores = scores.data_ptr()
     prm.scratch = scratch.data_ptr()
@@ -148,7 +307,7 @@ def _launch(images, out_res, params, rep, qparams):
                                              dense_b.data_ptr(), dense_n)
     prm.out_w, prm.out_b = out_w.data_ptr(), out_b.data_ptr()
     prm.dense_scale, prm.out_scale = dense_s, out_s
-    ops.launch_pyramid_stage0(prm, int8_weights=qparams is not None)
+    bindings.launch_pyramid_stage0(prm, int8_weights=qparams is not None)
     # the caching allocator may hand `scratch` (and dropped operand copies)
     # to later work queued on this same stream only, so freeing them here
     # is safe without a synchronize

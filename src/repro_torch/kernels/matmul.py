@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import bindings
 from repro_torch.kernels.ref import matmul_ref
 
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -33,5 +33,5 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, out_dtype=None
     out = torch.empty((a.shape[0], b.shape[1]), dtype=out_dtype,
                       device=a.device)
     if out.numel():
-        ops.launch_matmul(a, b, out)
+        bindings.launch_matmul(a, b, out)
     return out

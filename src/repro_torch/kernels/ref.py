@@ -5,8 +5,27 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.transforms import color_transform, materialize_pyramid
+from repro_torch.core.transforms import (color_transform,
+                                         materialize_pyramid, resize_area)
 from repro_torch.models.cnn import cnn_predict_proba, dequantize_cnn
+
+
+def fused_transform_ref(images, channel_weights, res: int,
+                        mean: float = 0.5, std: float = 0.25):
+    """resize_area -> (3, C') channel projection -> (x - mean) / std."""
+    x = resize_area(images.to(torch.float32), res)
+    cw = torch.as_tensor(channel_weights, dtype=torch.float32,
+                         device=x.device)
+    x = torch.einsum("bhwc,cd->bhwd", x, cw)
+    return (x - mean) / std
+
+
+def fused_pyramid_transform_ref(images, rep_specs, mean: float = 0.5,
+                                std: float = 0.25):
+    """Each (res, channel_weights) representation independently from the
+    base (the nesting of box filters makes the progressive kernel agree)."""
+    return tuple(fused_transform_ref(images, cw, int(res), mean, std)
+                 for res, cw in rep_specs)
 
 
 def fused_pyramid_stage0_ref(images, out_res, params, rep, qparams=None):

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import bindings
 from repro_torch.kernels.ref import ssd_scan_ref
 
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -51,6 +51,6 @@ def ssd_scan(x, dt, a, bmat, cmat, *, chunk: int = 128):
     final = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
     if not y.numel():
         return y, final.zero_()
-    ops.launch_ssd_scan(x.contiguous(), dt.contiguous(), a.contiguous(),
+    bindings.launch_ssd_scan(x.contiguous(), dt.contiguous(), a.contiguous(),
                         bmat.contiguous(), cmat.contiguous(), y, final)
     return y, final

@@ -120,9 +120,11 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
 def test_kernel_wrappers_never_run_a_cuda_request_on_the_cpu():
     _no_card()
     from repro_torch.core.transforms import Representation
-    from repro_torch.kernels import build, ops
+    from repro_torch.kernels import bindings, build, ops
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.image_transform import fused_pyramid_stage0
+    from repro_torch.kernels.image_transform import (fused_pyramid_stage0,
+                                                     fused_pyramid_transform,
+                                                     fused_transform)
     from repro_torch.kernels.matmul import matmul
     from repro_torch.kernels.ssd_scan import ssd_scan
 
@@ -139,6 +141,14 @@ def test_kernel_wrappers_never_run_a_cuda_request_on_the_cpu():
     with pytest.raises(ValueError):
         fused_pyramid_stage0(torch.zeros(1, 8, 8, 3, device="meta"), [4],
                              {}, Representation(4, "rgb"))
+    meta_images = torch.zeros(1, 8, 8, 3, device="meta")
+    with pytest.raises(ValueError):
+        fused_transform(meta_images, ops.COLOR_WEIGHTS["gray"], 4)
+    with pytest.raises(ValueError):
+        fused_pyramid_transform(meta_images,
+                                [(4, ops.COLOR_WEIGHTS["rgb"])])
+    with pytest.raises(ValueError):
+        ops.transform_op(meta_images, res=4)
     with pytest.raises(ValueError):
         flash_attention(*(torch.zeros(1, 2, 8, 16, device="meta"),) * 3)
     with pytest.raises(ValueError):
@@ -157,16 +167,21 @@ def test_kernel_wrappers_never_run_a_cuda_request_on_the_cpu():
         pytest.skip("kernels already loaded in this process")
     before = dict(ops.LAUNCHES)
     with pytest.raises(RuntimeError, match="nvcc"):
-        ops.launch_matmul(torch.zeros(2, 2), torch.zeros(2, 2),
-                          torch.zeros(2, 2))
+        bindings.launch_matmul(torch.zeros(2, 2), torch.zeros(2, 2),
+                               torch.zeros(2, 2))
     q = torch.zeros(1, 1, 4, 16)
     with pytest.raises(RuntimeError, match="nvcc"):
-        ops.launch_flash_attention(q, q, q, q, True)
+        bindings.launch_flash_attention(q, q, q, q, True)
     with pytest.raises(RuntimeError, match="nvcc"):
-        ops.launch_ssd_scan(torch.zeros(1, 4, 1, 2), torch.zeros(1, 4, 1),
-                            torch.zeros(1), torch.zeros(1, 4, 2),
-                            torch.zeros(1, 4, 2), torch.zeros(1, 4, 1, 2),
-                            torch.zeros(1, 1, 2, 2))
+        bindings.launch_ssd_scan(torch.zeros(1, 4, 1, 2),
+                                 torch.zeros(1, 4, 1), torch.zeros(1),
+                                 torch.zeros(1, 4, 2), torch.zeros(1, 4, 2),
+                                 torch.zeros(1, 4, 1, 2),
+                                 torch.zeros(1, 1, 2, 2))
+    with pytest.raises(RuntimeError, match="nvcc"):
+        bindings.launch_fused_transform(bindings.ITParams())
+    with pytest.raises(RuntimeError, match="nvcc"):
+        bindings.launch_fused_pyramid_transform(bindings.ITParams())
     assert ops.LAUNCHES == before
 
 
@@ -193,8 +208,22 @@ def test_cpu_tensors_use_the_plain_versions():
     for got, want in zip(ssd_scan(*args, chunk=4),
                          ssd_scan_ref(*args, chunk=4)):
         assert torch.equal(got, want)
+    from repro_torch.kernels.ref import (fused_pyramid_transform_ref,
+                                         fused_transform_ref)
+    images = torch.rand(2, 16, 16, 3, generator=g)
+    assert torch.equal(ops.transform_op(images, res=4, color="gray"),
+                       fused_transform_ref(images,
+                                           ops.COLOR_WEIGHTS["gray"], 4))
+    specs = ((8, "rgb"), (4, "b"), (16, "gray"))
+    for got, want in zip(
+            ops.pyramid_transform_op(images, specs=specs),
+            fused_pyramid_transform_ref(
+                images, [(r, ops.COLOR_WEIGHTS[c]) for r, c in specs])):
+        assert torch.equal(got, want)
     assert ops.LAUNCHES == {"fused_pyramid_stage0": 0, "matmul": 0,
-                            "flash_attention": 0, "ssd_scan": 0}
+                            "flash_attention": 0, "ssd_scan": 0,
+                            "fused_transform": 0,
+                            "fused_pyramid_transform": 0}
 
 
 def _smoke(args, cwd):
@@ -227,5 +256,5 @@ def test_chip_smoke_rehearsal_runs_every_phase_on_the_cpu():
     assert len(kernels) == 1
     names = [k["name"] for k in json.loads(kernels[0])["kernels"]]
     assert names == ["fused_pyramid_stage0", "matmul", "flash_attention",
-                     "ssd_scan"]
+                     "ssd_scan", "fused_transform", "fused_pyramid_transform"]
     assert "prefill + decode_step == forward" in out.stdout

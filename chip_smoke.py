@@ -5,13 +5,15 @@
 
 1. Setup: prints the card's name and power limit (nvidia-smi), builds the
    hand-written kernels from ``src/repro_torch/kernels/csrc`` into
-   ``build/kernels/`` and prints the build time and ptxas register counts.
+   ``build/kernels/`` and prints the build time and, per kernel, ptxas's
+   registers, static shared memory and spills.
 2. Kernels vs plain versions on the card: ``fused_pyramid_stage0`` (base
    224, chunk 256, levels {112, 56, 28}; grid extremes, the 56 px rgb 2x32
    case and the planned stage-0s, each f32 and int8: levels ``torch.equal``,
-   scores within SCORE_TOL) and ``matmul`` (the evaluator's 0/1 shapes
-   exactly, random f32/bf16 within the reference test's tolerances), with
-   kernel, plain, bound and library times.
+   scores within SCORE_TOL) and ``matmul`` (random f32/bf16 at ragged
+   shapes and both evaluator shapes, within the reference test's
+   tolerances, each rerun bit-identical: split-K adds in a fixed order),
+   with kernel, plain, bound and library times.
 3. Query path: three predicates, each with a 361-model bank over the paper
    grid (random weights from a seeded generator), ``system_from_bank`` on
    512-frame splits, the streaming cascade-space evaluator through the
@@ -21,7 +23,13 @@
    against ``naive_scan``. Launch counts are reset just before this phase
    and read just after it; a kernel of the path with 0 launches fails.
    The f32 scan is then rerun under ``torch.profiler``: device time by
-   kernel and the device's idle share.
+   kernel and the device's idle share. The evaluator's two products,
+   (128, 512) @ (512, A) and (128, 512) @ (512, M) on its 0/1 matrices,
+   are exact; kernel and ``torch.matmul`` in alternating order, each on
+   two clocks (CUDA events around back-to-back calls, the clock of every
+   ``ms`` in the kernels line, and profiler device time, per launch too;
+   median and spread), plain and bound; a 2048^3 probe compares the
+   kernel's inner loop with cuBLAS's.
 4. LM serve path: zamba2-1.2b at full width (38 Mamba-2 layers, the shared
    attention+MLP block after every 6th; random bf16 weights from a seeded
    generator) serves 8 prompts of 512 tokens with 32 greedy decode steps
@@ -29,11 +37,16 @@
    before the timed serve and read just after it: one prefill must launch
    ``flash_attention`` 6 times and ``ssd_scan`` 38 times. Both kernels are
    then held against their plain versions on the card at the path's shapes
-   and at the reference tests' shapes (kernel, plain, bound and library
-   times); prefill and a decode step are profiled; and an f32 copy of the
-   model must give the same logits from ``prefill`` on the first 256
-   tokens + one ``decode_step`` as from ``forward`` over all 512 tokens at
-   that position (the kernel path against the plain decode recurrences).
+   and at the reference tests' shapes, flash on contiguous (B,H,S,D) inputs
+   and on the (B,S,H,D).transpose(1, 2) views the model passes (its output
+   laid out like q); kernel, plain, bound and library times (flash on the
+   model's views, beside SDPA on the same views, on both clocks). The prefill is profiled
+   (its copy kernels listed), one prefill under an operator hook must make
+   no (B,S,H,D) <-> (B,H,S,D) copy, a decode step is profiled, and an f32
+   copy of the model must give the same logits from
+   ``prefill`` on the first 256 tokens + one ``decode_step`` as from
+   ``forward`` over all 512 tokens at that position (the kernel path
+   against the plain decode recurrences).
 5. Kernel entry points (``kernels/ops``), the twin of the reference's
    ``bench_transform_kernel`` at the query path's width: a chunk of 256
    dyadic 224 px frames through ``pyramid_transform_op`` with all 20
@@ -44,8 +57,8 @@
    version (rgb/r/g/b ``torch.equal``, gray within TRANSFORM_GRAY_TOL), and
    again on ``torch.rand`` frames within TRANSFORM_TOL; then kernel, plain,
    bound and library (``F.conv2d``) times.
-6. One ``{"kernels": [...]}`` line, then the result line
-   ``{"ok": true, "device": {...}}``.
+6. The card's name and power limit again, one ``{"kernels": [...]}``
+   line, then the result line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises and the run exits non-zero. Without a CUDA device,
 or outside a checkout of the repo, it exits non-zero and prints no result.
@@ -97,16 +110,18 @@ TRANSFORM_GRAY_TOL = 1e-6
 TRANSFORM_TOL = 1e-5
 FLASH_TEST_SHAPES = ((1, 2, 64, 32), (2, 3, 128, 64), (1, 1, 256, 16))
 SSD_TEST_SHAPES = ((1, 64, 2, 8, 16), (2, 128, 3, 16, 32))
+PROFILER_SESSIONS = 3   # device_ms: sessions tried before it gives up
 
 FULL = dict(base=224, chunk=256, out_res=(112, 56, 28), split=512,
             corpus=8192, gen_batch=512, resolutions=(28, 56, 112, 224),
             small_grid=False, mm_shapes=((33, 17, 65), (256, 64, 130),
-                                         (128, 512, 1805)), iters=10,
+                                         (128, 512, 1805), (128, 512, 361)),
+            mm_probe=2048, iters=10,
             lm=dict(arch="zamba2-1.2b", full=True, batch=8, prompt=512,
                     gen=32, check_at=256))
 REHEARSE = dict(base=32, chunk=32, out_res=(16, 8, 4), split=48, corpus=96,
                 gen_batch=48, resolutions=(4, 8, 16, 32), small_grid=True,
-                mm_shapes=((33, 17, 65),), iters=1,
+                mm_shapes=((33, 17, 65),), mm_probe=64, iters=1,
                 lm=dict(arch="zamba2-1.2b", full=False, batch=2, prompt=64,
                         gen=4, check_at=32))
 
@@ -139,6 +154,8 @@ def main(argv=None) -> int:
     launches = query_path(dev, cfg, card, kern, args.seed)
     launches.update(lm_path(dev, cfg, card, kern, args.seed))
     launches.update(ops_path(dev, cfg, card, kern, args.seed))
+    if "smi" in card:    # again near the end: the card beside the numbers
+        log(card["smi"])
     kernels_line(kern, launches)
     if args.rehearse:
         log("rehearsal on the CPU: plain versions only, no result")
@@ -174,10 +191,39 @@ def setup(dev):
     log(f"kernel build: {info['seconds']:.1f} s into {info['dir']} "
         f"(built {info['built']})")
     for stem, text in info["logs"].items():
-        for line in dict.fromkeys(text.splitlines()):
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas {stem}: {line.strip()}")
+        for fn, props in ptxas_by_function(text):
+            log(f"  ptxas {stem}: {fn}: {props}")
     return {"name": name, "smi": smi, "bw": bw, "flops": flops, "bf16": bf16}
+
+
+def ptxas_by_function(text):
+    """[(kernel, "R registers, S bytes smem, spill stores/loads")] from
+    nvcc's -Xptxas -v output, kernel names demangled where c++filt is
+    installed (dynamic shared memory is not in ptxas's count)."""
+    import re
+    import shutil
+    rows, fn, props = [], None, {}
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            fn, props = m.group(1), {}
+            rows.append((fn, props))
+        elif fn and "spill stores" in line:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            props["spills"] = f"spills {m.group(1)}/{m.group(2)} bytes"
+        elif fn and "Used" in line and "registers" in line:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            smem = re.search(r"(\d+) bytes smem", line)
+            props["regs"] = (f"{regs} registers, "
+                             f"{smem.group(1) if smem else 0} bytes smem")
+    names = [f for f, _ in rows]
+    if shutil.which("c++filt"):
+        names = subprocess.run(["c++filt"], input="\n".join(names),
+                               capture_output=True, text=True
+                               ).stdout.splitlines() or names
+    return [(n, ", ".join(p[k] for k in ("regs", "spills") if k in p))
+            for n, (_, p) in zip(names, rows)]
 
 
 # ------------------------------------------------------------ phase 2 --
@@ -198,6 +244,79 @@ def time_ms(fn, dev, iters: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, dev, iters: int, launches=None) -> float:
+    """Device time of one ``fn()``: the durations of the kernels (and
+    memsets) it launches, summed over ``iters`` calls by torch.profiler,
+    over ``iters``. Host time between launches is not in it, so a call
+    whose host work outlasts its kernels is not host-bound here (time_ms
+    shows that). With a dict ``launches``, each launch's duration (us) is
+    appended to ``launches[kernel name]``. A profiler session that
+    records no device event at all (CUPTI tracing, rarely, returns none)
+    is opened again, at most PROFILER_SESSIONS times in all. On
+    the CPU (rehearsal) it is time_ms."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    if dev.type != "cuda":
+        return time_ms(fn, dev, iters)
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(PROFILER_SESSIONS):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        spans = [(e.name, e.time_range.end - e.time_range.start)
+                 for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if spans:
+            break
+        log(f"    (profiler session {attempt + 1} recorded no device event)")
+    else:
+        raise AssertionError(f"the profiler saw no device time in "
+                             f"{PROFILER_SESSIONS} sessions")
+    for name, us in spans if launches is not None else ():
+        launches.setdefault(name, []).append(us)
+    return sum(us for _, us in spans) / 1e3 / iters
+
+
+def alternating(label, fns, dev, iters, reps=3):
+    """Two functions timed in the order a, b, b, a (``reps`` times) on two
+    clocks: CUDA events around ``iters`` back-to-back calls (time_ms, the
+    host included where it is the slower side: the clock of every ``ms``
+    in the kernels line) and device time (device_ms). Prints each clock's
+    runs in order with median and spread, and each kernel's per-launch
+    device time. -> {name: {"ms": (median, spread), "device_ms": (median,
+    spread)}}."""
+    import statistics
+    got = {name: {"ms": [], "device_ms": [], "launches": {}}
+           for name, _ in fns}
+    for _ in range(reps):
+        for name, fn in (fns[0], fns[1], fns[1], fns[0]):
+            g = got[name]
+            g["ms"].append(time_ms(fn, dev, iters))
+            g["device_ms"].append(device_ms(fn, dev, iters, g["launches"]))
+    out = {}
+    log(f"  {label} ({reps} x kernel, library, library, kernel):")
+    for name, g in got.items():
+        out[name] = {c: (statistics.median(g[c]), max(g[c]) - min(g[c]))
+                     for c in ("ms", "device_ms")}
+        for c, what in (("ms", "CUDA events, host included"
+                         if dev.type == "cuda" else "host time"),
+                        ("device_ms", "device time" if dev.type == "cuda"
+                         else "host time, rehearsal")):
+            m, sp = out[name][c]
+            log(f"    {name} {what}: median {m:.4f} ms, spread {sp:.4f} "
+                f"(runs {' '.join(f'{x:.4f}' for x in g[c])})")
+        for kname, us in g["launches"].items():
+            us = sorted(us)
+            log(f"      {name} launch {kname[:70]}: {len(us)}x, min "
+                f"{us[0]:.2f} us, p10 {us[len(us) // 10]:.2f}, median "
+                f"{statistics.median(us):.2f}, p90 "
+                f"{us[len(us) * 9 // 10]:.2f}, max {us[-1]:.2f}")
+    return out
 
 
 def stage0_for(arch, rep, gen, dev):
@@ -273,6 +392,7 @@ def check_kernels(dev, cfg, card, seed):
     import torch
 
     from repro_torch.core.transforms import Representation
+    from repro_torch.kernels.bindings import matmul_plan
     from repro_torch.kernels.matmul import matmul
     from repro_torch.kernels.ref import matmul_ref
     log("== kernels vs plain versions")
@@ -311,14 +431,19 @@ def check_kernels(dev, cfg, card, seed):
             a = torch.randn((m, k), generator=gen, device=dev).to(dt)
             bm = torch.randn((k, n), generator=gen, device=dev).to(dt)
             got = matmul(a, bm, out_dtype=out_dt).float()
+            again = matmul(a, bm, out_dtype=out_dt).float()
             want = matmul_ref(a, bm, out_dt).float()
             tol = MM_TOL[str(dt).split(".")[1]]
             bad = (got - want).abs() > tol + tol * want.abs()
             err = float((got - want).abs().max())
             log(f"  matmul ({m},{k})@({k},{n}) {dt}->{out_dt}: max |err| "
-                f"{err:.3g} (tol {tol})")
+                f"{err:.3g} (tol {tol}), plan {matmul_plan(m, n, k)}, rerun "
+                f"bit-identical: {torch.equal(got, again)}")
             if bad.any():
                 raise AssertionError(f"matmul {m},{k},{n} {dt}: {err}")
+            if not torch.equal(got, again):
+                raise AssertionError(f"matmul {m},{k},{n} {dt}: a rerun "
+                                     f"differs (split-K order not fixed)")
     return {"stage0": {"worst": worst}, "matmul": mm}
 
 
@@ -558,7 +683,8 @@ def device_profile(run, dev, wall_s, label, top=12):
     """Where ``run()``'s device time goes: torch.profiler over it, device
     time summed by kernel name, and the device's idle share against the
     unprofiled run's wall time ``wall_s`` (the profiler slows the host, not
-    the kernels)."""
+    the kernels). Returns {kernel name: [launches, us]}, or None when the
+    profiler saw no device events."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     _sync(dev)
@@ -587,16 +713,20 @@ def device_profile(run, dev, wall_s, label, top=12):
                                 )[:top]:
         log(f"    {us / 1e3:9.3f} ms {100 * us / busy:5.1f}% {n:6d}x "
             f"{name[:90]}")
+    return by_name
 
 
 def matmul_main_path(dev, cfg, card, kern, system):
     """The evaluator's own products: (128, I) @ (I, M) and (128, I) @
-    (I, A) on its 0/1 indicator matrices — exact against the plain
-    version — and the kernel/plain/torch.matmul times at (128, I)@(I, A)."""
+    (I, A) on its 0/1 indicator matrices, exact against the plain version;
+    at both, kernel and torch.matmul in alternating order on both clocks,
+    the plain version's time and the bound; then a large square product that
+    shows the kernel's inner loop against cuBLAS's."""
     import numpy as np
     import torch
 
     from repro_torch.core.cascade import _certainty_stats
+    from repro_torch.kernels.bindings import matmul_plan
     from repro_torch.kernels.matmul import matmul
     from repro_torch.kernels.ref import matmul_ref
     st = _certainty_stats(system.eval_scores, system.eval_truth,
@@ -616,20 +746,40 @@ def matmul_main_path(dev, cfg, card, kern, system):
             raise AssertionError("matmul on 0/1 indicators is not exact")
         err = max(err, e)
     it = max(cfg["iters"], 1) * 10
-    ms = time_ms(lambda: matmul(ca, c_t, out_dtype=torch.float32), dev, it)
-    plain = time_ms(lambda: matmul_ref(ca, c_t), dev, it)
-    lib = time_ms(lambda: torch.matmul(ca, c_t), dev, it)
-    m, k = ca.shape
-    n = c_t.shape[1]
-    t_mem = (m * k + k * n + m * n) * 4 / card["bw"]
-    t_ops = 2.0 * m * n * k / card["flops"]
-    kern["matmul"].update(ms=ms, plain_ms=plain, library_ms=lib,
-                          bound_ms=max(t_mem, t_ops) * 1e3,
-                          bound_by="bytes" if t_mem > t_ops else "operations",
-                          max_abs_err=err, shape=f"({m},{k})@({k},{n}) f32")
-    log(f"  matmul ({m},{k})@({k},{n}): kernel {ms:.4f} ms, plain "
-        f"{plain:.4f} ms, torch.matmul {lib:.4f} ms, bound "
-        f"{kern['matmul']['bound_ms']:.4f} ms")
+    rows = []
+    for b in (c_t, cf_t):
+        m, k = ca.shape
+        n = b.shape[1]
+        t = alternating(
+            f"matmul ({m},{k})@({k},{n}) f32",
+            (("kernel", lambda: matmul(ca, b, out_dtype=torch.float32)),
+             ("torch.matmul", lambda: torch.matmul(ca, b))), dev, it)
+        plain = time_ms(lambda: matmul_ref(ca, b), dev, it)
+        t_mem = (m * k + k * n + m * n) * 4 / card["bw"]
+        t_ops = 2.0 * m * n * k / card["flops"]
+        row = {"ms": t["kernel"]["ms"][0], "plain_ms": plain,
+               "library_ms": t["torch.matmul"]["ms"][0],
+               "device_ms": t["kernel"]["device_ms"][0],
+               "library_device_ms": t["torch.matmul"]["device_ms"][0],
+               "bound_ms": max(t_mem, t_ops) * 1e3,
+               "bound_by": "bytes" if t_mem > t_ops else "operations",
+               "shape": f"({m},{k})@({k},{n}) f32, plan "
+                        f"{matmul_plan(m, n, k)}"}
+        rows.append(row)
+        log(f"  matmul {row['shape']}: kernel {row['ms']:.4f} ms, plain "
+            f"{plain:.4f} ms, torch.matmul {row['library_ms']:.4f} ms "
+            f"(CUDA events); device time kernel {row['device_ms']:.4f} ms, "
+            f"torch.matmul {row['library_device_ms']:.4f} ms; bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+    kern["matmul"].update(rows[0], max_abs_err=err, other_shapes=rows[1:])
+    s = cfg["mm_probe"]
+    gen = torch.Generator(device=dev).manual_seed(5)
+    a, b = (torch.randn((s, s), generator=gen, device=dev) for _ in "ab")
+    ms = device_ms(lambda: matmul(a, b), dev, 3)
+    lib = device_ms(lambda: torch.matmul(a, b), dev, 3)
+    log(f"  matmul inner-loop probe ({s},{s})@({s},{s}) f32: kernel {ms:.4f} "
+        f"ms ({2 * s ** 3 / ms / 1e9:.1f} TFLOP/s), torch.matmul {lib:.4f} "
+        f"ms ({2 * s ** 3 / lib / 1e9:.1f} TFLOP/s)")
 
 
 def _sync(dev):
@@ -685,10 +835,26 @@ def lm_path(dev, cfg, card, kern, seed):
             or int(toks.max()) >= arch.vocab_size or int(toks.min()) < 0:
         raise AssertionError("serve produced bad tokens or logits")
     log(f"  sample tokens: {toks[0, :8].tolist()}")
+    check_lm_kernels(dev, cfg, card, kern, arch, gen)
+    def prefill():
+        return serve(model, params, prompts, 0, "bfloat16", device=dev)
+
     if dev.type == "cuda":
-        device_profile(lambda: serve(model, params, prompts, 0, "bfloat16",
-                                     device=dev), dev, res.prefill_s,
-                       "prefill profile (bf16)")
+        kernels = device_profile(prefill, dev, res.prefill_s,
+                                 "prefill profile (bf16)") or {}
+        for name, (n, us) in sorted(kernels.items(), key=lambda kv:
+                                    -kv[1][1]):
+            if "copy" in name.lower():
+                log(f"    copy kernel in prefill: {us / 1e3:9.3f} ms {n:6d}x "
+                    f"{name[:90]}")
+    perms = permute_copies(prefill, (b, arch.n_heads, s, arch.head_dim))
+    log(f"  (B,S,H,D) <-> (B,H,S,D) copies in one prefill: {perms} (the "
+        f"flash kernel takes the model's views and returns its layout; "
+        f"{expect['flash_attention']} flash calls)")
+    if dev.type == "cuda" and perms:
+        raise AssertionError(f"prefill made {perms} permute copies around "
+                             f"the flash kernel")
+    if dev.type == "cuda":
         steps = 4
         t0 = time.perf_counter()
         serve(model, params, prompts[:, :8], steps, device=dev)
@@ -696,9 +862,35 @@ def lm_path(dev, cfg, card, kern, seed):
         device_profile(lambda: serve(model, params, prompts[:, :8], steps,
                                      device=dev), dev,
                        time.perf_counter() - t0, "prefill(8) + decode profile")
-    check_lm_kernels(dev, cfg, card, kern, arch, gen)
     consistency(lm, arch, params, prompts)
     return launches
+
+
+def permute_copies(run, bhsd):
+    """How many copies ``run()`` makes of a non-contiguous tensor shaped
+    like the attention's (B,H,S,D) or (B,S,H,D) operands: the permutes a
+    layout change around the flash kernel costs. Counted at the operator
+    level (clone, copy_, _to_copy), through a dispatch mode."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    b, h, s, d = bhsd
+    shapes = {(b, h, s, d), (b, s, h, d)}
+    aten = torch.ops.aten
+    copies = {aten.clone.default, aten.copy_.default, aten._to_copy.default}
+    count = [0]
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func in copies:
+                src = args[1] if func is aten.copy_.default else args[0]
+                if torch.is_tensor(src) and tuple(src.shape) in shapes \
+                        and not src.is_contiguous():
+                    count[0] += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        run()
+    return count[0]
 
 
 def _close(got, want, atol, rtol):
@@ -730,40 +922,61 @@ def check_lm_kernels(dev, cfg, card, kern, arch, gen):
     cases = [(shp, c, dt) for shp, c in [(path, True)] + [
         (shp, c) for shp in FLASH_TEST_SHAPES for c in (True, False)]
         for dt in (torch.float32, bf)]
-    for shp, causal, dt in cases:
-        q, k, v = (randn(*shp, dtype=dt, scale=0.5) for _ in range(3))
-        # bf16 is held against the plain version in f32, which rounds
-        # neither the scores nor P: see FLASH_BF16_TOL
-        tol = FLASH_BF16_TOL if dt == bf else (FLASH_TOL, FLASH_TOL)
-        want = flash_attention_ref(q.float(), k.float(), v.float(),
-                                   causal=causal)
-        err, ok = _close(flash_attention(q, k, v, causal=causal), want, *tol)
-        log(f"  flash_attention {shp} {dt} causal={causal}: max |err| "
-            f"{err:.3g} (atol, rtol {tol[0]:.3g}, {tol[1]:.3g}; mean "
-            f"|out| {float(want.abs().mean()):.3g})")
-        if not ok:
-            raise AssertionError(f"flash_attention {shp} {dt}: {err}")
-        fl["max_abs_err"] = max(fl["max_abs_err"], err)
-    q, k, v = (randn(*path, dtype=bf) for _ in range(3))
+    for (bb, h, sl, d), causal, dt in cases:
+        for layout in ("(B,H,S,D)", "(B,S,H,D).transpose(1, 2)"):
+            if layout == "(B,H,S,D)":
+                q, k, v = (randn(bb, h, sl, d, dtype=dt, scale=0.5)
+                           for _ in range(3))
+            else:      # the strided views the model passes
+                q, k, v = (randn(bb, sl, h, d, dtype=dt, scale=0.5
+                                 ).transpose(1, 2) for _ in range(3))
+            # bf16 is held against the plain version in f32, which rounds
+            # neither the scores nor P: see FLASH_BF16_TOL
+            tol = FLASH_BF16_TOL if dt == bf else (FLASH_TOL, FLASH_TOL)
+            want = flash_attention_ref(q.float(), k.float(), v.float(),
+                                       causal=causal)
+            out = flash_attention(q, k, v, causal=causal)
+            err, ok = _close(out, want, *tol)
+            same = (out.is_contiguous() if layout == "(B,H,S,D)"
+                    else out.transpose(1, 2).is_contiguous())
+            log(f"  flash_attention {(bb, h, sl, d)} {layout} {dt} "
+                f"causal={causal}: max |err| {err:.3g} (atol, rtol "
+                f"{tol[0]:.3g}, {tol[1]:.3g}; mean |out| "
+                f"{float(want.abs().mean()):.3g}); output in q's layout: "
+                f"{same}")
+            if not ok:
+                raise AssertionError(f"flash_attention {path} {layout} {dt}: "
+                                     f"{err}")
+            if dev.type == "cuda" and not same:
+                raise AssertionError(f"flash_attention {layout}: the output "
+                                     f"is not laid out like q")
+            fl["max_abs_err"] = max(fl["max_abs_err"], err)
+    # the main path's input: (B,S,H,D) tensors seen as (B,H,S,D)
+    q, k, v = (randn(b, s, arch.n_heads, arch.head_dim, dtype=bf
+                     ).transpose(1, 2) for _ in range(3))
     it = cfg["iters"]
-    fl["ms"] = time_ms(lambda: flash_attention(q, k, v), dev, it)
-    fl["plain_ms"] = time_ms(lambda: flash_attention_ref(q, k, v), dev, it)
-    fl["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True), dev, it)
+    t = alternating(
+        f"flash_attention {path} bf16 causal on (B,S,H,D) views",
+        (("kernel", lambda: flash_attention(q, k, v)),
+         ("sdpa", lambda: F.scaled_dot_product_attention(q, k, v,
+                                                          is_causal=True))),
+        dev, it)
+    fl.update(ms=t["kernel"]["ms"][0], library_ms=t["sdpa"]["ms"][0],
+              device_ms=t["kernel"]["device_ms"][0],
+              library_device_ms=t["sdpa"]["device_ms"][0],
+              plain_ms=time_ms(lambda: flash_attention_ref(q, k, v), dev, it))
     bb, h, _, d = path
     t_ops = 4.0 * bb * h * d * s * (s + 1) / 2 / card["bf16"]
     t_mem = 4.0 * bb * h * s * d * 2 / card["bw"]
     fl.update(bound_ms=max(t_ops, t_mem) * 1e3,
               bound_by="operations" if t_ops > t_mem else "bytes",
-              shape=f"q,k,v {path} bf16 causal")
+              shape=f"q,k,v {path} bf16 causal, (B,S,H,D).transpose(1, 2) "
+                    f"views")
     log(f"  flash_attention {path} bf16 causal: kernel {fl['ms']:.4f} ms, "
-        f"plain {fl['plain_ms']:.4f} ms, sdpa {fl['library_ms']:.4f} ms, "
-        f"bound {fl['bound_ms']:.4f} ms ({fl['bound_by']})")
-    x = randn(bb, s, h, d, dtype=bf)
-    perm = time_ms(lambda: x.transpose(1, 2).contiguous(), dev, it)
-    log(f"  (B,S,H,D) -> (B,H,S,D) copy of one {tuple(x.shape)} bf16 tensor: "
-        f"{perm:.4f} ms (the shared block makes 4 per call: q, k, v in, the "
-        f"output back)")
+        f"plain {fl['plain_ms']:.4f} ms, sdpa {fl['library_ms']:.4f} ms "
+        f"(CUDA events); device time kernel {fl['device_ms']:.4f} ms, sdpa "
+        f"{fl['library_device_ms']:.4f} ms; bound {fl['bound_ms']:.4f} ms "
+        f"({fl['bound_by']})")
 
     ss = {"max_abs_err": 0.0}
     h, p, n = arch.ssm_heads, arch.ssm.head_dim, arch.ssm.d_state
@@ -1012,7 +1225,10 @@ def kernels_line(kern, launches):
                     "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                     "bound_by": k["bound_by"],
                     "library_ms": k.get("library_ms"),
-                    "shape": k["shape"]})
+                    "shape": k["shape"],
+                    **{key: k[key] for key in ("device_ms",
+                                               "library_device_ms",
+                                               "other_shapes") if key in k}})
     print(json.dumps({"kernels": out}), flush=True)
 
 

@@ -12,6 +12,7 @@ entry point reports a CUDA error, and adds one to its kernel's count in
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -22,6 +23,11 @@ MAX_CONV = 8
 PS0_THREADS = 512   # THREADS in csrc/pyramid_stage0.cu: one per dense unit
 IT_MAX_OUTPUTS = 32   # csrc/image_transform.cu: the query path needs 20
 IT_MAX_LEVELS = 16
+SMS = 132          # streaming multiprocessors of an H100 SXM
+# (BM, BN) output tiles that csrc/matmul.cu instantiates, largest first
+MM_TILES = ((64, 64), (32, 64), (32, 32))
+MM_BK = 32         # BK in csrc/matmul.cu; a split-K chunk is a multiple
+MM_MIN_K_CHUNK = 2 * MM_BK   # a split keeps at least two K steps to pipeline
 
 LAUNCHES = {"fused_pyramid_stage0": 0, "matmul": 0, "flash_attention": 0,
             "ssd_scan": 0, "fused_transform": 0,
@@ -122,15 +128,51 @@ def _bind(stem: str, name: str, argtypes):
     return fn
 
 
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=256)
+def matmul_plan(m: int, n: int, k: int) -> tuple[int, int, int, int]:
+    """-> (bm, bn, split, k_chunk) for an (m,k) @ (k,n) launch of
+    csrc/matmul.cu: the largest tile of MM_TILES (no taller than m needs)
+    that can reach SMS blocks, and the fewest K chunks of ``k_chunk`` (a
+    multiple of MM_BK, at least MM_MIN_K_CHUNK; the last may be short)
+    that reach them. Where nothing reaches SMS (small or shallow
+    products), the smallest tile and as many chunks as K allows. Split-K
+    partial sums go to a workspace that a second pass adds in a fixed
+    order."""
+    max_split = max(1, k // MM_MIN_K_CHUNK)
+    fits = [t for t in MM_TILES if t[0] <= _cdiv(m, 32) * 32] \
+        or [MM_TILES[-1]]
+    bm, bn = next((t for t in fits
+                   if _cdiv(m, t[0]) * _cdiv(n, t[1]) * max_split >= SMS),
+                  fits[-1])
+    tiles = _cdiv(m, bm) * _cdiv(n, bn)
+    for split in range(1, max_split + 1):
+        k_chunk = _cdiv(_cdiv(k, split), MM_BK) * MM_BK
+        split = _cdiv(k, k_chunk) if k_chunk else 1   # rounding may merge
+        if tiles * split >= SMS:
+            break
+    return bm, bn, split, k_chunk
+
+
 def launch_matmul(a: torch.Tensor, b: torch.Tensor, out: torch.Tensor
                   ) -> None:
+    """a (M,K) @ b (K,N) -> out (M,N), contiguous, with the tiling and
+    split-K of ``matmul_plan``; a split-K workspace is allocated here."""
     fn = _bind("matmul", "repro_matmul",
-               [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+               [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
     m, k = a.shape
     n = b.shape[1]
-    _check(fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k,
+    bm, bn, split, k_chunk = matmul_plan(m, n, k)
+    ws = (torch.empty((split, m, n), dtype=torch.float32, device=a.device)
+          if split > 1 else None)
+    _check(fn(a.data_ptr(), b.data_ptr(), out.data_ptr(),
+              None if ws is None else ws.data_ptr(), m, n, k,
               int(a.dtype == torch.bfloat16),
-              int(out.dtype == torch.bfloat16), _stream()), "matmul")
+              int(out.dtype == torch.bfloat16), bm, bn, split, k_chunk,
+              _stream()), "matmul")
     LAUNCHES["matmul"] += 1
 
 
@@ -145,14 +187,50 @@ def launch_ssd_scan(x, dt, a, bmat, cmat, y, final) -> None:
     LAUNCHES["ssd_scan"] += 1
 
 
+def flash_refusal(t: torch.Tensor) -> str | None:
+    """Why csrc/flash_attention.cu cannot take ``t`` as a (B,H,S,D)
+    operand, or None: it needs the last dimension contiguous and every
+    row start 16-byte aligned."""
+    if t.dim() != 4:
+        return f"shape {tuple(t.shape)} is not (B,H,S,D)"
+    (b, h, s, d), st = t.shape, t.stride()
+    if d > 1 and st[3] != 1:
+        return f"last stride {st[3]} is not 1"
+    per = 16 // t.element_size()
+    ptr = t.data_ptr()
+    if ptr % 16 or (b > 1 and st[0] % per) or (h > 1 and st[1] % per) \
+            or (s > 1 and st[2] % per):
+        return (f"rows not 16-byte aligned (strides {st}, {t.dtype}, data "
+                f"at {ptr % 16} mod 16)")
+    return None
+
+
+def flash_strides(t: torch.Tensor) -> tuple[int, int, int]:
+    """The (batch, head, sequence) strides in elements that
+    csrc/flash_attention.cu takes for a (B,H,S,D) operand; a dimension of
+    size 1 gets 0 (its stride is never used). ValueError if the kernel
+    cannot take ``t`` (``flash_refusal``)."""
+    why = flash_refusal(t)
+    if why:
+        raise ValueError(f"flash_attention: {why}")
+    (b, h, s, _), st = t.shape, t.stride()
+    return (st[0] if b > 1 else 0, st[1] if h > 1 else 0,
+            st[2] if s > 1 else 0)
+
+
 def launch_flash_attention(q, k, v, out, causal: bool) -> None:
+    """q, out (B,H,S,D); k, v (B,H,T,D); any strides that
+    ``flash_strides`` accepts."""
     fn = _bind("flash_attention", "repro_flash_attention",
-               [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-               + [ctypes.c_float, ctypes.c_void_p])
+               [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+               + [ctypes.c_float] + [ctypes.c_longlong] * 12
+               + [ctypes.c_void_p])
     b, h, s, d = q.shape
+    strides = [x for t in (q, k, v, out) for x in flash_strides(t)]
     _check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-              b * h, s, k.shape[2], d, int(q.dtype == torch.bfloat16),
-              int(causal), d ** -0.5, _stream()), "flash_attention")
+              b, h, s, k.shape[2], d, int(q.dtype == torch.bfloat16),
+              int(causal), d ** -0.5, *strides, _stream()),
+           "flash_attention")
     LAUNCHES["flash_attention"] += 1
 
 

@@ -4,6 +4,10 @@
 plain version (kernels/ref.matmul_ref); on CUDA tensors it launches the
 hand-written tiled kernel (csrc/matmul.cu) or raises. f32 or bf16 inputs,
 f32 accumulation, ``out_dtype`` (default: the input dtype) out.
+
+``bindings.matmul_plan`` chooses the kernel's tiling per shape: the output
+tile of a block and, where the tiles alone cannot fill the card, a split of
+K whose partial sums a second pass adds in a fixed order.
 """
 from __future__ import annotations
 

@@ -136,8 +136,11 @@ def _dense_block(lp, h, cfg, rope, *, cache_slice=None, pos=None):
                    <= pos[:, None])
         ctx = attn.sdpa(q, kf, vf, k_valid=k_valid, gp=lo.gp)
     else:
-        # the kernel takes (B,H,S,D) with the KV heads repeated; the model
-        # holds (B,S,H,D), so this permutes (a copy) both ways
+        # the kernel takes (B,H,S,D) with the KV heads repeated, at any
+        # strides with a contiguous last dimension: the transposed views
+        # of the model's (B,S,H,D) tensors go in as they are, and the
+        # output comes back in q's layout, so transposing it back is a
+        # contiguous (B,S,H,D) tensor. No copy either way.
         ctx = flash_attention(
             q.transpose(1, 2), attn.repeat_kv(k, lo.gp).transpose(1, 2),
             attn.repeat_kv(v, lo.gp).transpose(1, 2), causal=True

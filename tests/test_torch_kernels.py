@@ -113,3 +113,64 @@ def test_matmul_exact_on_indicator_matrices():
     got = matmul(torch.from_numpy(a), torch.from_numpy(b),
                  out_dtype=torch.float32).numpy()
     assert np.array_equal(got, a @ b)
+
+
+# ---- the card's tiling of csrc/matmul.cu, chosen on the host
+from repro_torch.kernels import bindings  # noqa: E402
+
+EVALUATOR_SHAPES = [(128, 512, 1805), (128, 512, 361)]   # (M, K, N)
+
+
+@pytest.mark.parametrize("m,k,n", EVALUATOR_SHAPES + [(13, 512, 1805)])
+def test_matmul_plan_fills_the_card_at_the_evaluator_shapes(m, k, n):
+    bm, bn, split, k_chunk = bindings.matmul_plan(m, n, k)
+    blocks = -(-m // bm) * -(-n // bn) * split
+    assert blocks >= bindings.SMS, (bm, bn, split, blocks)
+
+
+@pytest.mark.parametrize("m,k,n", EVALUATOR_SHAPES + [
+    (33, 17, 65), (64, 96, 32), (128, 128, 128), (256, 64, 130),
+    (1, 1, 1), (3, 0, 5), (13, 512, 361), (700, 300, 900)])
+def test_matmul_plan_covers_every_output_and_every_k(m, k, n):
+    bm, bn, split, k_chunk = bindings.matmul_plan(m, n, k)
+    assert (bm, bn) in bindings.MM_TILES
+    assert k_chunk % bindings.MM_BK == 0 and split >= 1
+    # the chunks cover K, and none is empty (each adds a partial sum)
+    assert split * k_chunk >= k and (split == 1 or (split - 1) * k_chunk < k)
+    assert -(-m // bm) * bm >= m and -(-n // bn) * bn >= n
+
+
+@pytest.mark.parametrize("m,k,n", EVALUATOR_SHAPES)
+def test_matmul_split_k_chunks_partition_k_exactly(m, k, n):
+    """The plan's K chunks, one partial product each, added in chunk order
+    z = 0, 1, ... as the kernel's second pass adds them, give the exact
+    counts of the evaluator's 0/1 operands: every k lies in exactly one
+    chunk. (That the card adds them in the same order on every run is
+    chip_smoke.py's "rerun bit-identical" check.)"""
+    rng = np.random.default_rng(m + n)
+    a = (rng.random((m, k)) < 0.5).astype(np.float32)
+    b = (rng.random((k, n)) < 0.5).astype(np.float32)
+    _, _, split, k_chunk = bindings.matmul_plan(m, n, k)
+    assert split > 1                # both evaluator shapes split K
+    chunks = [range(k)[z * k_chunk:(z + 1) * k_chunk] for z in range(split)]
+    assert sorted(i for c in chunks for i in c) == list(range(k))
+    got = np.zeros((m, n), np.float32)
+    for c in chunks:
+        got += a[:, c.start:c.stop] @ b[c.start:c.stop]
+    assert np.array_equal(got, a @ b)
+    assert np.array_equal(matmul(torch.from_numpy(a), torch.from_numpy(b),
+                                 out_dtype=torch.float32).numpy(), got)
+
+
+@pytest.mark.parametrize("m,k,n", EVALUATOR_SHAPES)
+def test_matmul_matches_reference_kernel_on_evaluator_indicators(m, k, n):
+    """The evaluator's products, (128, 512) @ (512, A or M) on 0/1
+    indicators: the CPU wrapper equals the Pallas kernel in interpret mode
+    exactly."""
+    rng = np.random.default_rng(n)
+    a = (rng.random((m, k)) < 0.5).astype(np.float32)
+    b = (rng.random((k, n)) < 0.5).astype(np.float32)
+    want = np.asarray(j_ops.matmul_op(a, b))
+    got = matmul(torch.from_numpy(a), torch.from_numpy(b),
+                 out_dtype=torch.float32)
+    assert np.array_equal(got.numpy(), want)

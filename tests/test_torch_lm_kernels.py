@@ -83,3 +83,68 @@ def test_ssd_scan_chunk_invariance_and_refusals():
     with pytest.raises(ValueError, match="multiple"):
         ssd_scan(*(t[:, :100] if t.dim() > 1 else t for t in args),
                  chunk=64)
+
+
+# ---- strided operands: the (B,S,H,D).transpose(1, 2) views the model passes
+from repro_torch.kernels import bindings  # noqa: E402
+from repro_torch.kernels.flash_attention import kernel_operand  # noqa: E402
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("bhsd", [(1, 2, 64, 32), (2, 3, 128, 64),
+                                  (1, 1, 256, 16)])
+@pytest.mark.parametrize("dtype", [np.float32, jnp.bfloat16])
+def test_flash_attention_on_transposed_views_matches_pallas(causal, bhsd,
+                                                            dtype):
+    b, h, s, d = bhsd
+    rng = np.random.default_rng(sum(bhsd) + 7 * causal)
+    q, k, v = ((rng.standard_normal((b, s, h, d)) * 0.5).astype(dtype)
+               for _ in range(3))
+    want = np.asarray(j_ops.flash_attention_op(
+        *(x.transpose(0, 2, 1, 3) for x in (q, k, v)), causal=causal),
+        np.float32)
+    views = [_t(x).transpose(1, 2) for x in (q, k, v)]
+    assert all(not t.is_contiguous() for t in views) or h == 1
+    got = flash_attention(*views, causal=causal)
+    assert tuple(got.shape) == bhsd and got.dtype == views[0].dtype
+    tol = 2e-3 if dtype == np.float32 else 3e-2
+    np.testing.assert_allclose(got.float().numpy(), want, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [16, 32, 64])
+def test_flash_strides_take_the_models_views(device, dtype, d):
+    b, s, h = 2, 40, 3
+    x = torch.zeros(b, s, h, d, dtype=dtype, device=device)
+    view = x.transpose(1, 2)                       # (B,H,S,D), strided
+    assert bindings.flash_refusal(view) is None
+    assert bindings.flash_strides(view) == (s * h * d, d, h * d)
+    assert kernel_operand(view) is view            # no copy
+    out = torch.empty_like(view)                   # the wrapper's output
+    assert out.stride() == view.stride()
+    assert out.transpose(1, 2).is_contiguous()     # the model's layout back
+    assert bindings.flash_strides(out) == (s * h * d, d, h * d)
+    # a dimension of size 1 never needs its stride
+    one = torch.zeros(1, s, 1, d, dtype=dtype, device=device).transpose(1, 2)
+    assert bindings.flash_strides(one) == (0, 0, d)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_strides_refuse_what_the_kernel_cannot_take(dtype):
+    wide = torch.zeros(2, 3, 40, 64, dtype=dtype)
+    cases = {
+        "last stride": wide.transpose(2, 3)[:, :, :16, :],   # (…, 40) cols
+        "row stride": torch.zeros(2, 3, 40, 18, dtype=dtype)[..., :16],
+        "data pointer": torch.zeros(2 * 3 * 40 * 16 + 1, dtype=dtype)[1:]
+        .view(2, 3, 40, 16),
+    }
+    for why, t in cases.items():
+        assert bindings.flash_refusal(t) is not None, why
+        with pytest.raises(ValueError):
+            bindings.flash_strides(t)
+        copy = kernel_operand(t)                   # the wrapper copies it
+        assert copy is not t and torch.equal(copy, t)
+        assert bindings.flash_refusal(copy) is None
+    with pytest.raises(ValueError):
+        bindings.flash_strides(torch.zeros(3, 40, 16, dtype=dtype))

@@ -10,7 +10,7 @@
 2. Kernels vs plain versions on the card: ``fused_pyramid_stage0`` (base
    224, chunk 256, levels {112, 56, 28}; grid extremes, the 56 px rgb 2x32
    case and the planned stage-0s, each f32 and int8: levels ``torch.equal``,
-   scores within SCORE_TOL) and ``matmul`` (random f32/bf16 at ragged
+   scores within SCORE_TOL; each timed on both clocks) and ``matmul`` (random f32/bf16 at ragged
    shapes and both evaluator shapes, within the reference test's
    tolerances, each rerun bit-identical: split-K adds in a fixed order),
    with kernel, plain, bound and library times.
@@ -46,7 +46,10 @@
    copy of the model must give the same logits from
    ``prefill`` on the first 256 tokens + one ``decode_step`` as from
    ``forward`` over all 512 tokens at that position (the kernel path
-   against the plain decode recurrences).
+   against the plain decode recurrences). ``ssd_scan`` is also held
+   against its plain version at mamba2-130m's shape (24 heads, N 128) and
+   at the reference tests' shapes in bf16 (the tensor-core kernel) as well
+   as f32 (the FFMA kernel), and timed at both model shapes.
 5. Kernel entry points (``kernels/ops``), the twin of the reference's
    ``bench_transform_kernel`` at the query path's width: a chunk of 256
    dyadic 224 px frames through ``pyramid_transform_op`` with all 20
@@ -246,16 +249,20 @@ def time_ms(fn, dev, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, dev, iters: int, launches=None) -> float:
-    """Device time of one ``fn()``: the durations of the kernels (and
-    memsets) it launches, summed over ``iters`` calls by torch.profiler,
-    over ``iters``. Host time between launches is not in it, so a call
-    whose host work outlasts its kernels is not host-bound here (time_ms
-    shows that). With a dict ``launches``, each launch's duration (us) is
-    appended to ``launches[kernel name]``. A profiler session that
-    records no device event at all (CUPTI tracing, rarely, returns none)
-    is opened again, at most PROFILER_SESSIONS times in all. On
-    the CPU (rehearsal) it is time_ms."""
+def device_ms(fn, dev, iters: int, launches=None):
+    """Device time of one ``fn()``: for each kernel (or memset) it
+    launches, the median duration of its launches times its launches per
+    call, from torch.profiler over ``iters`` calls. Host time between
+    launches is not in it, so a call whose host work outlasts its kernels
+    is not host-bound here (time_ms shows that). CUPTI tracing, at times,
+    loses device events: the medians and the rounded launches per call
+    stand up to a lost part; a session that recorded no event at all is
+    opened again, at most PROFILER_SESSIONS in all, and then the device
+    time is None (not measured: the CUDA-event clock, time_ms, still is).
+    With a dict ``launches``, each launch's duration (us) is appended to
+    ``launches[kernel name]``. On the CPU (rehearsal) it is time_ms."""
+    import statistics
+
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -263,23 +270,35 @@ def device_ms(fn, dev, iters: int, launches=None) -> float:
         return time_ms(fn, dev, iters)
     fn()
     torch.cuda.synchronize()
-    for attempt in range(PROFILER_SESSIONS):
+    for _ in range(PROFILER_SESSIONS):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        spans = [(e.name, e.time_range.end - e.time_range.start)
-                 for e in prof.events() if e.device_type == DeviceType.CUDA]
-        if spans:
+        by_name: dict[str, list] = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                by_name.setdefault(e.name, []).append(
+                    e.time_range.end - e.time_range.start)
+        if by_name:
             break
-        log(f"    (profiler session {attempt + 1} recorded no device event)")
     else:
-        raise AssertionError(f"the profiler saw no device time in "
-                             f"{PROFILER_SESSIONS} sessions")
-    for name, us in spans if launches is not None else ():
-        launches.setdefault(name, []).append(us)
-    return sum(us for _, us in spans) / 1e3 / iters
+        log(f"    (device time not measured: {PROFILER_SESSIONS} profiler "
+            f"sessions recorded no device event)")
+        return None
+    if any(len(us) % iters for us in by_name.values()):
+        log(f"    (the profiler lost device events: "
+            f"{sum(map(len, by_name.values()))} for {iters} calls of "
+            f"{len(by_name)} kernels; per-launch medians used)")
+    for name, us in by_name.items() if launches is not None else ():
+        launches.setdefault(name, []).extend(us)
+    return sum(statistics.median(us) * max(1, round(len(us) / iters))
+               for us in by_name.values()) / 1e3
+
+
+def _ms(x) -> str:
+    return "not measured" if x is None else f"{x:.4f}"
 
 
 def alternating(label, fns, dev, iters, reps=3):
@@ -301,15 +320,17 @@ def alternating(label, fns, dev, iters, reps=3):
     out = {}
     log(f"  {label} ({reps} x kernel, library, library, kernel):")
     for name, g in got.items():
-        out[name] = {c: (statistics.median(g[c]), max(g[c]) - min(g[c]))
-                     for c in ("ms", "device_ms")}
+        out[name] = {}
         for c, what in (("ms", "CUDA events, host included"
                          if dev.type == "cuda" else "host time"),
                         ("device_ms", "device time" if dev.type == "cuda"
                          else "host time, rehearsal")):
-            m, sp = out[name][c]
-            log(f"    {name} {what}: median {m:.4f} ms, spread {sp:.4f} "
-                f"(runs {' '.join(f'{x:.4f}' for x in g[c])})")
+            runs = [x for x in g[c] if x is not None]
+            m, sp = ((statistics.median(runs), max(runs) - min(runs))
+                     if runs else (None, None))
+            out[name][c] = (m, sp)
+            log(f"    {name} {what}: median {_ms(m)} ms, spread {_ms(sp)} "
+                f"(runs {' '.join(_ms(x) for x in g[c])})")
         for kname, us in g["launches"].items():
             us = sorted(us)
             log(f"      {name} launch {kname[:70]}: {len(us)}x, min "
@@ -401,11 +422,14 @@ def check_kernels(dev, cfg, card, seed):
     res = cfg["resolutions"]
     imgs = dyadic(b, base, gen, dev)
     out_res = list(cfg["out_res"])
-    # grid extremes, the main-path-sized case, and the trusted model
+    # grid extremes, the main-path-sized case, the trusted model, and
+    # widths that are no multiple of 4 (the one-channel conv and the
+    # unvectorized dense pass)
     cases = [((1, 16, 16), Representation(res[0], "gray")),
              ((4, 32, 64), Representation(res[3], "rgb")),
              ((2, 32, 64), Representation(res[1], "rgb")),
-             ((3, 48, 64), Representation(res[3], "rgb"))]
+             ((3, 48, 64), Representation(res[3], "rgb")),
+             ((1, 15, 13), Representation(res[0], "rgb"))]
     from repro_torch.kernels.image_transform import fused_pyramid_stage0
     from repro_torch.kernels.ref import fused_pyramid_stage0_ref
     worst = 0.0
@@ -415,13 +439,28 @@ def check_kernels(dev, cfg, card, seed):
                                         f"{rep.name} {arch}"))
         ms = time_ms(lambda: fused_pyramid_stage0(imgs, out_res, s0.params,
                                                   s0.rep), dev, cfg["iters"])
+        dms = device_ms(lambda: fused_pyramid_stage0(imgs, out_res,
+                                                     s0.params, s0.rep),
+                        dev, cfg["iters"])
         plain = time_ms(lambda: fused_pyramid_stage0_ref(imgs, out_res,
                                                          s0.params, s0.rep),
                         dev, cfg["iters"])
         bound, by = stage0_bound_ms(card, b, base, out_res, s0, s0cfg)
         log(f"  fused_pyramid_stage0 {rep.name} {arch} chunk {b} f32: "
-            f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {bound:.4f} "
-            f"ms ({by})")
+            f"kernel {ms:.4f} ms (device {_ms(dms)}), plain {plain:.4f} ms, "
+            f"bound {bound:.4f} ms ({by})")
+
+    # the pooling kernel's other paths: levels that are no chain 2, 4, 8
+    # times smaller than the base (pooled in shared memory, tiles narrower
+    # than a row), and frames whose rows are not 16-byte aligned (loaded
+    # without the bulk-copy ring)
+    s0, _ = stage0_for((1, 16, 16), Representation(res[0], "gray"), gen, dev)
+    worst = max(worst, check_stage0(imgs, [res[2], base // 16], s0,
+                                    "levels no chain"))
+    shifted = torch.empty(imgs.numel() + 1, device=dev)[1:].view_as(imgs)
+    shifted.copy_(imgs)
+    worst = max(worst, check_stage0(shifted, out_res, s0,
+                                    "frames 4 bytes off 16-byte alignment"))
 
     mm = {"max_abs_err": 0.0}
     for m, k, n in cfg["mm_shapes"]:
@@ -663,18 +702,21 @@ def query_path(dev, cfg, card, kern, seed):
               if e.params is s0.params)
     ms = time_ms(lambda: fused_pyramid_stage0(imgs, out_res, s0.params,
                                               s0.rep), dev, cfg["iters"])
+    dms = device_ms(lambda: fused_pyramid_stage0(imgs, out_res, s0.params,
+                                                 s0.rep), dev, cfg["iters"])
     plain = time_ms(lambda: fused_pyramid_stage0_ref(imgs, out_res,
                                                      s0.params, s0.rep),
                     dev, cfg["iters"])
     bound, by = stage0_bound_ms(card, cfg["chunk"], base, out_res, s0,
                                 k0.arch)
-    kern["stage0"].update(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
+    kern["stage0"].update(ms=ms, device_ms=dms, plain_ms=plain,
+                          bound_ms=bound, bound_by=by,
                           max_abs_err=max(worst, kern["stage0"]["worst"]),
                           shape=f"{k0.name} chunk {cfg['chunk']} base {base} "
                                 f"levels {out_res}")
     log(f"  fused_pyramid_stage0 main path ({k0.name}, levels {out_res}): "
-        f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {bound:.4f} ms "
-        f"({by})")
+        f"kernel {ms:.4f} ms (device {_ms(dms)}), plain {plain:.4f} ms, "
+        f"bound {bound:.4f} ms ({by})")
     matmul_main_path(dev, cfg, card, kern, systems[casc0.concept])
     return launches
 
@@ -768,8 +810,8 @@ def matmul_main_path(dev, cfg, card, kern, system):
         rows.append(row)
         log(f"  matmul {row['shape']}: kernel {row['ms']:.4f} ms, plain "
             f"{plain:.4f} ms, torch.matmul {row['library_ms']:.4f} ms "
-            f"(CUDA events); device time kernel {row['device_ms']:.4f} ms, "
-            f"torch.matmul {row['library_device_ms']:.4f} ms; bound "
+            f"(CUDA events); device time kernel {_ms(row['device_ms'])} ms, "
+            f"torch.matmul {_ms(row['library_device_ms'])} ms; bound "
             f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
     kern["matmul"].update(rows[0], max_abs_err=err, other_shapes=rows[1:])
     s = cfg["mm_probe"]
@@ -777,9 +819,12 @@ def matmul_main_path(dev, cfg, card, kern, system):
     a, b = (torch.randn((s, s), generator=gen, device=dev) for _ in "ab")
     ms = device_ms(lambda: matmul(a, b), dev, 3)
     lib = device_ms(lambda: torch.matmul(a, b), dev, 3)
-    log(f"  matmul inner-loop probe ({s},{s})@({s},{s}) f32: kernel {ms:.4f} "
-        f"ms ({2 * s ** 3 / ms / 1e9:.1f} TFLOP/s), torch.matmul {lib:.4f} "
-        f"ms ({2 * s ** 3 / lib / 1e9:.1f} TFLOP/s)")
+
+    def rate(t):
+        return "" if t is None else f" ({2 * s ** 3 / t / 1e9:.1f} TFLOP/s)"
+
+    log(f"  matmul inner-loop probe ({s},{s})@({s},{s}) f32: kernel "
+        f"{_ms(ms)} ms{rate(ms)}, torch.matmul {_ms(lib)} ms{rate(lib)}")
 
 
 def _sync(dev):
@@ -906,6 +951,8 @@ def check_lm_kernels(dev, cfg, card, kern, arch, gen):
     import torch
     import torch.nn.functional as F
 
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels.bindings import ssd_heads_per_block
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.ref import flash_attention_ref, ssd_scan_ref
     from repro_torch.kernels.ssd_scan import ssd_scan
@@ -974,8 +1021,8 @@ def check_lm_kernels(dev, cfg, card, kern, arch, gen):
                     f"views")
     log(f"  flash_attention {path} bf16 causal: kernel {fl['ms']:.4f} ms, "
         f"plain {fl['plain_ms']:.4f} ms, sdpa {fl['library_ms']:.4f} ms "
-        f"(CUDA events); device time kernel {fl['device_ms']:.4f} ms, sdpa "
-        f"{fl['library_device_ms']:.4f} ms; bound {fl['bound_ms']:.4f} ms "
+        f"(CUDA events); device time kernel {_ms(fl['device_ms'])} ms, sdpa "
+        f"{_ms(fl['library_device_ms'])} ms; bound {fl['bound_ms']:.4f} ms "
         f"({fl['bound_by']})")
 
     ss = {"max_abs_err": 0.0}
@@ -989,35 +1036,57 @@ def check_lm_kernels(dev, cfg, card, kern, arch, gen):
                 randn(bb, sl, nn, dtype=dt, scale=0.3),
                 randn(bb, sl, nn, dtype=dt, scale=0.3))
 
-    cases = [((b, s, h, p, n), chunk, bf)] + [
-        (shp, c, torch.float32) for shp in SSD_TEST_SHAPES
-        for c in (16, 32, 64)]
+    # the serving path's shape, mamba2-130m's (N 128, several heads a
+    # block on the tensor cores), and the reference tests' shapes in f32
+    # (the FFMA kernel) and bf16 (the tensor-core kernel's ragged P and N)
+    m130 = get_arch("mamba2-130m")
+    m130_shape = (b, s, m130.ssm_heads, m130.ssm.head_dim, m130.ssm.d_state)
+    cases = [((b, s, h, p, n), chunk, bf), (m130_shape, chunk, bf)] + [
+        (shp, c, dt) for shp in SSD_TEST_SHAPES for c in (16, 32, 64)
+        for dt in (torch.float32, bf)]
     for shp, c, dt in cases:
         args = ssd_inputs(*shp, dt)
         (y, fin), (yr, fr) = (ssd_scan(*args, chunk=c),
                               ssd_scan_ref(*args, chunk=c))
         ey, oky = _close(y, yr, *SSD_TOL)
         ef, okf = _close(fin, fr, *SSD_TOL)
+        bb, _, hh, pp, nn = shp
+        hb = ssd_heads_per_block(bb, hh, pp, nn, dt == bf)
         log(f"  ssd_scan x {shp[:4]} N {shp[4]} {dt} chunk {c}: max |err| "
-            f"y {ey:.3g}, final state {ef:.3g} (tol {SSD_TOL})")
+            f"y {ey:.3g}, final state {ef:.3g} (tol {SSD_TOL}); "
+            + (f"tensor cores, {hb} heads a block" if hb else "f32 FFMA"))
         if not (oky and okf):
             raise AssertionError(f"ssd_scan {shp} chunk {c}: {ey}, {ef}")
         ss["max_abs_err"] = max(ss["max_abs_err"], ey, ef)
-    args = ssd_inputs(b, s, h, p, n, bf)
-    ss["ms"] = time_ms(lambda: ssd_scan(*args, chunk=chunk), dev, it)
-    ss["plain_ms"] = time_ms(lambda: ssd_scan_ref(*args, chunk=chunk), dev,
-                             it)
-    t_ops = 4.0 * b * s * h * p * n / card["flops"]
-    nbytes = (b * s * h * p * 2 + b * s * h * 4 + h * 4 + 2 * b * s * n * 2
-              + b * s * h * p * 4 + b * h * p * n * 4)
-    t_mem = nbytes / card["bw"]
-    ss.update(bound_ms=max(t_ops, t_mem) * 1e3,
-              bound_by="operations" if t_ops > t_mem else "bytes",
-              library_ms=None,
-              shape=f"x ({b},{s},{h},{p}) bf16, N {n}, chunk {chunk}")
-    log(f"  ssd_scan x ({b},{s},{h},{p}) bf16 N {n}: kernel {ss['ms']:.4f} "
-        f"ms, plain {ss['plain_ms']:.4f} ms, bound {ss['bound_ms']:.4f} ms "
-        f"({ss['bound_by']}); no single PyTorch call computes it")
+    rows = []
+    for (bb, sl, hh, pp, nn) in ((b, s, h, p, n), m130_shape):
+        args = ssd_inputs(bb, sl, hh, pp, nn, bf)
+        row = {"ms": time_ms(lambda: ssd_scan(*args, chunk=chunk), dev, it),
+               "device_ms": device_ms(lambda: ssd_scan(*args, chunk=chunk),
+                                      dev, it),
+               "plain_ms": time_ms(lambda: ssd_scan_ref(*args, chunk=chunk),
+                                   dev, it)}
+        # the least work: the state update and the output contraction, on
+        # the unit the kernel uses (bf16 tensor cores), against the bytes
+        # (x, B, C in bf16, dt and a in f32 read; y and the final state in
+        # f32 written)
+        t_ops = 4.0 * bb * sl * hh * pp * nn / card["bf16"]
+        nbytes = (bb * sl * hh * pp * 2 + bb * sl * hh * 4 + hh * 4
+                  + 2 * bb * sl * nn * 2 + bb * sl * hh * pp * 4
+                  + bb * hh * pp * nn * 4)
+        t_mem = nbytes / card["bw"]
+        row.update(bound_ms=max(t_ops, t_mem) * 1e3,
+                   bound_by="operations" if t_ops > t_mem else "bytes",
+                   library_ms=None,
+                   shape=f"x ({bb},{sl},{hh},{pp}) bf16, N {nn}, chunk "
+                         f"{chunk}, {ssd_heads_per_block(bb, hh, pp, nn)} "
+                         f"heads a block")
+        log(f"  ssd_scan {row['shape']}: kernel {row['ms']:.4f} ms (device "
+            f"{_ms(row['device_ms'])}), plain {row['plain_ms']:.4f} ms, bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']}); no single "
+            f"PyTorch call computes it")
+        rows.append(row)
+    ss.update(rows[0], other_shapes=rows[1:])
     kern["flash_attention"], kern["ssd_scan"] = fl, ss
 
 

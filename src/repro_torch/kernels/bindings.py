@@ -20,7 +20,12 @@ from repro_torch.kernels.build import library
 
 MAX_STEPS = 8
 MAX_CONV = 8
-PS0_THREADS = 512   # THREADS in csrc/pyramid_stage0.cu: one per dense unit
+PS0_RING = 4        # RING in csrc/pyramid_stage0.cu: base tiles staged
+PS0_DENSE_TILE = 64     # DT: the dense pass's (images x units) block tile
+PS0_DENSE_BK = 32       # DBK: a dense split's k_chunk is a multiple
+PS0_DENSE_BLOCKS_PER_SM = 1   # the dense pass's split-K aims at this
+PS0_CNN_STAGE = 12 * 1024  # floats of shared memory that stage a conv
+#                            layer's input and weights when every layer fits
 IT_MAX_OUTPUTS = 32   # csrc/image_transform.cu: the query path needs 20
 IT_MAX_LEVELS = 16
 SMS = 132          # streaming multiprocessors of an H100 SXM
@@ -28,6 +33,10 @@ SMS = 132          # streaming multiprocessors of an H100 SXM
 MM_TILES = ((64, 64), (32, 64), (32, 32))
 MM_BK = 32         # BK in csrc/matmul.cu; a split-K chunk is a multiple
 MM_MIN_K_CHUNK = 2 * MM_BK   # a split keeps at least two K steps to pipeline
+# csrc/ssd_scan.cu's tensor-core kernel: the largest head width and state
+# it lays out, and its most heads a block for N > 64 and N <= 64
+SSD_MAX_P, SSD_MAX_N = 64, 128
+SSD_MAX_HEADS = (2, 4)
 
 LAUNCHES = {"fused_pyramid_stage0": 0, "matmul": 0, "flash_attention": 0,
             "ssd_scan": 0, "fused_transform": 0,
@@ -45,6 +54,7 @@ class PS0Params(ctypes.Structure):
         ("img", ctypes.c_void_p),
         ("scores", ctypes.c_void_p),
         ("scratch", ctypes.c_void_p),
+        ("part", ctypes.c_void_p),
         ("step_out", ctypes.c_void_p * MAX_STEPS),
         ("conv_w", ctypes.c_void_p * MAX_CONV),
         ("conv_b", ctypes.c_void_p * MAX_CONV),
@@ -57,8 +67,16 @@ class PS0Params(ctypes.Structure):
         ("s0_step", ctypes.c_int), ("s0_res", ctypes.c_int),
         ("C", ctypes.c_int), ("n_conv", ctypes.c_int),
         ("dense_n", ctypes.c_int),
+        ("tile_h", ctypes.c_int), ("tile_w", ctypes.c_int),
+        ("vec4", ctypes.c_int), ("tile_row", ctypes.c_int),
+        ("tile_stride", ctypes.c_int), ("chain", ctypes.c_int),
+        ("smem_bytes", ctypes.c_int), ("grid", ctypes.c_int),
+        ("flat", ctypes.c_int), ("flat_buf", ctypes.c_int),
+        ("dense_vec4", ctypes.c_int), ("cnn_stage", ctypes.c_int),
+        ("dense_split", ctypes.c_int), ("dense_k_chunk", ctypes.c_int),
         ("step_res", ctypes.c_int * MAX_STEPS),
         ("step_src", ctypes.c_int * MAX_STEPS),
+        ("level_off", ctypes.c_int * MAX_STEPS),
         ("conv_cout", ctypes.c_int * MAX_CONV),
         ("cw", ctypes.c_float * 9),
         ("conv_scale", ctypes.c_float * MAX_CONV),
@@ -111,9 +129,26 @@ def _ps0_fn():
     return fn
 
 
+@functools.lru_cache(maxsize=256)
+def ps0_dense_plan(b: int, k: int, d: int) -> tuple[int, int]:
+    """-> (split, k_chunk) for csrc/pyramid_stage0.cu's dense pass over a
+    (b, k) @ (k, d) product: the fewest K chunks (each a multiple of
+    PS0_DENSE_BK and at least two of them; the last may be short) that
+    give its (b x d) tiles of PS0_DENSE_TILE^2 PS0_DENSE_BLOCKS_PER_SM x
+    SMS blocks, or as many as K allows. The head pass
+    adds the chunks' partial sums in chunk order."""
+    tiles = _cdiv(b, PS0_DENSE_TILE) * _cdiv(d, PS0_DENSE_TILE)
+    max_split = max(1, k // (2 * PS0_DENSE_BK))
+    split = min(max_split, _cdiv(PS0_DENSE_BLOCKS_PER_SM * SMS, tiles))
+    k_chunk = _cdiv(_cdiv(k, split), PS0_DENSE_BK) * PS0_DENSE_BK
+    return _cdiv(k, k_chunk), k_chunk
+
+
 def launch_pyramid_stage0(prm: PS0Params, int8_weights: bool) -> None:
-    """Every pointer in ``prm`` must reference a live CUDA tensor the
-    caller keeps alive until the stream has run the kernel."""
+    """The pyramid + CNN kernel, the dense pass and the head on the
+    current stream: one call, one count. Every pointer in ``prm`` must
+    reference a live CUDA tensor the caller keeps alive until the stream
+    has run the kernels."""
     fn = _ps0_fn()
     _check(fn(ctypes.byref(prm), int(int8_weights), _stream()),
            "fused_pyramid_stage0")
@@ -176,14 +211,40 @@ def launch_matmul(a: torch.Tensor, b: torch.Tensor, out: torch.Tensor
     LAUNCHES["matmul"] += 1
 
 
+@functools.lru_cache(maxsize=256)
+def ssd_heads_per_block(b: int, h: int, p: int, n: int,
+                        tensor_cores: bool = True) -> int:
+    """Heads a block of csrc/ssd_scan.cu's tensor-core kernel takes for x
+    (b, S, h, p) and state size n, or 0 for its f32 FFMA kernel (f32
+    inputs, or a shape the tensor-core kernel does not take: p > 64 or
+    n > 128, or either not a multiple of 8). The heads of a block share
+    C B^T, so the more the better, up to SSD_MAX_HEADS[n <= 64] (shared
+    memory and registers) and as long as the busiest SM gets no more heads
+    than with one head a block: blocks of the plan's size, one to an SM,
+    reach the fewest heads per SM any plan can, ceil(b h / SMS). The count
+    divides h, so every head is in exactly one block."""
+    if not tensor_cores or p > SSD_MAX_P or n > SSD_MAX_N or p % 8 or n % 8:
+        return 0
+    least = _cdiv(b * h, SMS)
+    cap = SSD_MAX_HEADS[n <= 64]
+    return next(hb for hb in (4, 2, 1) if hb <= cap and h % hb == 0
+                and _cdiv(_cdiv(b * h, hb), SMS) * hb <= least)
+
+
 def launch_ssd_scan(x, dt, a, bmat, cmat, y, final) -> None:
+    """Contiguous operands; the kernel and its heads per block from
+    ``ssd_heads_per_block`` (the tensor cores for bf16 operands whose rows
+    are 16-byte aligned)."""
     fn = _bind("ssd_scan", "repro_ssd_scan",
-               [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+               [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
     b, s, h, p = x.shape
     n = bmat.shape[-1]
+    bf16 = x.dtype == torch.bfloat16
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, bmat, cmat))
+    hb = ssd_heads_per_block(b, h, p, n, bf16 and aligned)
     _check(fn(x.data_ptr(), dt.data_ptr(), a.data_ptr(), bmat.data_ptr(),
               cmat.data_ptr(), y.data_ptr(), final.data_ptr(), b, s, h, p, n,
-              int(x.dtype == torch.bfloat16), _stream()), "ssd_scan")
+              int(bf16), hb, _stream()), "ssd_scan")
     LAUNCHES["ssd_scan"] += 1
 
 

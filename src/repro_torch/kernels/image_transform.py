@@ -17,7 +17,10 @@ other device is refused. There is no fallback between the two.
 """
 from __future__ import annotations
 
+import collections
 import math
+import threading
+import typing
 
 import numpy as np
 import torch
@@ -210,27 +213,164 @@ def fused_pyramid_stage0(images: torch.Tensor, out_res, params, rep, *,
 
 
 def _weight_operands(params, qparams):
-    """[(w, b, scale)] per conv layer, then dense, then out; scale is
-    1.0 on the f32 path."""
+    """([(w, b, scale)] per conv layer, then dense, then out, copied:
+    whether any operand is a copy of the caller's tensor). scale is 1.0 on
+    the f32 path."""
     src = qparams if qparams is not None else params
+    copied = []
+
+    def f32(t):
+        out = t.to(torch.float32).contiguous()
+        copied.append(out is not t)
+        return out
 
     def w(t):
         if qparams is None:
-            return _aligned(t.to(torch.float32).contiguous()), 1.0
-        return _aligned(t["q"].contiguous()), float(t["scale"])
+            return _aligned(f32(t), copied), 1.0
+        return _aligned(t["q"].contiguous(), copied), float(t["scale"])
 
-    out = [(*w(l["w"]), l["b"].to(torch.float32).contiguous())
-           for l in src["conv"]]
-    out.append((*w(src["dense_w"]),
-                src["dense_b"].to(torch.float32).contiguous()))
-    out.append((*w(src["out_w"]), src["out_b"].to(torch.float32).contiguous()))
-    return out
+    out = [(*w(l["w"]), f32(l["b"])) for l in src["conv"]]
+    out.append((*w(src["dense_w"]), f32(src["dense_b"])))
+    out.append((*w(src["out_w"]), f32(src["out_b"])))
+    return out, any(copied)
 
 
-def _aligned(t: torch.Tensor) -> torch.Tensor:
+def _aligned(t: torch.Tensor, copied: list) -> torch.Tensor:
     """The kernel reads conv weights 16 bytes at a time: a view that does
     not start on a 16-byte boundary is copied to one that does."""
-    return t if t.data_ptr() % 16 == 0 else t.clone()
+    copied.append(t.data_ptr() % 16 != 0)
+    return t if not copied[-1] else t.clone()
+
+
+# The launch setup of recent (weights, shapes): everything but the chunk's
+# own tensors. An entry holds the caller's weight dicts, so their ids stay
+# theirs, and is used only while the dicts still hold the same tensors; it
+# is kept only when the kernel reads the caller's weight tensors themselves
+# (no dtype or alignment copy), so that weights changed in place are read
+# as they are. An int8 scale is read once per entry.
+_SETUP_CACHE: collections.OrderedDict = collections.OrderedDict()
+_SETUP_CACHE_SIZE = 64
+_SETUP_LOCK = threading.Lock()
+
+
+class _Setup(typing.NamedTuple):
+    params: object
+    qparams: object
+    leaves: list        # the weight dicts' tensors when it was built
+    steps: list
+    prm: bytes          # PS0Params with every field but the chunk's tensors
+    need: int           # floats per scratch buffer per image
+    part: int           # floats of split-K partial sums
+    operands: list      # the weight tensors the kernel reads
+
+
+def _setup(images, out_res, params, rep, qparams) -> _Setup:
+    b, h = int(images.shape[0]), int(images.shape[1])
+    key = (id(params), id(qparams), b, h, tuple(out_res),
+           int(rep.resolution), rep.color, images.device)
+    leaves = _weight_leaves(params, qparams)
+    with _SETUP_LOCK:
+        hit = _SETUP_CACHE.get(key)
+        if hit is not None and hit.params is params \
+                and hit.qparams is qparams and len(hit.leaves) == len(leaves) \
+                and all(a is b for a, b in zip(hit.leaves, leaves)):
+            _SETUP_CACHE.move_to_end(key)
+            return hit
+    setup, copied = _build_setup(images, out_res, params, rep, qparams)
+    if not copied:
+        with _SETUP_LOCK:
+            _SETUP_CACHE[key] = setup
+            if len(_SETUP_CACHE) > _SETUP_CACHE_SIZE:
+                _SETUP_CACHE.popitem(last=False)
+    return setup
+
+
+def _weight_leaves(params, qparams) -> list:
+    """The tensors (and int8 scales) of the weight dicts, in one order."""
+    src = qparams if qparams is not None else params
+
+    def w(t):
+        return [t["q"], t["scale"]] if qparams is not None else [t]
+
+    out = [x for l in src["conv"] for x in (*w(l["w"]), l["b"])]
+    return out + [*w(src["dense_w"]), src["dense_b"], *w(src["out_w"]),
+                  src["out_b"]]
+
+
+def _build_setup(images, out_res, params, rep, qparams):
+    dev = images.device
+    b, h = int(images.shape[0]), int(images.shape[1])
+    s0_res = int(rep.resolution)
+    steps = plan_pyramid(set(out_res) | {s0_res}, h)
+    if len(steps) > bindings.MAX_STEPS:
+        raise ValueError(f"at most {bindings.MAX_STEPS} pyramid steps")
+    weights, copied = _weight_operands(params, qparams)
+    *conv, (dense_w, dense_s, dense_b), (out_w, out_s, out_b) = weights
+    if len(conv) > bindings.MAX_CONV:
+        raise ValueError(f"at most {bindings.MAX_CONV} conv layers")
+    cw = color_weight_matrix(rep.color)
+    c = cw.shape[1]
+    dense_n = dense_w.shape[1]
+
+    # scratch: two ping-pong activation buffers per image, each large
+    # enough for the projected input and for every pooled conv output
+    hw, need, cin = s0_res, s0_res * s0_res * c, c
+    staged = True     # every layer's input and weights fit PS0_CNN_STAGE
+    for w, _, _ in conv:
+        if w.shape[:3] != (3, 3, cin):
+            raise ValueError(f"conv weight {tuple(w.shape)} is not 3x3x{cin}")
+        staged &= (-(-hw * hw * cin // 4) * 4 + 9 * cin * w.shape[3]
+                   <= bindings.PS0_CNN_STAGE)
+        cin = w.shape[3]
+        hw //= 2
+        need = max(need, hw * hw * cin)
+    flat = hw * hw * cin
+    need = -(-need // 4) * 4     # rows of the scratch start 16-byte aligned
+    if dense_w.shape[0] != flat:
+        raise ValueError("dense_w rows do not match the flattened conv "
+                         "output")
+    operands = [dense_w, dense_b, out_w, out_b] + [x for l in conv
+                                                   for x in (l[0], l[2])]
+    if any(t.device != dev for t in operands):
+        raise ValueError("stage-0 weights must lie on the images' device")
+    tiling = ps0_tiling(h, steps)
+    split, k_chunk = bindings.ps0_dense_plan(b, flat, dense_n)
+    index = {st.resolution: i for i, st in enumerate(steps)}
+
+    prm = bindings.PS0Params()
+    prm.scratch_stride = need
+    prm.B, prm.H, prm.n_steps = b, h, len(steps)
+    for i, st in enumerate(steps):
+        prm.step_res[i] = st.resolution
+        prm.step_src[i] = -1 if st.source == h else index[st.source]
+    (prm.tile_h, prm.tile_w, prm.tile_row, prm.tile_stride, offsets,
+     prm.smem_bytes, prm.chain) = tiling
+    for i, off in enumerate(offsets):
+        prm.level_off[i] = off
+    prm.grid = min(b, bindings.SMS)    # one pooling block an SM
+    prm.s0_step = -1 if s0_res == h else index[s0_res]
+    prm.s0_res, prm.C = s0_res, c
+    for i, v in enumerate(cw.reshape(-1)):
+        prm.cw[i] = float(v)
+    prm.n_conv = len(conv)
+    for i, (w, s, bias) in enumerate(conv):
+        prm.conv_w[i] = w.data_ptr()
+        prm.conv_b[i] = bias.data_ptr()
+        prm.conv_cout[i] = w.shape[3]
+        prm.conv_scale[i] = s
+    prm.flat, prm.flat_buf = flat, len(conv) % 2
+    prm.dense_vec4 = int(need % 4 == 0 and flat % 4 == 0
+                         and dense_n % 4 == 0
+                         and dense_w.data_ptr() % 16 == 0)
+    prm.cnn_stage = bindings.PS0_CNN_STAGE if conv and staged else 0
+    prm.dense_split, prm.dense_k_chunk = split, k_chunk
+    prm.dense_w, prm.dense_b, prm.dense_n = (dense_w.data_ptr(),
+                                             dense_b.data_ptr(), dense_n)
+    prm.out_w, prm.out_b = out_w.data_ptr(), out_b.data_ptr()
+    prm.dense_scale, prm.out_scale = dense_s, out_s
+    return _Setup(params, qparams, _weight_leaves(params, qparams), steps,
+                  bytes(prm), need,
+                  split * b * dense_n, operands), copied
 
 
 def _launch(images, out_res, params, rep, qparams):
@@ -243,72 +383,66 @@ def _launch(images, out_res, params, rep, qparams):
     b, h = images.shape[0], images.shape[1]
     if b == 0:
         raise ValueError("fused_pyramid_stage0: empty batch")
-    s0_res = int(rep.resolution)
-    steps = plan_pyramid(set(out_res) | {s0_res}, h)
-    if len(steps) > bindings.MAX_STEPS:
-        raise ValueError(f"at most {bindings.MAX_STEPS} pyramid steps")
-    weights = _weight_operands(params, qparams)
-    *conv, (dense_w, dense_s, dense_b), (out_w, out_s, out_b) = weights
-    if len(conv) > bindings.MAX_CONV:
-        raise ValueError(f"at most {bindings.MAX_CONV} conv layers")
-    cw = color_weight_matrix(rep.color)
-    c = cw.shape[1]
-    dense_n = dense_w.shape[1]
-    if dense_n > bindings.PS0_THREADS:
-        raise ValueError(f"dense layer wider than the kernel's "
-                         f"{bindings.PS0_THREADS} threads")
-
-    # scratch: two ping-pong activation buffers per image, each large
-    # enough for the projected input and for every pooled conv output
-    hw, need, cin = s0_res, s0_res * s0_res * c, c
-    for w, _, _ in conv:
-        if w.shape[:3] != (3, 3, cin):
-            raise ValueError(f"conv weight {tuple(w.shape)} is not 3x3x{cin}")
-        cin = w.shape[3]
-        hw //= 2
-        need = max(need, hw * hw * cin)
-    if dense_w.shape[0] != hw * hw * cin:
-        raise ValueError("dense_w rows do not match the flattened conv "
-                         "output")
-    for t in [dense_w, dense_b, out_w, out_b] + [x for l in conv for x in
-                                                 (l[0], l[2])]:
-        if t.device != dev:
-            raise ValueError("stage-0 weights must lie on the images' "
-                             "device")
-
-    levels = {st.resolution: torch.empty((b, st.resolution, st.resolution,
-                                          3), device=dev)
-              for st in steps}
+    st = _setup(images, out_res, params, rep, qparams)
+    prm = bindings.PS0Params.from_buffer_copy(st.prm)
+    levels = {s.resolution: torch.empty((b, s.resolution, s.resolution, 3),
+                                        device=dev) for s in st.steps}
     scores = torch.empty(b, device=dev)
-    scratch = torch.empty(b * 2 * need, device=dev)
-    index = {st.resolution: i for i, st in enumerate(steps)}
-
-    prm = bindings.PS0Params()
+    work = torch.empty(b * 2 * st.need + st.part, device=dev)
     prm.img = images.data_ptr()
+    prm.vec4 = int(h % 4 == 0 and prm.tile_w % 4 == 0
+                   and images.data_ptr() % 16 == 0)
     prm.scores = scores.data_ptr()
-    prm.scratch = scratch.data_ptr()
-    prm.scratch_stride = need
-    prm.B, prm.H, prm.n_steps = b, h, len(steps)
-    for i, st in enumerate(steps):
-        prm.step_out[i] = levels[st.resolution].data_ptr()
-        prm.step_res[i] = st.resolution
-        prm.step_src[i] = -1 if st.source == h else index[st.source]
-    prm.s0_step = -1 if s0_res == h else index[s0_res]
-    prm.s0_res, prm.C = s0_res, c
-    for i, v in enumerate(cw.reshape(-1)):
-        prm.cw[i] = float(v)
-    prm.n_conv = len(conv)
-    for i, (w, s, bias) in enumerate(conv):
-        prm.conv_w[i] = w.data_ptr()
-        prm.conv_b[i] = bias.data_ptr()
-        prm.conv_cout[i] = w.shape[3]
-        prm.conv_scale[i] = s
-    prm.dense_w, prm.dense_b, prm.dense_n = (dense_w.data_ptr(),
-                                             dense_b.data_ptr(), dense_n)
-    prm.out_w, prm.out_b = out_w.data_ptr(), out_b.data_ptr()
-    prm.dense_scale, prm.out_scale = dense_s, out_s
+    prm.scratch = work.data_ptr()
+    prm.part = work.data_ptr() + 4 * b * 2 * st.need
+    for i, s in enumerate(st.steps):
+        prm.step_out[i] = levels[s.resolution].data_ptr()
     bindings.launch_pyramid_stage0(prm, int8_weights=qparams is not None)
-    # the caching allocator may hand `scratch` (and dropped operand copies)
-    # to later work queued on this same stream only, so freeing them here
-    # is safe without a synchronize
+    # the caching allocator may hand `work` (and dropped operand copies) to
+    # later work queued on this same stream only, so freeing them here is
+    # safe without a synchronize
     return {r: images if r == h else levels[r] for r in out_res}, scores
+
+
+def ps0_tiling(h: int, steps):
+    """The stage-0 pooling kernel's tiling for base ``h`` and pyramid
+    ``steps``: (tile_h, tile_w, floats per tile row in shared memory,
+    floats per ring slot, each step's float offset after the ring, shared
+    bytes, chain). A chain of levels 2, 4, 8 times smaller than the base
+    (``ps0_chain``) is pooled in registers from strips of 16 full rows;
+    any other plan in shared memory, level by level, from
+    ``transform_tiling``'s tile, its levels' parts after the ring (offsets
+    multiples of 4). Rows are padded by 4 floats, so they start 16 bytes
+    apart and 16-byte reads of neighbouring rows fall in other banks.
+    Raises ValueError above SMEM_MAX."""
+    chain = ps0_chain(h, steps) if h % 16 == 0 else 0
+    offsets, floats = [0] * len(steps), 0
+    if chain:
+        tile_h, tile_w = 16, h
+    else:
+        tile_h, tile_w, _, _ = transform_tiling(h, steps)
+        for i, st in enumerate(steps):
+            f = h // st.resolution
+            offsets[i] = floats
+            floats += -(-(tile_h // f) * (tile_w // f) * 3 // 4) * 4
+    row = -(-tile_w * 3 // 4) * 4 + 4
+    smem = 4 * (bindings.PS0_RING * tile_h * row + floats)
+    if smem > SMEM_MAX:
+        raise ValueError(f"a {tile_h} x {tile_w} tile needs {smem} bytes of "
+                         f"shared memory per stage-0 block, above "
+                         f"{SMEM_MAX}")
+    return tile_h, tile_w, row, tile_h * row, offsets, smem, chain
+
+
+def ps0_chain(h: int, steps) -> int:
+    """A bit per level 2, 4 or 8 times smaller than the base ``h`` (bits
+    0, 1, 2) when the pyramid ``steps`` form such a chain, each level
+    pooled from the one before and the first from the base; else 0."""
+    mask, prev = 0, h
+    for st in steps:
+        f = h // st.resolution
+        if st.source != prev or f not in (2, 4, 8):
+            return 0
+        mask |= {2: 1, 4: 2, 8: 4}[f]
+        prev = st.resolution
+    return mask

@@ -9,9 +9,12 @@ dtype (f32 or bf16), dt (B,S,H) and a (H,) are f32; returns y (B,S,H,P)
 f32 and the final state (B,H,P,N) f32. ``chunk`` is the plain version's
 chunk length; the kernel runs its own 64-token chunk, and the result does
 not depend on it beyond f32 rounding. Both refuse a sequence that is not
-a multiple of ``min(chunk, S)``, as the reference does. A head width and
-state size whose tiles exceed a block's shared memory (above 128 x 128)
-fail at launch, and the wrapper raises.
+a multiple of ``min(chunk, S)``, as the reference does. bf16 operands go
+to the tensor-core kernel (P <= 64, N <= 128, several heads a block:
+``bindings.ssd_heads_per_block``), f32 operands and other shapes to the
+f32 FFMA kernel; a head width and state size whose tiles exceed a block's
+shared memory there (above 128 x 128) fail at launch, and the wrapper
+raises.
 """
 from __future__ import annotations
 

@@ -258,3 +258,31 @@ def test_chip_smoke_rehearsal_runs_every_phase_on_the_cpu():
     assert names == ["fused_pyramid_stage0", "matmul", "flash_attention",
                      "ssd_scan", "fused_transform", "fused_pyramid_transform"]
     assert "prefill + decode_step == forward" in out.stdout
+
+
+def _c_struct_fields(source: str, struct: str) -> list[str]:
+    """The field names of ``struct`` in a csrc source, in order."""
+    import re
+    text = (ROOT / "src" / "repro_torch" / "kernels" / "csrc" /
+            source).read_text()
+    body = text[text.index(f"struct {struct} {{"):]
+    body = body[body.index("{") + 1:body.index("};")]
+    body = re.sub(r"//[^\n]*", "", body)
+    names = []
+    for decl in body.split(";"):       # "const float* img", "int B, H"
+        for part in re.sub(r"\[[^\]]*\]", "", decl).split(","):
+            words = re.findall(r"\w+", part)
+            if words:
+                names.append(words[-1])
+    return names
+
+
+@pytest.mark.parametrize("source,struct", [
+    ("pyramid_stage0.cu", "PS0Params"), ("image_transform.cu", "ITParams")])
+def test_ctypes_launch_structs_mirror_the_c_structs(source, struct):
+    """The ctypes mirrors in kernels/bindings.py name the C fields in the
+    C order (the card checks the sizes at first use; a swapped pair of
+    same-sized fields only shows here)."""
+    from repro_torch.kernels import bindings
+    mirror = [f[0] for f in getattr(bindings, struct)._fields_]
+    assert _c_struct_fields(source, struct) == mirror

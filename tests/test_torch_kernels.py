@@ -174,3 +174,119 @@ def test_matmul_matches_reference_kernel_on_evaluator_indicators(m, k, n):
     got = matmul(torch.from_numpy(a), torch.from_numpy(b),
                  out_dtype=torch.float32)
     assert np.array_equal(got.numpy(), want)
+
+
+# ---- csrc/pyramid_stage0.cu's dense pass and pooling plan, chosen on the
+# host
+from repro_torch.core.transforms import plan_pyramid  # noqa: E402
+
+# (images, flat, dense units): the query path's stage-0 (cnn_l1_c32_d64 at
+# 28 px), the grid extreme 1x16x16, a 224 px 3x48 stage-0, and ragged ones
+DENSE_SHAPES = [(256, 6272, 64), (256, 3136, 16), (256, 37632, 64),
+                (3, 40, 5), (100, 100, 70)]
+
+
+@pytest.mark.parametrize("b,k,d", DENSE_SHAPES)
+def test_ps0_dense_split_chunks_partition_k_exactly(b, k, d):
+    """The dense pass's K chunks, one partial product each, added in chunk
+    order z = 0, 1, ... as the head adds them, give the exact counts of
+    0/1 operands: every k lies in exactly one chunk, each chunk a multiple
+    of the kernel's k step (the last may be short), and the plan reaches
+    PS0_DENSE_BLOCKS_PER_SM blocks an SM where K allows."""
+    split, k_chunk = bindings.ps0_dense_plan(b, k, d)
+    assert k_chunk % bindings.PS0_DENSE_BK == 0 and split >= 1
+    chunks = [range(k)[z * k_chunk:(z + 1) * k_chunk] for z in range(split)]
+    assert all(len(c) for c in chunks)
+    assert sorted(i for c in chunks for i in c) == list(range(k))
+    tiles = -(-b // bindings.PS0_DENSE_TILE) * -(-d // bindings.PS0_DENSE_TILE)
+    assert (tiles * split >= bindings.PS0_DENSE_BLOCKS_PER_SM * bindings.SMS
+            or split >= k // (2 * bindings.PS0_DENSE_BK))
+    rng = np.random.default_rng(b + k + d)
+    a = (rng.random((b, k)) < 0.5).astype(np.float32)
+    w = (rng.random((k, d)) < 0.5).astype(np.float32)
+    got = np.zeros((b, d), np.float32)
+    for c in chunks:
+        got += a[:, c.start:c.stop] @ w[c.start:c.stop]
+    assert np.array_equal(got, a @ w)
+
+
+@pytest.mark.parametrize("levels,mask", [
+    ({112, 28}, 0b101),            # the query path's stage-0 levels
+    ({112, 56, 28}, 0b111), ({112}, 0b001), ({56}, 0b010), ({28}, 0b100),
+    ({112, 56}, 0b011), ({56, 28}, 0b110), ({112, 56, 28, 224}, 0b111),
+    ({7}, 0), ({14, 28}, 0), ({112, 14}, 0)])   # 32x or 16x smaller
+def test_ps0_chain_picks_the_register_path_for_dyadic_chains(levels, mask):
+    steps = plan_pyramid(levels, 224)
+    assert t_it.ps0_chain(224, steps) == mask
+    tile_h, tile_w, row, stride, offsets, smem, chain = t_it.ps0_tiling(
+        224, steps)
+    assert chain == mask and smem <= t_it.SMEM_MAX
+    assert row % 4 == 0 and row >= tile_w * 3 and stride == tile_h * row
+    assert 224 % tile_h == 0 and 224 % tile_w == 0
+    for st in steps:                  # a tile holds whole pooling windows
+        assert tile_h % (224 // st.resolution) == 0
+        assert tile_w % (224 // st.resolution) == 0
+    if chain:                         # strips of full rows, 8-pixel lanes
+        assert (tile_h, tile_w) == (16, 224)
+    assert all(o % 4 == 0 for o in offsets)
+
+
+def test_ps0_chain_refuses_a_tree():
+    """A level pooled from the base beside another (here 240 -> 120 and
+    240 -> 80) is no chain: the shared-memory path takes it."""
+    steps = plan_pyramid({120, 80}, 240)
+    assert [st.source for st in steps] == [240, 240]
+    assert t_it.ps0_chain(240, steps) == 0
+    assert t_it.ps0_tiling(240, steps)[-1] == 0
+
+
+def _torch_stage0(seed, arch=(1, 16, 16), res=8, color="gray"):
+    from repro_torch.configs.base import TahomaCNNConfig as TCfg
+    from repro_torch.models.cnn import init_cnn as t_init_cnn
+    cfg = TCfg(*arch, input_hw=res, input_channels=1 if color != "rgb" else 3)
+    return t_init_cnn(torch.Generator().manual_seed(seed), cfg, device="cpu")
+
+
+def test_ps0_launch_setup_is_reused_for_the_same_weights_and_shapes():
+    """The stage-0 wrapper builds its launch setup once per (weights,
+    shapes) and reuses it chunk after chunk; other weights, shapes or
+    levels get their own."""
+    images = torch.zeros(4, 32, 32, 3)
+    rep = Representation(8, "gray")
+    params = _torch_stage0(0)
+    first = t_it._setup(images, [16, 8], params, rep, None)
+    assert t_it._setup(images, [16, 8], params, rep, None) is first
+    assert t_it._setup(images, [16], params, rep, None) is not first
+    assert t_it._setup(torch.zeros(2, 32, 32, 3), [16, 8], params, rep,
+                       None) is not first
+    other = _torch_stage0(1)
+    assert t_it._setup(images, [16, 8], other, rep, None) is not first
+    prm = bindings.PS0Params.from_buffer_copy(first.prm)
+    assert prm.dense_w == params["dense_w"].data_ptr()   # the caller's own
+    assert (prm.B, prm.H, prm.n_steps) == (4, 32, 2)
+
+
+def test_ps0_launch_setup_is_not_kept_for_copied_weights():
+    """Weights the kernel cannot read as they are (here f64) are copied for
+    the launch, and such a setup is not kept: a later in-place change of
+    the caller's weights would not reach a kept copy."""
+    images = torch.zeros(4, 32, 32, 3)
+    rep = Representation(8, "gray")
+    params = _torch_stage0(2)
+    params["dense_w"] = params["dense_w"].double()
+    first = t_it._setup(images, [16, 8], params, rep, None)
+    assert t_it._setup(images, [16, 8], params, rep, None) is not first
+
+
+def test_ps0_launch_setup_follows_a_replaced_weight_tensor():
+    """A weight dict that now holds another tensor (not the same one
+    changed in place) gets a new setup that points at it."""
+    images = torch.zeros(4, 32, 32, 3)
+    rep = Representation(8, "gray")
+    params = _torch_stage0(3)
+    first = t_it._setup(images, [16, 8], params, rep, None)
+    params["dense_w"] = params["dense_w"].clone()
+    again = t_it._setup(images, [16, 8], params, rep, None)
+    assert again is not first
+    prm = bindings.PS0Params.from_buffer_copy(again.prm)
+    assert prm.dense_w == params["dense_w"].data_ptr()

@@ -148,3 +148,116 @@ def test_flash_strides_refuse_what_the_kernel_cannot_take(dtype):
         assert bindings.flash_refusal(copy) is None
     with pytest.raises(ValueError):
         bindings.flash_strides(torch.zeros(3, 40, 16, dtype=dtype))
+
+
+# ---- the tensor-core SSD kernel's arithmetic (csrc/ssd_scan.cu), emulated
+SSD_CHUNK = 64     # CHUNK in csrc/ssd_scan.cu
+
+
+def _split(v):
+    """f32 -> bf16 high and low parts, v = hi + lo to ~2^-17 relative."""
+    hi = v.to(torch.bfloat16)
+    return hi.float(), (v - hi.float()).to(torch.bfloat16).float()
+
+
+def _split_mm(a, b):
+    """a (f32, split in two) @ b (exact bf16 values): two products with
+    f32 sums, as the kernel issues them."""
+    hi, lo = _split(a)
+    return hi @ b + lo @ b
+
+
+def ssd_split_emulation(x, dt, a, bmat, cmat):
+    """The bf16 kernel's sums in torch: 64-token chunks; C B^T of the exact
+    bf16 B and C; y_diag = split(G dt_j) x; y_off = exp(cum) (C
+    split(state)^T); state = state exp(cum_last) + split((x dt wend)^T) B.
+    x, bmat, cmat bf16; dt, a f32 -> y (B,S,H,P), final state (B,H,P,N)."""
+    b, s, h, p = x.shape
+    n = bmat.shape[-1]
+    xf, bf, cf = x.float(), bmat.float(), cmat.float()
+    y = torch.zeros(b, s, h, p)
+    state = torch.zeros(b, h, p, n)
+    for t0 in range(0, s, SSD_CHUNK):
+        t1 = min(s, t0 + SSD_CHUNK)
+        xs = xf[:, t0:t1].permute(0, 2, 1, 3)            # (b,h,l,p)
+        bs, cs = bf[:, t0:t1], cf[:, t0:t1]              # (b,l,n)
+        d = dt[:, t0:t1].permute(0, 2, 1)                # (b,h,l)
+        cum = torch.cumsum(d * a[None, :, None], dim=-1)
+        cb = cs @ bs.transpose(1, 2)                     # (b,l,l), once
+        seg = cum[..., :, None] - cum[..., None, :]
+        low = torch.ones(t1 - t0, t1 - t0, dtype=torch.bool).tril()
+        g = torch.where(low, cb[:, None] * torch.exp(torch.where(
+            low, seg, 0.0)) * d[..., None, :], 0.0)
+        y_off = (cs[:, None] @ _split(state)[0].transpose(-1, -2)
+                 + cs[:, None] @ _split(state)[1].transpose(-1, -2))
+        yc = torch.exp(cum)[..., None] * y_off + _split_mm(g, xs)
+        y[:, t0:t1] = yc.permute(0, 2, 1, 3)
+        w = d * torch.exp(cum[..., -1:] - cum)
+        state = (state * torch.exp(cum[..., -1])[..., None, None]
+                 + _split_mm((xs * w[..., None]).transpose(-1, -2),
+                             bs[:, None]))
+    return y, state
+
+
+@pytest.mark.parametrize("shp", [(1, 64, 2, 8, 16), (2, 128, 3, 16, 32),
+                                 (1, 512, 1, 64, 64),      # one zamba2 stream
+                                 (1, 512, 1, 64, 128)])    # one mamba2-130m
+def test_ssd_split_precision_emulation_matches_plain_version(shp):
+    """bf16 x, B, C as the model gives them: the split-factor sums of the
+    tensor-core kernel stay within the reference tests' SSD tolerance of
+    the plain f32 version on the same inputs."""
+    x, dt, a, bm, cm = (_t(v) for v in _ssd_inputs(shp, sum(shp)))
+    x, bm, cm = (v.to(torch.bfloat16) for v in (x, bm, cm))
+    y, final = ssd_split_emulation(x, dt, a, bm, cm)
+    y_ref, f_ref = ssd_scan(x, dt, a, bm, cm, chunk=min(128, shp[1]))
+    np.testing.assert_allclose(y.numpy(), y_ref.numpy(), **SSD_TOL)
+    np.testing.assert_allclose(final.numpy(), f_ref.numpy(), **SSD_TOL)
+
+
+def test_ssd_split_factor_error_is_about_2_to_the_minus_17():
+    v = torch.from_numpy(np.random.default_rng(3).standard_normal(4096)
+                         .astype(np.float32))
+    hi, lo = _split(v)
+    rel = ((hi + lo - v).abs() / v.abs()).max().item()
+    assert rel <= 2.0 ** -16
+    assert (hi - v).abs().max() > 0          # one bf16 alone would not do
+
+
+# ---- csrc/ssd_scan.cu's heads per block, chosen on the host
+from repro_torch.configs.registry import get_arch  # noqa: E402
+
+MODEL_SSD = {name: (8, get_arch(name).ssm_heads, get_arch(name).ssm.head_dim,
+                    get_arch(name).ssm.d_state)
+             for name in ("zamba2-1.2b", "mamba2-130m")}   # 8 prompts
+
+
+@pytest.mark.parametrize("name", sorted(MODEL_SSD))
+def test_ssd_heads_per_block_fills_the_card_at_the_model_shapes(name):
+    b, h, p, n = MODEL_SSD[name]
+    hb = bindings.ssd_heads_per_block(b, h, p, n)
+    assert hb > 1                                   # C B^T is shared
+    blocks = b * h // hb
+    # the busiest SM gets no more heads than any plan could give it
+    assert -(-blocks // bindings.SMS) * hb == -(-(b * h) // bindings.SMS)
+    assert hb <= bindings.SSD_MAX_HEADS[n <= 64]
+
+
+@pytest.mark.parametrize("b,h,p,n", list(MODEL_SSD.values()) + [
+    (1, 2, 8, 16), (2, 3, 16, 32), (2, 4, 64, 64), (1, 32, 64, 64),
+    (3, 6, 64, 128), (16, 64, 64, 64)])
+def test_ssd_heads_per_block_covers_every_head_once(b, h, p, n):
+    hb = bindings.ssd_heads_per_block(b, h, p, n)
+    assert hb >= 1 and h % hb == 0
+    groups = h // hb                # block k: batch k // groups, heads from
+    heads = [(k // groups, (k % groups) * hb + i)   # (k % groups) hb on
+             for k in range(b * groups) for i in range(hb)]
+    assert sorted(heads) == [(i, j) for i in range(b) for j in range(h)]
+
+
+@pytest.mark.parametrize("b,h,p,n,tc", [
+    (8, 64, 64, 64, False),       # f32 operands: the FFMA kernel
+    (8, 64, 80, 64, True), (8, 64, 64, 256, True),   # past the tiles
+    (8, 64, 12, 64, True), (8, 64, 64, 20, True)])   # not multiples of 8
+def test_ssd_heads_per_block_sends_other_shapes_to_the_ffma_kernel(
+        b, h, p, n, tc):
+    assert bindings.ssd_heads_per_block(b, h, p, n, tc) == 0

@@ -58,8 +58,14 @@
    reset just before and read just after: 20 ``fused_transform`` and 1
    ``fused_pyramid_transform``. Every output is held against its plain
    version (rgb/r/g/b ``torch.equal``, gray within TRANSFORM_GRAY_TOL), and
-   again on ``torch.rand`` frames within TRANSFORM_TOL; then kernel, plain,
-   bound and library (``F.conv2d``) times.
+   again on ``torch.rand`` frames within TRANSFORM_TOL; then kernel (on
+   two clocks: CUDA events and profiler device time), plain, bound and
+   library (``F.conv2d``) times and the pyramid kernel's TB/s. Then
+   ``fused_pyramid_transform``'s other paths (``pyramid_cases``: a plan
+   that is no chain, a (3, 3) projection that is no identity, a chain at
+   a base no multiple of 16, frames off 16-byte alignment, B = 1, B =
+   chunk + 1), each held against the plain
+   version the same way on dyadic frames and timed.
 6. The card's name and power limit again, one ``{"kernels": [...]}``
    line, then the result line ``{"ok": true, "device": {...}}``.
 
@@ -1161,43 +1167,123 @@ def ops_path(dev, cfg, card, kern, seed):
     worst = dict.fromkeys(names, 0.0)
 
     def hold(label, x, got):
-        exact_input = label == "dyadic"
-        wants = [_transform_ref(x, r, c) for r, c in specs]
         for name in names:
-            err_by = {"gray": 0.0, "other": 0.0}
-            for o, want, (r, c) in zip(got[name], wants, specs):
-                if o.shape != want.shape or not torch.isfinite(o).all():
-                    raise AssertionError(f"{name} ({r}, {c}): bad output")
-                err = float((o - want).abs().max())
-                if exact_input and c != "gray":
-                    ok = torch.equal(o, want)
-                else:
-                    ok = err <= (TRANSFORM_GRAY_TOL if exact_input
-                                 else TRANSFORM_TOL)
-                if not ok:
-                    raise AssertionError(f"{name} ({r}, {c}) on {label} "
-                                         f"frames: max |err| {err}")
-                key = "gray" if c == "gray" else "other"
-                err_by[key] = max(err_by[key], err)
+            err_by = check_transform(f"{name} on {label} frames", x, specs,
+                                     got[name], label == "dyadic")
             worst[name] = max(worst[name], *err_by.values())
-            log(f"  {name} on {label} frames, all {len(specs)} outputs: "
-                + (f"rgb/r/g/b equal, gray max |err| {err_by['gray']:.3g} "
-                   f"(tol {TRANSFORM_GRAY_TOL})" if exact_input else
-                   f"max |err| {max(err_by.values()):.3g} (tol "
-                   f"{TRANSFORM_TOL})"))
 
     hold("dyadic", imgs, outs)
     del outs
     x = torch.rand((b, base, base, 3), generator=gen, device=dev)
     hold("torch.rand", x, run(x))
     transform_times(dev, cfg, card, kern, imgs, specs, worst)
+    kern["fused_pyramid_transform"]["other_shapes"] = pyramid_other_shapes(
+        dev, cfg, gen)
     return launches
 
 
-def _transform_ref(x, res, color):
+def check_transform(label, x, specs, outs, exact_input):
+    """Each (res, color) output against its plain version: on dyadic
+    frames (``exact_input``) rgb/r/g/b torch.equal and gray within
+    TRANSFORM_GRAY_TOL, else within TRANSFORM_TOL. Raises on a miss;
+    returns the max |err| of gray and of the other colors."""
+    import torch
+    err_by = {"gray": 0.0, "other": 0.0}
+    for o, (r, c) in zip(outs, specs):
+        want = _transform_ref(x, r, c)
+        if o.shape != want.shape or not torch.isfinite(o).all():
+            raise AssertionError(f"{label} ({r}, {c}): bad output")
+        err = float((o - want).abs().max())
+        if exact_input and c != "gray":
+            ok = torch.equal(o, want)
+        else:
+            ok = err <= (TRANSFORM_GRAY_TOL if exact_input
+                         else TRANSFORM_TOL)
+        if not ok:
+            raise AssertionError(f"{label} ({r}, {c}): max |err| {err}")
+        key = "gray" if c == "gray" else "other"
+        err_by[key] = max(err_by[key], err)
+    log(f"  {label}, all {len(specs)} outputs: " + (
+        f"rgb/r/g/b equal, gray max |err| {err_by['gray']:.3g} (tol "
+        f"{TRANSFORM_GRAY_TOL})" if exact_input else
+        f"max |err| {max(err_by.values()):.3g} (tol {TRANSFORM_TOL})"))
+    return err_by
+
+
+def pyramid_cases(cfg):
+    """fused_pyramid_transform's other paths: (label, frames, base,
+    (res, color) specs, storage offset of the frames in floats)."""
+    from repro_torch.core.transforms import COLOR_REPS
+    b, base = cfg["chunk"], cfg["base"]
+    main = tuple((r, c) for r in cfg["resolutions"] for c in COLOR_REPS)
+    return (
+        ("no chain: 32 px straight from 224 px (factor 7)", b, 224,
+         ((112, "rgb"), (32, "gray"), (224, "g")), 0),
+        ("a (3, 3) projection that is no identity (bgr)", b, base,
+         ((base, "bgr"), (base // 2, "bgr"), (base // 8, "bgr")), 0),
+        ("chain at 84 px (no multiple of 16)", b, 84,
+         tuple((r, c) for r in (42, 21) for c in COLOR_REPS), 0),
+        ("frames at storage offset 1 (off 16-byte alignment)", b, base,
+         main, 1),
+        ("B = 1", 1, base, main, 0),
+        (f"B = {b + 1} (no multiple of the grid)", b + 1, base, main, 0),
+    )
+
+
+def pyramid_case_inputs(case, gen, dev):
+    """The dyadic frames of a ``pyramid_cases`` case (at its storage
+    offset) and its (res, channel weights) specs."""
+    import torch
+
+    _, b, base, specs, offset = case
+    flat = torch.empty(offset + b * base * base * 3, device=dev)
+    x = flat[offset:].view(b, base, base, 3)
+    x.copy_(dyadic(b, base, gen, dev))
+    return x, [(r, _weights(c)) for r, c in specs]
+
+
+def pyramid_other_shapes(dev, cfg, gen):
+    """Every ``pyramid_cases`` case through the entry point, held against
+    the plain version (check_transform, dyadic frames), and the kernel
+    alone timed (a prepared launch; the entry point on the CPU)."""
+    from repro_torch.kernels import bindings
+    from repro_torch.kernels.image_transform import (fused_pyramid_transform,
+                                                     transform_params)
+    rows = []
+    for case in pyramid_cases(cfg):
+        label, b, base, specs, _ = case
+        x, cws = pyramid_case_inputs(case, gen, dev)
+        err_by = check_transform(f"fused_pyramid_transform, {label}", x,
+                                 specs, fused_pyramid_transform(x, cws), True)
+        if dev.type == "cuda":
+            prm, _outs = transform_params(x, cws)   # outputs kept alive
+            ms = time_ms(lambda: bindings.launch_fused_pyramid_transform(prm),
+                         dev, cfg["iters"] * 10)
+            path = "strips" if prm.chain else "tiles"
+        else:
+            ms = time_ms(lambda: fused_pyramid_transform(x, cws), dev, 1)
+            path = "plain"
+        rows.append({"case": label, "kernel": path, "ms": ms,
+                     "max_abs_err": max(err_by.values())})
+        log(f"    {b} x {base} px -> {len(specs)} specs: {path} kernel "
+            f"{ms:.4f} ms")
+    return rows
+
+
+def _weights(color):
+    """ops.COLOR_WEIGHTS[color], or for "bgr" the channels reversed: a
+    (3, 3) matrix that is no identity (exact on dyadic frames)."""
+    import numpy as np
+
     from repro_torch.kernels.ops import COLOR_WEIGHTS
+    if color == "bgr":
+        return np.ascontiguousarray(np.eye(3, dtype=np.float32)[:, ::-1])
+    return COLOR_WEIGHTS[color]
+
+
+def _transform_ref(x, res, color):
     from repro_torch.kernels.ref import fused_transform_ref
-    return fused_transform_ref(x, COLOR_WEIGHTS[color], res)
+    return fused_transform_ref(x, _weights(color), res)
 
 
 def transform_times(dev, cfg, card, kern, imgs, specs, worst):
@@ -1226,8 +1312,9 @@ def transform_times(dev, cfg, card, kern, imgs, specs, worst):
         if dev.type == "cuda":
             prm, _outs = transform_params(imgs, cws)   # outputs kept alive
             ms = time_ms(lambda: launch(prm), dev, it)
+            dev_ms = device_ms(lambda: launch(prm), dev, it)
         else:
-            ms = entry_ms
+            ms = dev_ms = entry_ms
         plain = time_ms(lambda: fused_pyramid_transform_ref(imgs, cws), dev,
                         it)
         nbytes = 4 * b * (base * base * 3 + sum(
@@ -1238,7 +1325,8 @@ def transform_times(dev, cfg, card, kern, imgs, specs, worst):
             [r for r, _ in sp], base)) + sum(
                 r * r * ops.COLOR_WEIGHTS[c].shape[1] * 7 for r, c in sp))
         t_mem, t_ops = nbytes / card["bw"], nops / card["flops"]
-        k = {"max_abs_err": worst[name], "ms": ms, "plain_ms": plain,
+        k = {"max_abs_err": worst[name], "ms": ms, "device_ms": dev_ms,
+             "plain_ms": plain, "tb_per_s": nbytes / ms / 1e9,
              "bound_ms": max(t_mem, t_ops) * 1e3,
              "bound_by": "bytes" if t_mem > t_ops else "operations",
              "library_ms": None,
@@ -1260,9 +1348,10 @@ def transform_times(dev, cfg, card, kern, imgs, specs, worst):
             lib = (f", F.conv2d {k['library_ms']:.4f} ms (max |diff| "
                    f"{lib_err:.3g})")
         kern[name] = k
-        log(f"  {name} {k['shape']}: kernel {ms:.4f} ms (entry point "
-            f"{entry_ms:.4f} ms), plain {plain:.4f} ms{lib}, bound "
-            f"{k['bound_ms']:.4f} ms ({k['bound_by']})")
+        log(f"  {name} {k['shape']}: kernel {ms:.4f} ms (device "
+            f"{_ms(dev_ms)} ms; {k['tb_per_s']:.3f} TB/s of {nbytes / 1e6:.1f}"
+            f" MB; entry point {entry_ms:.4f} ms), plain {plain:.4f} ms{lib}, "
+            f"bound {k['bound_ms']:.4f} ms ({k['bound_by']})")
 
 
 # ------------------------------------------------------------ phase 6 --
@@ -1297,6 +1386,7 @@ def kernels_line(kern, launches):
                     "shape": k["shape"],
                     **{key: k[key] for key in ("device_ms",
                                                "library_device_ms",
+                                               "tb_per_s",
                                                "other_shapes") if key in k}})
     print(json.dumps({"kernels": out}), flush=True)
 

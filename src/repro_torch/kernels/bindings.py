@@ -102,6 +102,10 @@ class ITParams(ctypes.Structure):
         ("out_ch", ctypes.c_int * IT_MAX_OUTPUTS),
         ("out_cw", ctypes.c_float * (9 * IT_MAX_OUTPUTS)),
         ("mean", ctypes.c_float), ("inv_std", ctypes.c_float),
+        ("chain", ctypes.c_int), ("ring", ctypes.c_int),
+        ("tile_row", ctypes.c_int), ("lv_stride", ctypes.c_int),
+        ("grid", ctypes.c_int),
+        ("out_kind", ctypes.c_int * IT_MAX_OUTPUTS),
     ]
 
 

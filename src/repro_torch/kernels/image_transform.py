@@ -4,7 +4,10 @@
   channel projection of one color representation, and normalization.
 * ``fused_pyramid_transform``: every (resolution, color) representation of
   a list from one read of the base, levels pooled progressively along
-  ``core.transforms.plan_pyramid``.
+  ``core.transforms.plan_pyramid``. On the card a chain of levels 2, 4, 8
+  times smaller on aligned frames takes the strip kernel (persistent
+  blocks, a bulk-copy ring, levels in registers: ``strip_plan``), any
+  other plan the tile kernel (``transform_tiling``).
 * ``fused_pyramid_stage0`` (the per-chunk hot path of the scan engine):
   one read of the raw base per image emits the raw pooled RGB pyramid
   levels the engine carries between cascade stages AND the stage-0
@@ -18,6 +21,7 @@ other device is refused. There is no fallback between the two.
 from __future__ import annotations
 
 import collections
+import functools
 import math
 import threading
 import typing
@@ -103,7 +107,7 @@ def fused_pyramid_transform(images: torch.Tensor, rep_specs,
 
 
 def transform_tiling(h: int, steps) -> tuple[int, int, list[int], int]:
-    """The transform kernel's tile for base ``h`` and pyramid ``steps``:
+    """The tile kernel's tile for base ``h`` and pyramid ``steps``:
     (tile_h, tile_w, each step's float offset in shared memory, shared
     bytes). Both sides are multiples of every pooling factor from the base
     and divide ``h``; a strip of full rows is preferred (one contiguous
@@ -139,58 +143,165 @@ def _launch_transform(images, specs, mean, std, launch) -> tuple:
     return outs
 
 
+# The strip kernel (csrc/image_transform.cu, fused_pyramid_strip_kernel):
+# base rows a strip, and the most ring slots it takes (MAX_RING there).
+STRIP_ROWS = 16
+STRIP_MAX_RING = 4
+STRIP_STATIC_SMEM = 1024  # its static shared memory (write plan, barriers)
+
+
+class StripPlan(typing.NamedTuple):
+    chain: int          # ps0_chain's mask of the levels
+    ring: int           # slots of STRIP_ROWS base rows
+    tile_row: int       # floats a slot row: 3 h, padded by 4
+    lv_stride: int      # floats a level buffer (the kernel keeps two)
+    smem: int           # shared bytes a block
+
+
+def strip_plan(h: int, steps, aligned: bool = True) -> StripPlan | None:
+    """The strip kernel's plan for base ``h`` and pyramid ``steps``, or
+    None for the tile kernel. Strips need a chain of levels 2, 4 and 8
+    times smaller than the base (``ps0_chain``: the query path's {112, 56,
+    28} and {112, 28} at 224 px), a base that is a multiple of STRIP_ROWS
+    (every level's part of a strip is whole rows, every row 16-byte
+    aligned), ``aligned`` frames (16-byte bulk copies) and at least two
+    ring slots within SMEM_MAX. A slot holds STRIP_ROWS base rows, each
+    padded by 4 floats, so that 16-byte reads of neighbouring rows fall in
+    other banks; a level buffer holds every level's part of one strip,
+    unpadded, in the plan's order."""
+    if not aligned or h % STRIP_ROWS or not steps:
+        return None
+    chain = ps0_chain(h, steps)
+    if not chain:
+        return None
+    lv = sum(STRIP_ROWS // (h // st.resolution) * st.resolution * 3
+             for st in steps)
+    row = 3 * h + 4
+    for ring in range(STRIP_MAX_RING, 1, -1):
+        smem = 4 * (ring * STRIP_ROWS * row + 2 * lv)
+        if smem + STRIP_STATIC_SMEM <= SMEM_MAX:
+            return StripPlan(chain, ring, row, lv, smem)
+    return None
+
+
+def strip_grid(b: int, h: int, sms: int) -> int:
+    """Persistent blocks of the strip kernel: one an SM, at most one a
+    work item."""
+    return max(1, min(b * (h // STRIP_ROWS), sms))
+
+
+def strip_work(b: int, h: int, grid: int) -> list[list[tuple[int, int]]]:
+    """Each strip block's work items in its order, as (image, first base
+    row): block k takes items k, k + grid, ..., and item i is strip
+    i % (h / STRIP_ROWS) of image i // (h / STRIP_ROWS)."""
+    strips = h // STRIP_ROWS
+    return [[(i // strips, i % strips * STRIP_ROWS)
+             for i in range(k, b * strips, grid)] for k in range(grid)]
+
+
+def output_kind(cw: np.ndarray) -> int:
+    """How the kernel projects with the (3, C) matrix ``cw`` (out_kind in
+    csrc/image_transform.cu): 1 the identity (a copy), 2 + k the unit
+    column k (a select), else 0 (three products a value). A copy or a
+    select gives the bits of r 1 + g 0 + b 0 on finite pixels."""
+    if cw.shape == (3, 3) and np.array_equal(cw, np.eye(3)):
+        return 1
+    if cw.shape == (3, 1) and sorted(cw[:, 0].tolist()) == [0.0, 0.0, 1.0]:
+        return 2 + int(np.argmax(cw[:, 0]))
+    return 0
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def transform_params(images: torch.Tensor, specs, mean: float = 0.5,
                      std: float = 0.25):
-    """The transform kernel's launch parameters for contiguous float32
+    """The transform kernels' launch parameters for contiguous float32
     (B, H, H, 3) CUDA ``images`` and (res, channel_weights) ``specs``, and
     the outputs they point at: (ITParams, outputs), or (None, outputs)
-    when there is nothing to launch. The caller keeps ``images`` and the
-    outputs alive while a launch with the parameters may run."""
+    when there is nothing to launch. They hold the tile kernel's plan
+    (``transform_tiling``) and, for a chain on aligned frames, the strip
+    kernel's (``strip_plan``), which fused_pyramid_transform's launch then
+    takes. The caller keeps ``images`` and the outputs alive while a launch
+    with the parameters may run."""
     if images.dtype != torch.float32 or not images.is_contiguous():
         raise ValueError("transform_params: images must be contiguous "
                          "float32")
     b, h = int(images.shape[0]), int(images.shape[1])
-    cws = []
-    for _, cw in specs:
+    key = []
+    for r, cw in specs:
         cw = np.asarray(cw.detach().cpu() if torch.is_tensor(cw) else cw,
                         np.float32)
-        if cw.ndim != 2 or cw.shape[0] != 3 or cw.shape[1] not in (1, 3):
+        key.append((int(r), cw.shape, cw.tobytes()))
+    dev = images.device
+    sms = _sm_count(dev.index if dev.index is not None
+                    else torch.cuda.current_device())
+    template, shapes = param_template(b, h, tuple(key), float(mean),
+                                      float(std), images.data_ptr() % 16 == 0,
+                                      sms)
+    # torch.empty on the card starts every output 512-byte aligned
+    outs = tuple(torch.empty(s, device=dev) for s in shapes)
+    if template is None:
+        return None, outs
+    prm = bindings.ITParams.from_buffer_copy(template)
+    prm.img = images.data_ptr()
+    for o, out in enumerate(outs):
+        prm.out[o] = out.data_ptr()
+    return prm, outs
+
+
+@functools.lru_cache(maxsize=64)
+def param_template(b: int, h: int, specs: tuple, mean: float, std: float,
+                   aligned: bool, sms: int):
+    """ITParams, as bytes, with every field but the image and output
+    pointers, for ``b`` frames of ``h`` px (16-byte ``aligned`` or not) on
+    a card of ``sms`` SMs and ``specs`` ((res, shape, float32 bytes of the
+    channel weights), ...); and the outputs' shapes. (None, shapes) when
+    there is nothing to launch. Built once per such key."""
+    cws = []
+    for _, shape, buf in specs:
+        if len(shape) != 2 or shape[0] != 3 or shape[1] not in (1, 3):
             raise ValueError(f"channel weights must be (3, 1) or (3, 3) on "
-                             f"the card, got {cw.shape}")
-        cws.append(cw)
+                             f"the card, got {shape}")
+        cws.append(np.frombuffer(buf, np.float32).reshape(shape))
     if len(specs) > bindings.IT_MAX_OUTPUTS:
         raise ValueError(f"at most {bindings.IT_MAX_OUTPUTS} outputs")
-    steps = plan_pyramid([r for r, _ in specs], h)
+    steps = plan_pyramid([r for r, _, _ in specs], h)
     if len(steps) > bindings.IT_MAX_LEVELS:
         raise ValueError(f"at most {bindings.IT_MAX_LEVELS} pyramid levels")
     tile_h, tile_w, offsets, smem = transform_tiling(h, steps)
     if b * (h // tile_h) * (h // tile_w) >= 2 ** 31:
         raise ValueError(f"{b} images of {h} px exceed one launch's grid")
-    outs = tuple(torch.empty((b, r, r, cw.shape[1]), device=images.device)
-                 for (r, _), cw in zip(specs, cws))
-    if not b or not outs:
-        return None, outs
+    shapes = tuple((b, r, r, cw.shape[1]) for (r, _, _), cw in zip(specs,
+                                                                  cws))
+    if not b or not shapes:
+        return None, shapes
     level = {st.resolution: i for i, st in enumerate(steps)}
     prm = bindings.ITParams()
-    prm.img = images.data_ptr()
     prm.B, prm.H, prm.tile_h, prm.tile_w = b, h, tile_h, tile_w
-    prm.vec4 = int(h % 4 == 0 and tile_w % 4 == 0
-                   and images.data_ptr() % 16 == 0)
+    prm.vec4 = int(h % 4 == 0 and tile_w % 4 == 0 and aligned)
     prm.smem_bytes = smem
+    plan = strip_plan(h, steps, aligned)
+    if plan is not None:
+        prm.chain, prm.ring, prm.tile_row = plan.chain, plan.ring, \
+            plan.tile_row
+        prm.lv_stride, prm.grid = plan.lv_stride, strip_grid(b, h, sms)
     prm.n_levels = len(steps)
     for i, st in enumerate(steps):
         prm.level_res[i] = st.resolution
         prm.level_src[i] = -1 if st.source == h else level[st.source]
         prm.level_off[i] = offsets[i]
-    prm.n_out = len(outs)
-    for o, ((r, _), cw, out) in enumerate(zip(specs, cws, outs)):
-        prm.out[o] = out.data_ptr()
+    prm.n_out = len(specs)
+    for o, ((r, _, _), cw) in enumerate(zip(specs, cws)):
         prm.out_level[o] = -1 if r == h else level[r]
         prm.out_ch[o] = cw.shape[1]
+        prm.out_kind[o] = output_kind(cw)
         for k, v in enumerate(cw.reshape(-1)):
             prm.out_cw[9 * o + k] = float(v)
     prm.mean, prm.inv_std = mean, 1.0 / std
-    return prm, outs
+    return bytes(prm), shapes
 
 
 def fused_pyramid_stage0(images: torch.Tensor, out_res, params, rep, *,

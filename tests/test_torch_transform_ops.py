@@ -8,7 +8,10 @@ Tolerances: transform_op 1e-5 (tests/test_kernels.py::test_image_transform);
 pyramid_transform_op on dyadic (uint8-derived) pixels equal for rgb/r/g/b
 (exact sums, x1/x0 projections) and within 1e-6 for gray (three products
 summed in another order); matmul, flash attention and the SSD scan at
-tests/test_kernels.py's tolerances.
+tests/test_kernels.py's tolerances. Also the host side of
+fused_pyramid_transform's CUDA kernels (the tile plan, the strip plan and
+its work items) and, emulated in torch, the strip kernel's arithmetic
+against the Pallas kernel at the same tolerances.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -20,8 +23,9 @@ from repro.kernels import ops as j_ops  # noqa: E402
 from repro_torch.core.transforms import plan_pyramid  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.image_transform import (  # noqa: E402
-    SMEM_MAX, fused_pyramid_transform, fused_transform,
-    transform_tiling)
+    SMEM_MAX, STRIP_MAX_RING, STRIP_ROWS, STRIP_STATIC_SMEM,
+    fused_pyramid_transform, fused_transform, output_kind, strip_grid,
+    strip_plan, strip_work, transform_tiling)
 
 COLORS = ["rgb", "r", "g", "b", "gray"]
 
@@ -148,3 +152,105 @@ def test_transform_tiling(h, resolutions, tile):
 def test_transform_tiling_refuses_what_one_block_cannot_hold():
     with pytest.raises(ValueError, match="shared memory"):
         transform_tiling(2048, plan_pyramid([8], 2048))
+
+
+# ---- the strip kernel's plan (csrc/image_transform.cu,
+# fused_pyramid_strip_kernel), chosen on the host
+
+@pytest.mark.parametrize("h,resolutions,aligned,chain", [
+    (224, (112, 56, 28), True, 7),      # the query path's chains
+    (224, (112, 28), True, 5),
+    (240, (120, 80, 40), True, None),   # a tree: 80 and 120 from the base
+    (224, (112, 32), True, None),       # 32 straight from 224: factor 7
+    (84, (42, 21), True, None),         # a chain, base no multiple of 16
+    (224, (112, 56, 28), False, None),  # frames off 16-byte alignment
+])
+def test_strip_plan_picks_the_register_path_for_chains(h, resolutions,
+                                                       aligned, chain):
+    plan = strip_plan(h, plan_pyramid(resolutions, h), aligned)
+    assert (plan.chain if plan else None) == chain
+
+
+@pytest.mark.parametrize("levels", [
+    (112,), (56,), (28,), (112, 56), (112, 28), (56, 28), (112, 56, 28)])
+def test_strip_plan_fits_shared_memory(levels):
+    h = 224
+    steps = plan_pyramid(levels, h)
+    plan = strip_plan(h, steps)
+    assert plan.ring == STRIP_MAX_RING and plan.tile_row == 3 * h + 4
+    assert plan.lv_stride == sum(
+        STRIP_ROWS // (h // r) * r * 3 for r in levels)
+    assert plan.smem == 4 * (plan.ring * STRIP_ROWS * plan.tile_row
+                             + 2 * plan.lv_stride)
+    assert plan.smem + STRIP_STATIC_SMEM <= SMEM_MAX
+    assert plan.tile_row % 4 == 0 and plan.lv_stride % 4 == 0
+
+
+@pytest.mark.parametrize("b", [1, 7, 256, 257])
+def test_strip_work_covers_every_strip_once(b):
+    h, sms = 224, 132
+    grid = strip_grid(b, h, sms)
+    assert grid == min(b * h // STRIP_ROWS, sms)
+    work = strip_work(b, h, grid)
+    items = [w for block in work for w in block]
+    assert sorted(items) == [(i, y) for i in range(b)
+                             for y in range(0, h, STRIP_ROWS)]
+    sizes = [len(block) for block in work]
+    assert min(sizes) >= 1 and max(sizes) - min(sizes) <= 1
+
+
+def test_output_kinds_name_copies_and_selects():
+    assert [output_kind(ops.COLOR_WEIGHTS[c]) for c in COLORS] \
+        == [1, 2, 3, 4, 0]
+    assert output_kind(np.eye(3, dtype=np.float32)[:, ::-1].copy()) == 0
+    assert output_kind(np.full((3, 1), 1 / 3, np.float32)) == 0
+
+
+def _strip_arithmetic(img, specs, mean=0.5, std=0.25):
+    """The strip kernel's arithmetic in torch f32: each level of the chain
+    from the one before, each window's sum with one rounded add a value in
+    the kernel's order (rows, then pixels), times 1 / f^2; then per output
+    kind a copy, a select, or three products and two adds in the kernel's
+    order; then (x - mean) * (1 / std)."""
+    b, h = img.shape[0], img.shape[1]
+    levels = {h: img}
+    for st in plan_pyramid([r for r, _ in specs], h):
+        r, f = st.resolution, st.source // st.resolution
+        x = levels[st.source].reshape(b, r, f, r, f, 3)
+        acc = torch.zeros(b, r, r, 3)
+        for fy in range(f):
+            for fx in range(f):
+                acc = acc + x[:, :, fy, :, fx, :]
+        levels[r] = acc * (1.0 / (f * f))
+    outs = []
+    for r, color in specs:
+        x, cw = levels[r], ops.COLOR_WEIGHTS[color]
+        kind = output_kind(cw)
+        if kind == 1:
+            y = x
+        elif kind >= 2:
+            y = x[..., kind - 2:kind - 1]
+        else:
+            w = [float(v) for v in cw[:, 0]]
+            y = ((x[..., 0] * w[0] + x[..., 1] * w[1])
+                 + x[..., 2] * w[2])[..., None]
+        outs.append((y - mean) * (1.0 / std))
+    return outs
+
+
+def test_strip_arithmetic_matches_pallas():
+    """The strip kernel's pooling and projection, emulated, against the
+    reference's Pallas kernel (interpret mode) on 4 dyadic 32 px frames
+    with levels {16, 8, 4}: rgb/r/g/b bit for bit, gray within 1e-6."""
+    img = _uint8_images(4, 32, seed=17)
+    specs = tuple((r, c) for r in (32, 16, 8, 4) for c in COLORS)
+    assert strip_plan(32, plan_pyramid([r for r, _ in specs], 32)).chain == 7
+    want = j_ops.pyramid_transform_op(jnp.asarray(img), specs=specs)
+    got = _strip_arithmetic(torch.from_numpy(img), specs)
+    for g, w, (res, color) in zip(got, want, specs):
+        w = np.asarray(w)
+        assert tuple(g.shape) == w.shape
+        if color == "gray":
+            np.testing.assert_allclose(g.numpy(), w, atol=1e-6, rtol=0)
+        else:
+            assert np.array_equal(g.numpy(), w), (res, color)

@@ -14,16 +14,31 @@
    shapes and both evaluator shapes, within the reference test's
    tolerances, each rerun bit-identical: split-K adds in a fixed order),
    with kernel, plain, bound and library times.
-3. Query path: three predicates, each with a 361-model bank over the paper
-   grid (random weights from a seeded generator), ``system_from_bank`` on
-   512-frame splits, the streaming cascade-space evaluator through the
-   matmul kernel (checked against the dense evaluator), a joint plan, and
-   ``ScanEngine`` over 8192 dyadic 224 px frames resident on the card,
-   fused through the pyramid+stage-0 kernel, f32 and int8, each held
-   against ``naive_scan``. Launch counts are reset just before this phase
-   and read just after it; a kernel of the path with 0 launches fails.
-   The f32 scan is then rerun under ``torch.profiler``: device time by
-   kernel and the device's idle share. The evaluator's two products,
+3. Query path: three predicates, each initialized on the card by
+   ``initialize_system``: a 361-model bank over the paper grid (18
+   architectures x {28, 56, 112, 224} px x 5 colors, plus the trusted
+   model) trained with BCE + AdamW (120 steps, batch 16, lr 3e-3; the
+   trusted model 360) on 1024 frames, thresholds from a 512-frame config
+   split, scores on a 512-frame eval split, and the per-model inference
+   costs pinned in COSTS (measured again and printed beside them). Each
+   bank is held to the learning floors (best model and trusted model
+   eval accuracy); the streaming cascade-space evaluator runs through the
+   matmul kernel (checked against the dense evaluator), then a joint
+   plan and ``ScanEngine`` over 8192 dyadic 224 px frames resident on
+   the card, fused through the pyramid+stage-0 kernel, f32 and int8,
+   each held against ``naive_scan``. Launch counts are reset just before
+   training and read just after the scans; a kernel of the path with 0
+   launches fails. Per predicate: training time and steps/s,
+   accuracies, the Pareto frontier's size and the paper's Fig. 6/7
+   speedups over the trusted model (core/alc, INFER_ONLY and CAMERA,
+   modeled from the pinned costs). The dense evaluator's acc and time of
+   every planned and frontier cascade are held to the per-image oracles
+   (``simulate_cascade``, ``cascade_time_naive``). The f32 scan is then
+   rerun under ``torch.profiler``: device time by kernel and the device's
+   idle share. ``fit_cnn``'s loop (a CUDA graph on the card) must equal
+   its step run eagerly, and the planned stage-0 model and the trusted
+   model, trained again from the same seed, the bank's, bit for bit; a
+   short training run of each is profiled. The evaluator's two products,
    (128, 512) @ (512, A) and (128, 512) @ (512, M) on its 0/1 matrices,
    are exact; kernel and ``torch.matmul`` in alternating order, each on
    two clocks (CUDA events around back-to-back calls, the clock of every
@@ -85,6 +100,9 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
+# per-model inference costs the query phase plans with (measured on the
+# card by benchmarks/torch_infer_costs.py)
+COSTS = SRC / "repro_torch" / "configs" / "infer_costs_h100.json"
 
 # Per-card peaks for the bounds (NVIDIA data sheets): memory bytes/s, f32
 # FLOP/s outside the tensor cores (f32 FFMA), and dense bf16 tensor-core
@@ -121,14 +139,20 @@ FLASH_TEST_SHAPES = ((1, 2, 64, 32), (2, 3, 128, 64), (1, 1, 256, 16))
 SSD_TEST_SHAPES = ((1, 64, 2, 8, 16), (2, 128, 3, 16, 32))
 PROFILER_SESSIONS = 3   # device_ms: sessions tried before it gives up
 
+# floors: the least eval accuracy of the best model and of the trusted
+# model (tests/test_system.py's)
 FULL = dict(base=224, chunk=256, out_res=(112, 56, 28), split=512,
-            corpus=8192, gen_batch=512, resolutions=(28, 56, 112, 224),
+            train=1024, steps=120, floors=(0.85, 0.80), pinned=True,
+            profile_steps=10, corpus=8192, gen_batch=512,
+            resolutions=(28, 56, 112, 224),
             small_grid=False, mm_shapes=((33, 17, 65), (256, 64, 130),
                                          (128, 512, 1805), (128, 512, 361)),
             mm_probe=2048, iters=10,
             lm=dict(arch="zamba2-1.2b", full=True, batch=8, prompt=512,
                     gen=32, check_at=256))
-REHEARSE = dict(base=32, chunk=32, out_res=(16, 8, 4), split=48, corpus=96,
+# the rehearsal's few steps teach its toy models little: no learning floor
+REHEARSE = dict(base=32, chunk=32, out_res=(16, 8, 4), split=48, train=48,
+                steps=3, floors=(0.0, 0.0), pinned=False, corpus=96,
                 gen_batch=48, resolutions=(4, 8, 16, 32), small_grid=True,
                 mm_shapes=((33, 17, 65),), mm_probe=64, iters=1,
                 lm=dict(arch="zamba2-1.2b", full=False, batch=2, prompt=64,
@@ -493,28 +517,265 @@ def check_kernels(dev, cfg, card, seed):
 
 
 # ------------------------------------------------------------ phase 3 --
-def build_bank(gen, dev, cfg):
+def grid(cfg):
+    """The query phase's model grid: its architectures, its
+    representations ({resolutions} x five colors), and {entry name: sized
+    config} in ``train_model_grid``'s order, the trusted model last."""
     from repro_torch.configs.base import TahomaCNNConfig
     from repro_torch.configs.tahoma_cnn import architecture_space
-    from repro_torch.core.pipeline import ModelBank, ModelEntry
-    from repro_torch.core.transforms import Representation, COLOR_REPS
-    from repro_torch.models.cnn import init_cnn
+    from repro_torch.core.transforms import COLOR_REPS, Representation
     archs = architecture_space(small=cfg["small_grid"])
     reps = [Representation(r, c) for r in cfg["resolutions"]
             for c in COLOR_REPS]
-    entries = []
+    sized = {}
     for a in archs:
         for rep in reps:
             c = TahomaCNNConfig(a.n_conv_layers, a.conv_nodes, a.dense_nodes,
                                 input_hw=rep.resolution,
                                 input_channels=rep.channels)
-            entries.append(ModelEntry(f"{c.arch_id}_{rep.name}", c, rep,
-                                      init_cnn(gen, c, device=dev)))
+            sized[f"{c.arch_id}_{rep.name}"] = c
     t = TahomaCNNConfig(3, 48, 64, input_hw=cfg["base"], input_channels=3)
-    entries.append(ModelEntry(f"trusted_{t.arch_id}", t,
-                              Representation(cfg["base"], "rgb"),
-                              init_cnn(gen, t, device=dev), trusted=True))
-    return ModelBank(entries, device=dev)
+    sized[f"trusted_{t.arch_id}"] = t
+    return archs, reps, sized
+
+
+def pinned_costs(cfg, sized):
+    """The per-model inference costs (s/image) the query phase plans with:
+    COSTS (measured by benchmarks/torch_infer_costs.py on the card named
+    in it) at full size, raising on a name missing or extra; at the
+    rehearsal's toy grid, each model's FLOPs at 1 TFLOP/s."""
+    from repro_torch.models.cnn import cnn_flops
+    if not cfg["pinned"]:
+        log("  pinned inference costs: rehearsal grid, FLOPs at 1 TFLOP/s")
+        return {n: cnn_flops(c) / 1e12 for n, c in sized.items()}, "toy"
+    data = json.loads(COSTS.read_text())
+    missing = sorted(set(sized) - set(data["infer_s"]))
+    extra = sorted(set(data["infer_s"]) - set(sized))
+    if missing or extra:
+        raise AssertionError(f"{COSTS.name}: missing {missing}, extra "
+                             f"{extra}")
+    label = f"{data['card']}, {data['power_limit']}"
+    log(f"  pinned inference costs: {COSTS.relative_to(ROOT)} ({label}; "
+        f"{data['method']})")
+    return {n: float(data["infer_s"][n]) for n in sized}, label
+
+
+def train_systems(dev, cfg, seed, specs, archs, reps, sized, infer_s):
+    """``initialize_system`` per predicate on the card: the grid and the
+    trusted model trained on a ``cfg["train"]``-frame split, thresholds
+    from the config split, eval scores, costs pinned to ``infer_s``. Prints
+    training time, steps/s and accuracies and holds them to the learning
+    floors (check a); also measures the costs once more and prints them
+    against the pinned ones. -> ({name: system}, {name: host train
+    split})."""
+    import numpy as np
+
+    from repro_torch.core.pipeline import (initialize_system,
+                                           profile_infer_costs)
+    from repro_torch.data.synthetic import make_corpus
+    base, steps = cfg["base"], cfg["steps"]
+    n_steps = len(archs) * len(reps) * steps + 3 * steps
+    floor_best, floor_trusted = cfg["floors"]
+    systems, train = {}, {}
+    for spec in specs:
+        t0 = time.perf_counter()
+        tr = make_corpus(spec, cfg["train"], hw=base, seed=seed + 30)
+        cf = make_corpus(spec, cfg["split"], hw=base, seed=seed + 10)
+        ev = make_corpus(spec, cfg["split"], hw=base, seed=seed + 20)
+        t_data = time.perf_counter() - t0
+        marks = []
+
+        def mark(_msg):
+            _sync(dev)      # each model's steps end on the card, not the host
+            marks.append(time.perf_counter())
+
+        _sync(dev)
+        t0 = time.perf_counter()
+        system = initialize_system(tr, cf, ev, archs, reps, steps=steps,
+                                   seed=seed, log=mark, infer_s=infer_s,
+                                   device=dev)
+        t_all = time.perf_counter() - t0
+        t_train = marks[-1] - t0
+        if system.bank.names != list(sized):
+            raise AssertionError(f"{spec.name}: bank names differ from the "
+                                 f"grid's")
+        secs = np.diff([t0] + marks)
+        by_res = {r: float(sum(d for d, e in zip(secs, system.bank.entries)
+                               if e.rep.resolution == r and not e.trusted))
+                  for r in cfg["resolutions"]}
+        acc = ((system.eval_scores >= 0.5)
+               == system.eval_truth[None].astype(bool)).mean(1)
+        ti = system.bank.trusted_index
+        best = int(np.argmax(acc))
+        log(f"  {spec.name}: {len(system.bank.entries)} models trained on "
+            f"{cfg['train']} frames ({cfg['split']}-frame config and eval "
+            f"splits, made in {t_data:.1f} s): {n_steps} steps in "
+            f"{t_train:.2f} s ({n_steps / t_train:.0f} steps/s), then "
+            f"thresholds and eval scores in {t_all - t_train:.2f} s; "
+            f"training seconds by input size "
+            f"{ {r: round(d, 2) for r, d in by_res.items()} }, trusted "
+            f"{secs[-1]:.2f}")
+        log(f"  {spec.name}: eval accuracy best {acc[best]:.4f} "
+            f"({system.bank.names[best]}), trusted {acc[ti]:.4f}, bank mean "
+            f"{acc.mean():.4f} (floors: best > {floor_best}, trusted > "
+            f"{floor_trusted})")
+        if not (acc[best] > floor_best and acc[ti] > floor_trusted):
+            raise AssertionError(f"{spec.name}: the models did not learn")
+        measured = profile_infer_costs(system.bank, ev[0])
+        ratio = sorted(measured[n] / infer_s[n] for n in sized)
+        log(f"  {spec.name}: inference costs measured in this run / pinned: "
+            f"min {ratio[0]:.3f}, median {ratio[len(ratio) // 2]:.3f}, max "
+            f"{ratio[-1]:.3f} (the plan uses the pinned ones)")
+        systems[spec.name] = system
+        train[spec.name] = tr
+    return systems, train
+
+
+def paper_figures(name, system, cost_label):
+    """The paper's Fig. 6 and Fig. 7 figures of one predicate's trained
+    system through core/alc: the cascade that best matches the trusted
+    model's accuracy, and the fastest cascade, each over the trusted
+    model alone, under INFER_ONLY and CAMERA (dense spaces), and the
+    CAMERA Pareto frontier's size."""
+    import numpy as np
+
+    from repro_torch.core.alc import best_matching
+    from repro_torch.core.selector import pareto_set
+    ti = system.bank.trusted_index
+    log(f"  {name}: Pareto frontier (CAMERA) "
+        f"{len(pareto_set(system.cascade_space('CAMERA')))} cascades")
+    for scen in ("INFER_ONLY", "CAMERA"):
+        sp = system.cascade_space(scen)
+        j = best_matching(sp.acc, sp.throughput, sp.acc[ti])
+        f = int(np.argmax(sp.throughput))
+        log(f"  {name} {scen}, modeled from the pinned costs ({cost_label}): "
+            f"Fig. 6 best match at the trusted model's accuracy "
+            f"{sp.acc[ti]:.4f}: {sp.throughput[j] / sp.throughput[ti]:.2f}x "
+            f"the trusted model (acc {sp.acc[j]:.4f}, "
+            f"{sp.describe(j, system.bank.names, system.targets)}); Fig. 7 "
+            f"fastest cascade {sp.throughput[f] / sp.throughput[ti]:.2f}x "
+            f"(acc {sp.acc[f]:.4f})")
+
+
+def check_oracles(plan, systems):
+    """Check c: for every cascade of the plan and of each predicate's CAMERA
+    Pareto frontier, the dense evaluator's acc and time on the trained
+    eval scores equal the per-image oracles ``simulate_cascade`` and
+    ``cascade_time_naive`` (abs 1e-5 on acc, rel 1e-5 on time:
+    tests/test_cascade.py's tolerances)."""
+    import numpy as np
+
+    from repro_torch.core.cascade import (cascade_time_naive,
+                                          simulate_cascade, spec_levels)
+    from repro_torch.core.selector import pareto_set
+    worst = [0.0, 0.0]
+    n = 0
+    for name, system in systems.items():
+        sp = system.cascade_space(plan.scenario)
+        picks = {int(p.selection.index) for p in plan.predicates
+                 if p.cascade.concept == name}
+        infer = np.array([system.infer_s[m] for m in system.bank.names])
+        for i in sorted(picks | {int(i) for i in pareto_set(sp)}):
+            levels = spec_levels(sp, i, system.p_low, system.p_high)
+            acc, _ = simulate_cascade(levels, system.eval_scores,
+                                      system.eval_truth)
+            t = cascade_time_naive(levels, system.eval_scores,
+                                   system.bank.reps, infer, system.profile,
+                                   plan.scenario)
+            e_acc, e_t = abs(sp.acc[i] - acc), abs(sp.time_s[i] - t) / t
+            if e_acc > 1e-5 or e_t > 1e-5:
+                raise AssertionError(f"{name}: cascade {i} acc {sp.acc[i]} "
+                                     f"vs {acc}, time {sp.time_s[i]} vs {t}")
+            worst = [max(worst[0], e_acc), max(worst[1], e_t)]
+            n += 1
+    log(f"  per-image oracles: {n} cascades (the plan's and every CAMERA "
+        f"frontier's): dense evaluator == simulate_cascade / "
+        f"cascade_time_naive, max |acc err| {worst[0]:.3g}, max rel time "
+        f"err {worst[1]:.3g}")
+
+
+def check_retrain(dev, cfg, seed, system, train_split, casc0, reps):
+    """Check b: the planned stage-0 model and the trusted model of the first
+    planned predicate, trained again from the same seed on the same
+    split, are bit for bit the bank's; then one of their training runs is
+    profiled (idle share, top kernels)."""
+    import torch
+
+    from repro_torch.core.pipeline import train_cnn
+    from repro_torch.core.transforms import materialize_representations
+    from repro_torch.train.optimizer import tree_leaves
+    bank = system.bank
+    x, y = train_split
+    raw = torch.as_tensor(x, device=dev)
+    loop_check(dev, raw, y, reps, cfg["steps"])
+    reps_x = materialize_representations(raw, reps)
+    m0 = next(m for m, e in enumerate(bank.entries)
+              if e.params is casc0.stage0.params)
+    steps = cfg["steps"]
+    for m in sorted({m0, bank.trusted_index}):
+        e = bank.entries[m]
+        if e.trusted:
+            inputs, kw = raw, dict(steps=steps * 3, seed=seed + 999)
+        else:
+            inputs, kw = reps_x[e.rep], dict(steps=steps,
+                                             seed=seed + m // len(reps))
+        _sync(dev)
+        t0 = time.perf_counter()
+        again = train_cnn(e.arch, inputs, y, device=dev, **kw)
+        _sync(dev)
+        secs = time.perf_counter() - t0
+        same = all(torch.equal(a, b) for a, b in
+                   zip(tree_leaves(again), tree_leaves(e.params)))
+        log(f"  {casc0.concept} {e.name} trained again ({kw['steps']} steps "
+            f"in {secs:.3f} s): bit-identical to the bank's: {same}")
+        if not same:
+            raise AssertionError(f"{e.name}: training is not deterministic")
+        if dev.type == "cuda":
+            n = cfg["profile_steps"]
+            kw["steps"] = n
+            _sync(dev)
+            t0 = time.perf_counter()
+            train_cnn(e.arch, inputs, y, device=dev, **kw)
+            _sync(dev)
+            device_profile(lambda: train_cnn(e.arch, inputs, y, device=dev,
+                                             **kw), dev,
+                           time.perf_counter() - t0,
+                           f"training profile ({e.name}, {n} steps)")
+
+
+def loop_check(dev, raw, y, reps, steps):
+    """``fit_cnn``'s loop (on a card: one step captured in a CUDA graph and
+    replayed) against the same step run eagerly, ``steps`` times, for a
+    grid model (cnn_l1_c16_d16 in gray at the smallest size) from the
+    same initial weights: bit-identical, or the capture changed what a
+    step computes (a counter, batch or reset fault)."""
+    import torch
+
+    from repro_torch.configs.base import TahomaCNNConfig
+    from repro_torch.core.pipeline import (_deterministic_cudnn,
+                                           _training_step, fit_cnn)
+    from repro_torch.core.transforms import (Representation,
+                                             materialize_representations)
+    from repro_torch.models.cnn import init_cnn
+    from repro_torch.train.optimizer import tree_leaves
+    rep = Representation(min(r.resolution for r in reps), "gray")
+    x = materialize_representations(raw, reps)[rep]
+    cfg = TahomaCNNConfig(1, 16, 16, input_hw=rep.resolution,
+                          input_channels=1)
+    init = init_cnn(torch.Generator(device=dev).manual_seed(7), cfg,
+                    device=dev)
+    looped = tree_leaves(fit_cnn(init, x, y, steps=steps, device=dev))
+    eager, _, step = _training_step(init, x, y, steps=steps, batch=16,
+                                    lr=3e-3, seed=0, device=dev)
+    with _deterministic_cudnn():
+        for _ in range(steps):
+            step()
+    same = all(torch.equal(a, b.detach()) for a, b in zip(looped, eager))
+    log(f"  fit_cnn's loop on {dev.type} vs its step run eagerly, "
+        f"{cfg.arch_id} at {rep.name}, {steps} steps: bit-identical: {same}")
+    if not same:
+        raise AssertionError("the training loop differs from its step run "
+                             "eagerly")
 
 
 def make_corpus_on(dev, cfg, specs, seed):
@@ -601,10 +862,8 @@ def boundary_rows(corpus, casc0, rows, int8, chunk):
 
 def query_path(dev, cfg, card, kern, seed):
     import numpy as np
-    import torch
 
-    from repro_torch.core.pipeline import system_from_bank
-    from repro_torch.data.synthetic import DEFAULT_PREDICATES, make_corpus
+    from repro_torch.data.synthetic import DEFAULT_PREDICATES
     from repro_torch.engine.planner import (PredicateClause, QuerySpec,
                                             plan_query)
     from repro_torch.engine.scan import ScanEngine, level_schedule, naive_scan
@@ -612,25 +871,19 @@ def query_path(dev, cfg, card, kern, seed):
 
     log("== query path")
     specs = DEFAULT_PREDICATES[:3]
-    gen = torch.Generator(device=dev).manual_seed(seed + 2)
-    t0 = time.perf_counter()
-    systems = {}
-    for k, spec in enumerate(specs):
-        bank = build_bank(gen, dev, cfg)
-        cf = make_corpus(spec, cfg["split"], hw=cfg["base"], seed=seed + 10)
-        ev = make_corpus(spec, cfg["split"], hw=cfg["base"], seed=seed + 20)
-        systems[spec.name] = system_from_bank(bank, cf, ev)
-        log(f"  {spec.name}: bank of {len(bank.entries)} models, system "
-            f"from {cfg['split']}-frame splits")
-    log(f"  banks + systems: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     corpus = make_corpus_on(dev, cfg, specs, seed)
     log(f"  corpus {tuple(corpus.shape)} on {corpus.device}: "
         f"{corpus.numel() * 4 / 1e9:.2f} GB, {time.perf_counter() - t0:.1f} s")
     query = QuerySpec(predicates=[PredicateClause(s.name) for s in specs])
+    archs, reps, sized = grid(cfg)
+    infer_s, cost_label = pinned_costs(cfg, sized)
 
-    # ---- the main path, with the launch counts read around it
+    # ---- the main path, with the launch counts read around it: train ->
+    # calibrate -> profile -> evaluate -> plan -> scan
     ops.reset_launch_counts()
+    systems, train = train_systems(dev, cfg, seed, specs, archs, reps,
+                                   sized, infer_s)
     _sync(dev)
     t0 = time.perf_counter()
     for system in systems.values():      # the matmul kernel's caller
@@ -668,6 +921,8 @@ def query_path(dev, cfg, card, kern, seed):
 
     for name, system in systems.items():
         check_stream_vs_dense(name, system)
+        paper_figures(name, system, cost_label)
+    check_oracles(plan, systems)
     casc0 = plan.cascades[0]
     for int8, (res, secs, _) in runs.items():
         st = res.stats
@@ -692,6 +947,8 @@ def query_path(dev, cfg, card, kern, seed):
         eng.reset_cache()      # rerun the timed scan: fresh store, same work
         device_profile(lambda: eng.execute(plan.cascades), dev, secs,
                        "scan profile (f32)")
+    check_retrain(dev, cfg, seed, systems[casc0.concept],
+                  train[casc0.concept], casc0, reps)
 
     # the kernel's time and bound at the main path's own stage-0 shapes
     from repro_torch.kernels.image_transform import fused_pyramid_stage0

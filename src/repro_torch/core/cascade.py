@@ -490,6 +490,59 @@ def evaluate_cascades_streaming(scores_eval, truth, p_low, p_high,
     return red.result(n_t, trusted)
 
 
+# ------------------------------------------------------- naive reference ---
+def simulate_cascade(levels, scores_eval, truth):
+    """Per-image reference simulator. levels: list of
+    (model_idx, p_low|None, p_high|None); None thresholds = final level.
+    Returns (accuracy, level_reach_fractions)."""
+    s = np.asarray(scores_eval)
+    y = np.asarray(truth, bool)
+    n = s.shape[1]
+    correct = 0
+    reach = np.zeros(len(levels))
+    for i in range(n):
+        for li, (m, lo, hi) in enumerate(levels):
+            reach[li] += 1
+            o = s[m, i]
+            final = lo is None
+            if final or o <= lo or o >= hi:
+                pred = o >= (0.5 if final else hi)
+                correct += int(pred == y[i])
+                break
+    return correct / n, reach / n
+
+
+def cascade_time_naive(levels, scores_eval, reps, infer_s, profile,
+                       scenario, pyramid: bool = True):
+    """Expected per-image cost by explicit per-image walk (reference).
+    pyramid: follow-up representations are transformed from the smallest
+    already-materialized pyramid level whose resolution they divide
+    (matching evaluate_cascades and the executor's derivation policy)."""
+    s = np.asarray(scores_eval)
+    n = s.shape[1]
+    total = 0.0
+    for i in range(n):
+        seen_reps = []
+        mat_res = []                      # materialized pyramid levels
+        for li, (m, lo, hi) in enumerate(levels):
+            if reps[m] not in seen_reps:
+                src = None
+                if pyramid and mat_res:
+                    usable = [r for r in mat_res
+                              if r % reps[m].resolution == 0]
+                    src = min(usable) if usable else None
+                total += rep_cost_s(profile, reps[m], scenario,
+                                    first_rep=not seen_reps,
+                                    source_hw=src)
+                seen_reps.append(reps[m])
+                mat_res.append(reps[m].resolution)
+            total += infer_s[m]
+            o = s[m, i]
+            if lo is None or o <= lo or o >= hi:
+                break
+    return total / n
+
+
 def spec_levels(space: CascadeSpace, i: int, p_low, p_high):
     """Decode cascade i into [(model_idx, p_low|None, p_high|None)] per
     level (None thresholds = the final level)."""

@@ -1,19 +1,21 @@
-"""TAHOMA system assembly (paper Fig. 2) on a torch device: model bank ->
-cost profiler -> cascade builder -> cascade evaluator, per binary
-predicate.
+"""TAHOMA system initialization (paper Fig. 2) on a torch device: model
+trainer -> cost profiler -> cascade builder -> cascade evaluator, per
+binary predicate.
 
-The training half of the reference's ``initialize_system`` (grid training
-with AdamW) is not part of this package yet; ``system_from_bank`` is its
-tail — score matrix on the config split, Algorithm-1 thresholds, measured
-inference costs, modeled cost profile, eval-split scores — over a bank
-whose weights come from elsewhere (``models/cnn.params_from_jax`` or
-``init_cnn``).
+``initialize_system`` trains the A x F model grid plus the trusted model
+(``train_model_grid``: BCE + AdamW with the reference's seeds, steps,
+batch and index stream, through autograd and ``F.conv2d``), then
+``system_from_bank`` takes the config-split scores to Algorithm-1
+thresholds, profiles inference costs (or takes pinned ones) and caches
+the eval-split score matrix. ``system_from_bank`` also accepts a bank
+whose weights come from elsewhere (``models/cnn.params_from_jax``).
 """
 from __future__ import annotations
 
 import time
+from contextlib import contextmanager
 from dataclasses import dataclass, field
-from typing import Sequence
+from typing import Callable, Sequence
 
 import numpy as np
 import torch
@@ -26,7 +28,10 @@ from repro_torch.core.costs import CostProfile
 from repro_torch.core.transforms import (Representation, apply_transform,
                                          materialize_representations)
 from repro_torch.device import resolve_device, tensor_device
-from repro_torch.models.cnn import cnn_predict_proba
+from repro_torch.models.cnn import bce_loss, cnn_predict_proba, init_cnn
+from repro_torch.train.optimizer import (adamw_step_, bias_correction,
+                                         clip_by_global_norm, tree_leaves,
+                                         tree_unflatten)
 
 
 def _as_images(raw, device) -> torch.Tensor:
@@ -90,6 +95,165 @@ class ModelBank:
                 out[m, lo:lo + len(imgs)] = cnn_predict_proba(
                     e.params, reps[e.rep]).cpu().numpy()
         return out
+
+
+# ------------------------------------------------------------- training ----
+@contextmanager
+def _deterministic_cudnn():
+    """cuDNN's deterministic algorithms inside the block (weight
+    gradients without atomics), the caller's setting after it."""
+    old = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = old
+
+
+def _training_step(params, x, y, *, steps: int, batch: int, lr: float,
+                   seed: int, device):
+    """``fit_cnn``'s state and its step: -> (leaves, reset, step), where
+    ``step()`` runs the next training step in place on ``leaves`` (the
+    params, f32, in ``tree_leaves`` order) and ``reset()`` puts params,
+    moments and the step counter back to the start. The index stream and
+    the f32 bias corrections of every step are made on the host first; a
+    step reads its batch and corrections from them by a step counter on
+    the device, so no step waits for the host and one captured step
+    replays as any other."""
+    x = _as_images(x, device)
+    y = torch.as_tensor(np.asarray(y) if not torch.is_tensor(y) else y,
+                        dtype=torch.float32, device=device)
+    rng = np.random.default_rng(seed)
+    idx = torch.as_tensor(np.array(
+        [rng.integers(0, len(x), size=batch) for _ in range(steps)],
+        np.int64).reshape(steps, batch), device=device)
+    b1, b2 = 0.9, 0.95                    # adamw's defaults
+    c1, c2 = (torch.tensor([bias_correction(b, k) for k in
+                            range(1, steps + 1)], dtype=torch.float32,
+                           device=device) for b in (b1, b2))
+    init = [p.detach().to(device, torch.float32)
+            for p in tree_leaves(params)]
+    leaves = [p.clone().requires_grad_() for p in init]
+    m = [torch.zeros_like(p) for p in init]
+    v = [torch.zeros_like(p) for p in init]
+    t = torch.zeros(1, dtype=torch.long, device=device)
+
+    def step():
+        i = idx.index_select(0, t).view(-1)
+        with torch.enable_grad():
+            loss = bce_loss(tree_unflatten(params, leaves),
+                            x.index_select(0, i), y.index_select(0, i))
+            grads = torch.autograd.grad(loss, leaves)
+        with torch.no_grad():
+            grads, _ = clip_by_global_norm(list(grads), 1.0)
+            adamw_step_(leaves, grads, m, v,
+                        c1=c1.index_select(0, t).view(()),
+                        c2=c2.index_select(0, t).view(()), lr=lr, b1=b1,
+                        b2=b2, weight_decay=1e-4)
+            t.add_(1)
+
+    @torch.no_grad()
+    def reset():
+        torch._foreach_copy_(leaves, init)
+        torch._foreach_zero_(m + v)
+        t.zero_()
+
+    return leaves, reset, step
+
+
+def fit_cnn(params, x, y, *, steps: int = 120, batch: int = 16,
+            lr: float = 3e-3, seed: int = 0, device=None) -> dict:
+    """The reference ``train_cnn`` loop from the initial weights
+    ``params``: AdamW(lr, weight_decay=1e-4, global-norm clip 1.0) on
+    ``bce_loss``, one batch of ``np.random.default_rng(seed).integers(0,
+    n, batch)`` per step. Returns detached, contiguous f32 params on
+    ``device``; the caller's ``params`` are left as they were.
+
+    On a card one step (``_training_step``) is captured in a CUDA graph,
+    after up to two warm-up steps on a side stream that are then undone,
+    and replayed ``steps`` times: a grid model's step is ~100 small
+    launches, which the host alone takes longer to issue than the card
+    to run.
+    cuDNN runs its deterministic algorithms inside the loop, so one seed
+    gives bit-identical weights."""
+    dev = resolve_device(device)
+    leaves, reset, step = _training_step(params, x, y, steps=steps,
+                                         batch=batch, lr=lr, seed=seed,
+                                         device=dev)
+    with _deterministic_cudnn():
+        if dev.type == "cuda" and steps:
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                for _ in range(min(2, steps)):    # no step past the last
+                    step()
+            torch.cuda.current_stream(dev).wait_stream(side)
+            reset()
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                step()
+            for _ in range(steps):
+                graph.replay()
+        else:
+            for _ in range(steps):
+                step()
+    return tree_unflatten(params, [p.detach() for p in leaves])
+
+
+def train_cnn(arch: TahomaCNNConfig, x, y, *, steps: int = 120,
+              batch: int = 16, lr: float = 3e-3, seed: int = 0,
+              device=None) -> dict:
+    """Train one specialized classifier: ``init_cnn`` from a generator on
+    ``device`` seeded with ``seed``, then ``fit_cnn``."""
+    dev = resolve_device(device)
+    params = init_cnn(torch.Generator(device=dev).manual_seed(seed), arch,
+                      device=dev)
+    return fit_cnn(params, x, y, steps=steps, batch=batch, lr=lr, seed=seed,
+                   device=dev)
+
+
+def train_model_grid(train_x, train_y, archs: Sequence[TahomaCNNConfig],
+                     reps: Sequence[Representation], *,
+                     trusted_arch: TahomaCNNConfig | None = None,
+                     steps: int = 120, seed: int = 0,
+                     log: Callable[[str], None] | None = None,
+                     device=None) -> ModelBank:
+    """The A x F grid (paper §V-B) + one trusted heavy model (the deepest,
+    widest CNN at full resolution in full color, trained 3x as long).
+    Every training input is materialized once, on ``device``, by one
+    progressive pyramid pass; architecture ``ai`` trains with seed
+    ``seed + ai`` and the trusted model with ``seed + 999``."""
+    dev = resolve_device(device)
+    raw = _as_images(train_x, dev)
+    y = torch.as_tensor(np.asarray(train_y), dtype=torch.float32,
+                        device=dev)
+    rep_cache = materialize_representations(raw, reps)
+    entries = []
+    for ai, arch0 in enumerate(archs):
+        for rep in reps:
+            arch = TahomaCNNConfig(
+                n_conv_layers=arch0.n_conv_layers,
+                conv_nodes=arch0.conv_nodes, dense_nodes=arch0.dense_nodes,
+                input_hw=rep.resolution, input_channels=rep.channels)
+            params = train_cnn(arch, rep_cache[rep], y, steps=steps,
+                               seed=seed + ai, device=dev)
+            entries.append(ModelEntry(f"{arch.arch_id}_{rep.name}", arch,
+                                      rep, params))
+            if log:
+                log(f"trained {entries[-1].name}")
+    del rep_cache
+    base_hw = raw.shape[1]
+    t_arch = trusted_arch or TahomaCNNConfig(
+        n_conv_layers=3, conv_nodes=48, dense_nodes=64,
+        input_hw=base_hw, input_channels=3)
+    t_params = train_cnn(t_arch, raw, y, steps=steps * 3, seed=seed + 999,
+                         device=dev)
+    entries.append(ModelEntry(f"trusted_{t_arch.arch_id}", t_arch,
+                              Representation(base_hw, "rgb"), t_params,
+                              trusted=True))
+    if log:
+        log(f"trained {entries[-1].name}")
+    return ModelBank(entries, device=dev)
 
 
 # -------------------------------------------------------------- profiling --
@@ -253,6 +417,21 @@ def system_from_bank(bank: ModelBank, config_split, eval_split, *,
     eval_scores = bank.score_matrix(ev_x)
     return TahomaSystem(bank, p_low, p_high, dict(infer_s), profile,
                         eval_scores, np.asarray(ev_y), tuple(targets))
+
+
+def initialize_system(train_split, config_split, eval_split, archs, reps,
+                      *, targets: Sequence[float] = thr_mod.PRECISION_TARGETS,
+                      steps: int = 120, seed: int = 0, log=None,
+                      infer_s: dict[str, float] | None = None,
+                      device=None) -> TahomaSystem:
+    """Paper Fig. 2 end to end: ``train_model_grid`` on the training
+    split, then ``system_from_bank`` on the config and eval splits
+    (``infer_s`` pins the per-model inference costs)."""
+    tr_x, tr_y = train_split
+    bank = train_model_grid(tr_x, tr_y, archs, reps, steps=steps, seed=seed,
+                            log=log, device=device)
+    return system_from_bank(bank, config_split, eval_split, targets=targets,
+                            infer_s=infer_s)
 
 
 def build_scan_engine(images, metadata=None, *, shards: int | None = None,

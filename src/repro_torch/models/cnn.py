@@ -131,3 +131,13 @@ def params_from_jax(params_np, device=None):
         return torch.from_numpy(np.array(x)).to(dev)
 
     return conv(params_np)
+
+
+def bce_loss(params: dict, images: torch.Tensor,
+             labels: torch.Tensor) -> torch.Tensor:
+    """Numerically stable binary cross-entropy on ``cnn_forward``'s logits
+    (labels in {0,1}), averaged over the batch."""
+    logits = cnn_forward(params, images)
+    z = torch.clamp(logits, min=0.0)
+    loss = z - logits * labels + torch.log1p(torch.exp(-logits.abs()))
+    return loss.mean()

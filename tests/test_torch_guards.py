@@ -2,9 +2,9 @@
 
 * the package imports neither ``jax`` nor the reference package;
 * ``chip_smoke.py`` imports neither;
-* entry points default to ``cuda`` and raise without a card instead of
-  carrying on quietly on the CPU, and the kernel wrappers never run a CUDA
-  request on the CPU.
+* entry points (the training ones too) default to ``cuda`` and raise
+  without a card instead of carrying on quietly on the CPU, and the
+  kernel wrappers never run a CUDA request on the CPU.
 """
 import ast
 import json
@@ -115,6 +115,41 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
     assert ScanEngine(images, device="cpu").n_rows == 4
     assert serve(model, cpu_params, np.zeros((1, 4), np.int64), 1,
                  device="cpu").tokens.shape == (1, 2)
+
+
+def test_training_entry_points_default_to_cuda_and_raise_without_a_card():
+    _no_card()
+    from repro_torch.configs.base import TahomaCNNConfig
+    from repro_torch.core.pipeline import (fit_cnn, initialize_system,
+                                           train_cnn, train_model_grid)
+    from repro_torch.core.transforms import Representation
+    from repro_torch.models.cnn import init_cnn
+
+    rng = np.random.default_rng(0)
+    x = rng.random((8, 8, 8, 3)).astype(np.float32)
+    y = np.arange(8) % 2
+    cfg = TahomaCNNConfig(1, 4, 4, input_hw=8, input_channels=3)
+    params = init_cnn(torch.Generator(), cfg, device="cpu")
+    archs, reps = [TahomaCNNConfig(1, 4, 4)], [Representation(4, "gray")]
+    splits = ((x, y),) * 3
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fit_cnn(params, x, y, steps=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_cnn(cfg, x, y, steps=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_model_grid(x, y, archs, reps, steps=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        initialize_system(*splits, archs, reps, steps=1)
+    # asking for the CPU explicitly works
+    assert fit_cnn(params, x, y, steps=1, device="cpu")["dense_w"].device \
+        == torch.device("cpu")
+    assert train_cnn(cfg, x, y, steps=1, device="cpu")["out_b"].shape == (1,)
+    bank = train_model_grid(x, y, archs, reps, steps=1, device="cpu")
+    assert bank.names == ["cnn_l1_c4_d4_4x4_gray", "trusted_cnn_l3_c48_d64"]
+    system = initialize_system(*splits, archs, reps, steps=1,
+                               infer_s={n: 1e-6 for n in bank.names},
+                               device="cpu")
+    assert system.device.type == "cpu" and system.eval_scores.shape == (2, 8)
 
 
 def test_kernel_wrappers_never_run_a_cuda_request_on_the_cpu():

@@ -45,6 +45,27 @@
    ``ms`` in the kernels line, and profiler device time, per launch too;
    median and spread), plain and bound; a 2048^3 probe compares the
    kernel's inner loop with cuBLAS's.
+   Ingest and algebra, on the same trained systems, plan and corpus
+   (nothing trained again): a 4096-frame 224 px camera stream (scenes
+   held 1-4 frames, +-1/256 sensor jitter) arrives on the host in batches
+   of 512 and goes through ``build_ingest_pipeline(plan.cascades, chunk
+   256, skip_threshold=None)``: the skip detector on the host, the
+   references' stage 0 through the pyramid+stage-0 kernel (the anchor
+   concept) and ``models/cnn`` (the others). Launch counts are reset
+   just before and read just after: one kernel launch per scored chunk.
+   Aliases stay inside their scene, one reference per scene after
+   calibration, and the anchor's ingest scores equal the kernel's on
+   the same padded chunk. Re-planned with ``index=``, the stream (on the
+   card) is scanned by ``indexed_execute`` (exact), cold, by
+   ``naive_scan`` and in approx mode (measured recall per concept); three
+   expression trees over the 8192-frame corpus run through
+   ``execute_tree`` optimized and not, against ``naive_tree_rows``; a
+   ``Join(a, a, delta_t=2)`` over two 2048-frame cameras runs through
+   ``execute_join`` against ``naive_join_pairs``. Row sets and pairs
+   must be equal apart from counted threshold-boundary rows (two routes'
+   level-0 scores within SCORE_TOL across a threshold). The kernels
+   line's stage-0 launches add the phase's (``ingest_launches`` names the
+   ingest path's).
 4. LM serve path: zamba2-1.2b at full width (38 Mamba-2 layers, the shared
    attention+MLP block after every 6th; random bf16 weights from a seeded
    generator) serves 8 prompts of 512 tokens with 32 greedy decode steps
@@ -143,7 +164,8 @@ PROFILER_SESSIONS = 3   # device_ms: sessions tried before it gives up
 # model (tests/test_system.py's)
 FULL = dict(base=224, chunk=256, out_res=(112, 56, 28), split=512,
             train=1024, steps=120, floors=(0.85, 0.80), pinned=True,
-            profile_steps=10, corpus=8192, gen_batch=512,
+            profile_steps=10, corpus=8192, gen_batch=512, stream=4096,
+            stream_batch=512, join=2048,
             resolutions=(28, 56, 112, 224),
             small_grid=False, mm_shapes=((33, 17, 65), (256, 64, 130),
                                          (128, 512, 1805), (128, 512, 361)),
@@ -153,7 +175,8 @@ FULL = dict(base=224, chunk=256, out_res=(112, 56, 28), split=512,
 # the rehearsal's few steps teach its toy models little: no learning floor
 REHEARSE = dict(base=32, chunk=32, out_res=(16, 8, 4), split=48, train=48,
                 steps=3, floors=(0.0, 0.0), pinned=False, corpus=96,
-                gen_batch=48, resolutions=(4, 8, 16, 32), small_grid=True,
+                gen_batch=48, stream=96, stream_batch=40, join=48,
+                resolutions=(4, 8, 16, 32), small_grid=True,
                 mm_shapes=((33, 17, 65),), mm_probe=64, iters=1,
                 lm=dict(arch="zamba2-1.2b", full=False, batch=2, prompt=64,
                         gen=4, check_at=32))
@@ -184,7 +207,10 @@ def main(argv=None) -> int:
 
     card = setup(dev)
     kern = check_kernels(dev, cfg, card, args.seed)
-    launches = query_path(dev, cfg, card, kern, args.seed)
+    launches, query = query_path(dev, cfg, card, kern, args.seed)
+    ingest = ingest_algebra_path(dev, cfg, kern, args.seed, query)
+    del query
+    launches["fused_pyramid_stage0"] += ingest
     launches.update(lm_path(dev, cfg, card, kern, args.seed))
     launches.update(ops_path(dev, cfg, card, kern, args.seed))
     if "smi" in card:    # again near the end: the card beside the numbers
@@ -824,43 +850,70 @@ def check_stream_vs_dense(name, system):
         f"cascades) == dense frontier")
 
 
-def boundary_rows(corpus, casc0, rows, int8, chunk):
-    """Of ``rows`` (where engine and naive scan disagree), those whose
-    first-cascade level-0 scores from the kernel and from the plain
-    version (at the scan's batch width) fall on opposite sides of one of
-    that level's f32 thresholds: a flip explained by the stated f32 score
-    tolerance. Raises on any other row."""
+def straddles(corpus, cascades, rows, chunk, *, int8=False, index=None):
+    """{row: (concept, scores)} for the rows of ``rows`` on which two
+    routes of some cascade's level 0 give scores on opposite sides of
+    one of that level's f32 thresholds and within SCORE_TOL of each
+    other. The routes: the fused kernel and the plain version, each at
+    the scan's batch width ``chunk``, and, with an ingest ``index``, the
+    score it recorded for the row (a reference frame scored at ingest).
+    ``int8`` scores the first cascade on its int8 weights."""
     import numpy as np
     import torch
 
     from repro_torch.kernels.image_transform import fused_pyramid_stage0
     from repro_torch.kernels.ref import fused_pyramid_stage0_ref
-    out = []
-    s0 = casc0.stage0
-    qp = s0.qparams if int8 else None
-    lo, hi = casc0.thresholds[0]
-    ts = [float(np.float32(t)) for t in ([0.5] if lo is None else [lo, hi])]
-    for at in range(0, len(rows), chunk):
-        part = np.asarray(rows[at:at + chunk], np.int64)
-        idx = np.concatenate([part, np.repeat(part[-1:],
-                                              chunk - len(part))])
-        imgs = corpus[torch.as_tensor(idx, device=corpus.device)]
-        _, sk = fused_pyramid_stage0(imgs, [], s0.params, s0.rep,
-                                     qparams=qp)
-        _, sp = fused_pyramid_stage0_ref(imgs, [], s0.params, s0.rep,
+    out = {}
+    rows = np.asarray(rows, np.int64)
+    for pos, casc in enumerate(cascades):
+        s0 = casc.stage0
+        qp = s0.qparams if int8 and pos == 0 else None
+        lo, hi = casc.thresholds[0]
+        ts = [float(np.float32(t)) for t in ([0.5] if lo is None
+                                            else [lo, hi])]
+        ing = None
+        if index is not None and \
+                index.cascade_keys.get(casc.concept) == casc.key:
+            ing = index.scores[casc.concept]
+        for at in range(0, len(rows), chunk):
+            part = rows[at:at + chunk]
+            idx = np.concatenate([part, np.repeat(part[-1:],
+                                                  chunk - len(part))])
+            imgs = corpus[torch.as_tensor(idx, device=corpus.device)]
+            _, sk = fused_pyramid_stage0(imgs, [], s0.params, s0.rep,
                                          qparams=qp)
-        for r, a, b in zip(part, sk.tolist(), sp.tolist()):
-            flips = any((a >= t) != (b >= t) or (a <= t) != (b <= t)
-                        for t in ts)
-            if abs(a - b) > SCORE_TOL or not flips:
-                raise AssertionError(
-                    f"row {r}: engine and naive_scan differ (kernel {a!r}, "
-                    f"plain {b!r}, thresholds {ts})")
-            out.append((int(r), a, b))
+            _, sp = fused_pyramid_stage0_ref(imgs, [], s0.params, s0.rep,
+                                             qparams=qp)
+            for r, a, b in zip(part.tolist(), sk.tolist(), sp.tolist()):
+                got = [a, b]
+                if ing is not None and not np.isnan(ing[r]):
+                    got.append(float(ing[r]))
+                if any(abs(x - y) <= SCORE_TOL
+                       and ((x >= t) != (y >= t) or (x <= t) != (y <= t))
+                       for x in got for y in got for t in ts):
+                    out.setdefault(r, (casc.concept, tuple(got)))
     return out
 
 
+def boundary_rows(corpus, cascades, rows, chunk, *, int8=False, index=None):
+    """Of ``rows`` (where two paths disagree), each must be a threshold-
+    boundary row of one of ``cascades`` (``straddles``): a flip explained
+    by the stated f32 score tolerance. Raises on any other row; returns
+    [(row, concept, scores)]."""
+    found = straddles(corpus, cascades, rows, chunk, int8=int8, index=index)
+    for r in rows:
+        if int(r) not in found:
+            raise AssertionError(
+                f"row {int(r)}: the two paths differ and no cascade of "
+                f"{[c.concept for c in cascades]} has level-0 scores "
+                f"within {SCORE_TOL} across a threshold")
+    return [(r, *found[r]) for r in sorted(found)]
+
+
 def query_path(dev, cfg, card, kern, seed):
+    """-> (launch counts on the path, what the ingest and algebra phase
+    reuses: the trained systems, the joint plan, the corpus on the
+    device, the predicate specs and the query)."""
     import numpy as np
 
     from repro_torch.data.synthetic import DEFAULT_PREDICATES
@@ -937,7 +990,8 @@ def query_path(dev, cfg, card, kern, seed):
                          int8=int8, device=dev)
         t_naive = time.perf_counter() - t0
         diff = np.setxor1d(res.indices, ref)
-        exempt = boundary_rows(corpus, casc0, diff, int8, cfg["chunk"])
+        exempt = boundary_rows(corpus, [casc0], diff, cfg["chunk"],
+                               int8=int8)
         log(f"  naive_scan {kind}: {len(ref)} rows in {t_naive:.2f} s; "
             f"identical rows: {not len(diff)}"
             + (f" except {len(exempt)} threshold-boundary rows "
@@ -981,7 +1035,8 @@ def query_path(dev, cfg, card, kern, seed):
         f"kernel {ms:.4f} ms (device {_ms(dms)}), plain {plain:.4f} ms, "
         f"bound {bound:.4f} ms ({by})")
     matmul_main_path(dev, cfg, card, kern, systems[casc0.concept])
-    return launches
+    return launches, dict(systems=systems, plan=plan, corpus=corpus,
+                          specs=specs, query=query)
 
 
 def device_profile(run, dev, wall_s, label, top=12):
@@ -1088,6 +1143,308 @@ def matmul_main_path(dev, cfg, card, kern, system):
 
     log(f"  matmul inner-loop probe ({s},{s})@({s},{s}) f32: kernel "
         f"{_ms(ms)} ms{rate(ms)}, torch.matmul {_ms(lib)} ms{rate(lib)}")
+
+
+# ---------------------------------------------------------- phase 3b --
+def ingest_algebra_path(dev, cfg, kern, seed, query):
+    """Streaming ingest and the query algebra on the query path's trained
+    systems and plan (nothing is trained again): (a) a camera stream
+    through ``build_ingest_pipeline`` with the plan's cascades; (b)
+    indexed queries on the stream, exact and approx; (c) boolean trees
+    on the query corpus; (d) a temporal join over two cameras. Launch
+    counts are reset just before the phase's work and read just after
+    it, before any launch that compares a kernel with its plain version;
+    ``fused_pyramid_stage0`` must launch once per scored ingest chunk.
+    Row sets are held against cold scans and the naive oracles, apart
+    from counted threshold-boundary rows. Returns the phase's
+    ``fused_pyramid_stage0`` launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.pipeline import build_ingest_pipeline
+    from repro_torch.data.synthetic import (make_camera_stream,
+                                            make_two_camera_corpus)
+    from repro_torch.engine.algebra import (And, Join, Not, Or, Pred,
+                                            execute_join, execute_tree,
+                                            naive_join_pairs,
+                                            naive_tree_rows)
+    from repro_torch.engine.ingest import indexed_execute
+    from repro_torch.engine.planner import QuerySpec, plan_query
+    from repro_torch.engine.scan import ScanEngine, naive_scan
+    from repro_torch.kernels import ops
+    log("== ingest and algebra")
+    t_phase = time.perf_counter()
+    systems, plan, corpus = query["systems"], query["plan"], query["corpus"]
+    specs, chunk, base = query["specs"], cfg["chunk"], cfg["base"]
+    n, batch = cfg["stream"], cfg["stream_batch"]
+    t0 = time.perf_counter()
+    frames, labels, scene = make_camera_stream(
+        specs, n, hw=base, seed=seed + 200, hold_max=4, jitter=1)
+    log(f"  camera stream {frames.shape} on the host ({frames.nbytes / 1e9:.2f}"
+        f" GB, {int(scene.max()) + 1} scenes), made in "
+        f"{time.perf_counter() - t0:.1f} s")
+    ids = np.arange(n, dtype=np.int64)
+    pending = []        # (label, rows, cascades, corpus, index): explained
+    #                     after the counts are read (those launches compare)
+
+    # ---- (a) ingest, as a stream arrives
+    ops.reset_launch_counts()
+    pipe = build_ingest_pipeline(plan.cascades, n, chunk=chunk, skip=True,
+                                 skip_threshold=None, device=dev)
+    _sync(dev)
+    t0 = time.perf_counter()
+    for lo in range(0, n, batch):
+        pipe.ingest(frames[lo:lo + batch], ids[lo:lo + batch])
+    _sync(dev)
+    t_ingest = time.perf_counter() - t0
+    ingest_launches = ops.LAUNCHES["fused_pyramid_stage0"]
+    st, index = pipe.stats, pipe.index
+    log(f"  ingest: {n} frames in batches of {batch}, chunk {chunk}: "
+        f"{t_ingest:.3f} s ({n / t_ingest:.0f} frames/s); refs {st.refs}, "
+        f"skipped {st.skipped}, decided labels {st.decided_labels}, stage-0 "
+        f"scores {st.stage0_scores}, chunks {st.chunks}; calibrated skip "
+        f"threshold {pipe.skip_threshold!r} (from the first "
+        f"{pipe.calib_frames} diffs); fused_pyramid_stage0 launches "
+        f"{ingest_launches}")
+    if dev.type == "cuda" and (ingest_launches != st.chunks
+                               or ingest_launches == 0):
+        raise AssertionError(f"ingest launched fused_pyramid_stage0 "
+                             f"{ingest_launches} times for {st.chunks} "
+                             f"scored chunks")
+    if not np.array_equal(scene[index.alias], scene):
+        raise AssertionError("a skip-alias crosses a scene boundary")
+    ref = index.alias == ids
+    cal = pipe.calib_frames
+    change = np.concatenate([[True], scene[1:] != scene[:-1]])
+    if not (ref[:cal].all() and np.array_equal(ref[cal:], change[cal:])):
+        raise AssertionError("not one reference per scene after "
+                             "calibration")
+    # the scored chunks, as ingest split the batches: the first and the
+    # last are held against the kernel and the plain version at the end
+    scored = [g[ref[g]] for lo in range(0, n, batch)
+              for at in range(lo, min(lo + batch, n), chunk)
+              for g in (ids[at:min(at + chunk, lo + batch, n)],)
+              if ref[g].any()]
+    if len(scored) != st.chunks:
+        raise AssertionError(f"{len(scored)} chunks hold references, "
+                             f"{st.chunks} were scored")
+    kept = [(g, frames[g].copy()) for g in (scored[0], scored[-1])]
+
+    # ---- (b) indexed queries on the stream, exact and approx
+    stream = torch.from_numpy(frames).to(dev)
+    all_ids = ids
+    plans = {m: plan_query(systems, query["query"], scenario="CAMERA",
+                           joint=True, index=index, index_mode=m)
+             for m in ("exact", "approx")}
+    px = plans["exact"]
+    held = sum(index.cascade_keys.get(c.concept) == c.key
+               for c in px.cascades)
+    log(f"  re-planned with the index: "
+        f"{[c.concept for c in px.cascades]} (ingest order "
+        f"{index.concepts}); the index holds {held} of its "
+        f"{len(px.cascades)} cascade keys")
+    log(px.explain(n_rows=n))
+    scans = {}
+    for label, run in (
+            ("indexed", lambda e: indexed_execute(e, px)),
+            ("cold", lambda e: e.execute(px.cascades)),
+            ("approx", lambda e: indexed_execute(e, plans["approx"]))):
+        eng = ScanEngine(stream, chunk=chunk, device=dev)
+        _sync(dev)
+        t0 = time.perf_counter()
+        res = run(eng)
+        _sync(dev)
+        scans[label] = (res, time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    naive = naive_scan(stream, px.cascades, chunk=chunk, device=dev)
+    t_naive = time.perf_counter() - t0
+    for label, (res, secs) in scans.items():
+        s = res.stats
+        log(f"  {label} scan of the stream: {len(res.indices)} rows, rows "
+            f"evaluated {s.rows_evaluated} (per stage "
+            f"{[g.rows_evaluated for g in s.stages]}), {s.chunks} chunks, "
+            f"{secs:.3f} s"
+            + (f", {secs * 1e3 / s.chunks:.3f} ms/chunk" if s.chunks else ""))
+    log(f"  naive_scan of the stream: {len(naive)} rows in {t_naive:.2f} s")
+    got = scans["indexed"][0].indices
+    pending.append(("exact indexed vs cold", np.setxor1d(
+        got, scans["cold"][0].indices), px.cascades, stream, index))
+    pending.append(("exact indexed vs naive_scan",
+                    np.setxor1d(got, naive), px.cascades, stream, index))
+    approx = plans["approx"]
+    cold_rows = scans["cold"][0].indices
+    a_rows = scans["approx"][0].indices
+    recall = {c: index.measured_recall(
+        c, labels[:, [s.name for s in specs].index(c)])
+        for c in index.concepts}
+    log(f"  approx: prefilter keeps {len(approx.index_prefilter(all_ids))} "
+        f"of {n} rows (exact: {len(px.index_prefilter(all_ids))}); "
+        f"measured recall against the stream's labels {recall}; "
+        f"{len(a_rows)} rows, {len(np.intersect1d(a_rows, cold_rows))} of "
+        f"the cold scan's {len(cold_rows)}")
+    del scans, stream
+
+    # ---- (c) boolean trees on the query corpus
+    names = [s.name for s in specs]
+    a, b, c = (Pred(x) for x in names)
+    nq = int(corpus.shape[0])
+    meta = {"cam": np.arange(nq) % 2, "t": 3 * np.arange(nq, dtype=np.int64)}
+    fn_cache: dict = {}
+    for tree, eq in ((Or(And(a, Not(b)), c), {}),
+                     (And(a, Or(b, Not(c))), {"cam": 0}),
+                     (Not(Or(a, b)), {})):
+        tp = plan_query(systems, QuerySpec(metadata_eq=eq, where=tree),
+                        metadata=meta)
+        out = {}
+        for opt in (True, False):
+            eng = ScanEngine(corpus, meta, chunk=chunk, device=dev)
+            res = execute_tree(eng, tp, optimize=opt)
+            _sync(dev)
+            out[opt] = res
+            if opt:
+                log(tp.explain(n_rows=nq))
+        t0 = time.perf_counter()
+        oracle = naive_tree_rows(corpus, tree, tp.cascade_map(), meta, eq,
+                                 chunk=chunk, device=dev, _fn_cache=fn_cache)
+        t_naive = time.perf_counter() - t0
+        for opt, res in out.items():
+            log(f"  tree {expr(tree)} {eq or ''} optimized={opt}: "
+                f"{len(res.indices)} rows, {res.engine_calls} engine calls, "
+                f"rows evaluated {res.rows_evaluated}, {res.seconds:.3f} s")
+            pending.append((f"tree {expr(tree)} optimized={opt} vs "
+                            f"naive_tree_rows",
+                            np.setxor1d(res.indices, oracle), tp.cascades,
+                            corpus, None))
+        log(f"  naive_tree_rows: {len(oracle)} rows in {t_naive:.2f} s")
+
+    # ---- (d) a temporal join over two cameras
+    t0 = time.perf_counter()
+    (xa, _, tma), (xb, _, tmb) = make_two_camera_corpus(
+        specs, cfg["join"], hw=base, seed=seed + 300)
+    log(f"  two cameras {xa.shape} + {xb.shape}, int64 timestamps, made in "
+        f"{time.perf_counter() - t0:.1f} s")
+    cams = [torch.from_numpy(x).to(dev) for x in (xa, xb)]
+    del xa, xb
+    metas = ({"t": tma}, {"t": tmb})
+    join = Join(a, a, delta_t=2)
+    jp = plan_query(systems, QuerySpec(where=join), metadata=metas)
+    engines = [ScanEngine(x, m, chunk=chunk, device=dev)
+               for x, m in zip(cams, metas)]
+    res = execute_join(engines, jp)
+    _sync(dev)
+    launches = ops.LAUNCHES["fused_pyramid_stage0"]
+    log(jp.explain())
+    t0 = time.perf_counter()
+    rows = [naive_tree_rows(x, side, sp.cascade_map(), chunk=chunk,
+                            device=dev, _fn_cache=fn_cache)
+            for x, side, sp in zip(cams, (join.left, join.right),
+                                   (jp.left, jp.right))]
+    want = naive_join_pairs((rows[0], tma), (rows[1], tmb), join.delta_t)
+    t_naive = time.perf_counter() - t0
+    log(f"  join {expr(join.left)} x {expr(join.right)} within "
+        f"{join.delta_t}: {len(res.pairs)} pairs, build side "
+        f"{'left' if jp.build_side == 0 else 'right'}, probe rows left "
+        f"after the window pushdown {jp.window_kept} of {len(tmb)}, "
+        f"{res.seconds:.3f} s (left {res.left.rows_evaluated} rows "
+        f"evaluated, right {res.right.rows_evaluated}); naive "
+        f"{len(want)} pairs in {t_naive:.2f} s")
+    log(f"  fused_pyramid_stage0 launches in the phase: {launches} "
+        f"({ingest_launches} on the ingest path)")
+
+    # ---- exactness: every differing row a counted boundary row
+    for label, diff, cascades, data, idx in pending:
+        exempt = boundary_rows(data, cascades, diff, chunk, index=idx)
+        log(f"  {label}: identical rows: {not len(diff)}"
+            + (f" except {len(exempt)} threshold-boundary rows {exempt}"
+               if exempt else ""))
+    pairs = {tuple(p) for p in res.pairs.tolist()}
+    wanted = {tuple(p) for p in want.tolist()}
+    diff = sorted(pairs ^ wanted)
+    if diff:
+        bl = straddles(cams[0], jp.left.cascades, [p[0] for p in diff], chunk)
+        br = straddles(cams[1], jp.right.cascades, [p[1] for p in diff],
+                       chunk)
+        bad = [p for p in diff if p[0] not in bl and p[1] not in br]
+        if bad:
+            raise AssertionError(f"join pairs differ from naive_join_pairs "
+                                 f"off the threshold boundary: {bad[:8]}")
+    log(f"  join vs naive_join_pairs: identical pairs: {not diff}"
+        + (f" except {len(diff)} pairs on threshold-boundary rows"
+           if diff else ""))
+    check_ingest_scores(pipe, kept)
+    ingest_profile(dev, plan, frames, ids, pipe, batch, t_ingest)
+    kern["stage0"]["ingest_launches"] = ingest_launches
+    log(f"  the phase: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def ingest_profile(dev, plan, frames, ids, pipe, batch, t_ingest):
+    """Where the ingest's time goes: the host's frame signatures alone
+    (the skip detector's feature, per chunk as ingest computes them),
+    then a second ingest of the same stream through a fresh pipeline
+    under torch.profiler (device busy time and idle share against the
+    first ingest's wall time)."""
+    from repro_torch.core.pipeline import build_ingest_pipeline
+    from repro_torch.engine.ingest import frame_signature
+    t0 = time.perf_counter()
+    for lo in range(0, len(ids), pipe.chunk):
+        frame_signature(frames[lo:lo + pipe.chunk], pipe.skip_res)
+    t_sig = time.perf_counter() - t0
+    log(f"  ingest's frame signatures alone (host): {t_sig:.3f} s of its "
+        f"{t_ingest:.3f} s")
+    if dev.type != "cuda":
+        return
+
+    def run():
+        again = build_ingest_pipeline(plan.cascades, len(ids),
+                                      chunk=pipe.chunk, skip=True,
+                                      skip_threshold=None, device=dev)
+        for lo in range(0, len(ids), batch):
+            again.ingest(frames[lo:lo + batch], ids[lo:lo + batch])
+    device_profile(run, dev, t_ingest, "ingest profile", top=6)
+
+
+def expr(tree) -> str:
+    """An expression tree in one short line: And(acorn, Not(ferret))."""
+    from repro_torch.engine.algebra import Pred
+    if isinstance(tree, Pred):
+        return tree.concept
+    kids = getattr(tree, "children", None) or (tree.child,)
+    return f"{type(tree).__name__}({', '.join(expr(k) for k in kids)})"
+
+
+def check_ingest_scores(pipe, chunks):
+    """(a)'s score check: on each of ``chunks`` ([(row ids, their
+    frames)], one scored ingest chunk's references each), the anchor's
+    recorded ingest scores equal the kernel's own on the same padded
+    chunk (same levels requested, same width), and stay within
+    SCORE_TOL of the plain version's."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.image_transform import fused_pyramid_stage0
+    from repro_torch.kernels.ref import fused_pyramid_stage0_ref
+    c0 = pipe.cascades[0]
+    s0 = c0.stage0
+    need = {c0.reps[0].resolution} | {c.reps[0].resolution
+                                      for c in pipe.cascades[1:]}
+    for rids, x in chunks:
+        nv = len(rids)
+        x = np.concatenate([x, np.repeat(x[-1:], pipe.chunk - nv, axis=0)])
+        imgs = torch.from_numpy(x).to(pipe.device)
+        pooled = sorted(need - {imgs.shape[1]})
+        _, sk = fused_pyramid_stage0(imgs, pooled, s0.params, s0.rep)
+        _, sp = fused_pyramid_stage0_ref(imgs, pooled, s0.params, s0.rep)
+        got = pipe.index.scores[c0.concept][rids]
+        sk = sk[:nv].cpu().numpy()
+        same = np.array_equal(sk, got)
+        err = float(np.abs(sk - sp[:nv].cpu().numpy()).max())
+        log(f"  ingest scores of {c0.concept} on a chunk of {nv} references "
+            f"(rows {int(rids[0])}..{int(rids[-1])}): equal to the kernel's "
+            f"on the padded chunk: {same}; max |kernel - plain| {err:.3g}")
+        if not same or err > SCORE_TOL:
+            raise AssertionError("ingest scores differ from the kernel's "
+                                 "own, or the kernel from the plain version")
 
 
 def _sync(dev):
@@ -1643,8 +2000,9 @@ def kernels_line(kern, launches):
                     "shape": k["shape"],
                     **{key: k[key] for key in ("device_ms",
                                                "library_device_ms",
-                                               "tb_per_s",
-                                               "other_shapes") if key in k}})
+                                               "tb_per_s", "other_shapes",
+                                               "ingest_launches")
+                       if key in k}})
     print(json.dumps({"kernels": out}), flush=True)
 
 

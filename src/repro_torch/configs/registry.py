@@ -12,7 +12,8 @@ from repro_torch.configs.base import ArchConfig, SSMConfig
 ARCHS: dict[str, ArchConfig] = {
     c.name: c for c in (mamba2_130m.CONFIG, zamba2_1_2b.CONFIG)}
 
-# Registered in the reference, not ported yet (ROADMAP Queue 1, item 11).
+# Registered in the reference, not ported yet (ROADMAP Queue 1, item 5:
+# the rest of the LM substrate).
 WAITING = ("whisper-tiny", "granite-20b", "deepseek-7b", "qwen2.5-32b",
            "minitron-4b", "deepseek-v2-236b", "phi3.5-moe-42b-a6.6b",
            "qwen2-vl-72b")
@@ -23,8 +24,9 @@ def get_arch(name: str) -> ArchConfig:
         return ARCHS[name]
     if name in WAITING:
         raise NotImplementedError(
-            f"--arch {name!r} is not ported yet (ROADMAP Queue 1, item 11: "
-            f"dense/moe/MLA/vlm/audio families); ported: {sorted(ARCHS)}")
+            f"--arch {name!r} is not ported yet (ROADMAP Queue 1, item 5: the "
+            f"rest of the LM substrate, the dense/moe/MLA/vlm/audio "
+            f"families); ported: {sorted(ARCHS)}")
     raise KeyError(f"unknown --arch {name!r}; known: {sorted(ARCHS)}")
 
 

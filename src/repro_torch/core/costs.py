@@ -178,6 +178,17 @@ class DecomposedCost:
     def marginal_s(self, materialized) -> float:
         return self.infer_s + self.marginal_rep_s(materialized)
 
+    def scaled(self, eval_frac: float) -> "DecomposedCost":
+        """This cascade priced when only ``eval_frac`` of the candidate
+        rows still need evaluation — the rest are answered from a
+        seeded virtual column (engine/ingest.CandidateIndex decided
+        labels, DESIGN.md §14/§15). Every charge scales linearly and
+        the level set is preserved, so shared-pyramid marginal pricing
+        (``marginal_s``) composes with index-aware planning."""
+        f = float(eval_frac)
+        return DecomposedCost(self.infer_s * f,
+                              {r: s * f for r, s in self.rep_s.items()})
+
 
 def decompose_cascade_cost(levels, scores_eval, reps, infer_s,
                            profile: CostProfile, scenario: str,

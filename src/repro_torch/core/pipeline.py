@@ -451,3 +451,34 @@ def build_scan_engine(images, metadata=None, *, shards: int | None = None,
     return ScanEngine(images, metadata, chunk=chunk, repcache=repcache,
                       fused=fused, lazy=lazy, int8=int8,
                       use_kernel=use_kernel, device=device)
+
+
+def build_ingest_pipeline(cascades, n_rows: int, *, chunk: int = 64,
+                          skip: bool = True,
+                          skip_threshold: float | None = 0.008,
+                          calib_frames: int = 48,
+                          top_k: int | None = None,
+                          prune_margin: float = 0.25, int8: bool = False,
+                          use_kernel: bool | None = None, device=None):
+    """System-level ingest factory (DESIGN.md §14): a streaming
+    IngestPipeline over the planned ``cascades`` (a sequence, or a
+    {concept -> CompiledCascade} table) for a corpus/stream of
+    ``n_rows`` frames. Feed arriving frames with ``.ingest(frames,
+    ids)`` (any batch granularity — the temporal skip detector chains
+    across calls) or sweep a resident corpus with ``.run(images)``; the
+    resulting ``.index`` plugs into ``plan_query(..., index=...)``. The
+    cascades must be the SAME physical cascades queries will select —
+    labels are keyed by CompiledCascade.key — and ``chunk`` the scan
+    engine's, so ingest and query-time stage-0 scores come from launches
+    of one width. ``skip_threshold=None`` auto-calibrates the
+    temporal-difference threshold per camera from the first
+    ``calib_frames`` frames (IngestPipeline.calibrate_threshold)."""
+    from repro_torch.engine.ingest import IngestPipeline
+
+    if isinstance(cascades, dict):
+        cascades = list(cascades.values())
+    return IngestPipeline(cascades, n_rows, chunk=chunk, skip=skip,
+                          skip_threshold=skip_threshold,
+                          calib_frames=calib_frames, top_k=top_k,
+                          prune_margin=prune_margin, int8=int8,
+                          use_kernel=use_kernel, device=device)

@@ -71,9 +71,11 @@ class PredicateClause:
 class QuerySpec:
     """SELECT frames WHERE metadata_eq AND contains(c1) AND ... .
 
-    ``where`` is the reference's boolean expression tree (engine/algebra,
-    DESIGN.md §15); that algebra is ported in a later slice, so
-    ``plan_query`` raises NotImplementedError when it is set."""
+    ``where`` generalizes the conjunctive ``predicates`` list to a full
+    boolean expression tree (engine/algebra: And/Or/Not/Pred, or a
+    root Join; DESIGN.md §15). When set, ``plan_query`` compiles it via
+    the tree algebra instead and returns a TreePlan/JoinPlan —
+    ``predicates`` must then be empty."""
     metadata_eq: dict = field(default_factory=dict)
     predicates: list = field(default_factory=list)   # [PredicateClause]
     where: object | None = None                      # algebra expression
@@ -106,6 +108,14 @@ class PhysicalPlan:
     #                          materialization (engine/scan
     #                          .level_schedule); 'paper' the §VI
     #                          per-image walk
+    # ingest-time candidate-concept index (engine/ingest.CandidateIndex)
+    # consulted as a metadata-like pre-filter (DESIGN.md §14). index_mode
+    # 'exact' prunes only on ingest decisions the query-time cascade
+    # would repeat (own-pixel confident stage-0 labels); 'approx' also
+    # trusts skip-aliases and candidate pruning at the index's
+    # measured-recall knob.
+    index: object | None = None
+    index_mode: str = "exact"
 
     @property
     def cascades(self) -> list:
@@ -166,6 +176,19 @@ class PhysicalPlan:
                            * min(max(p.cascade.selectivity, 0.0), 1.0))
         return {r: n_rows * survive[s] for r, s in sched.items()}
 
+    def index_prefilter(self, ids: np.ndarray) -> np.ndarray:
+        """The metadata-like ingest-index pre-filter (DESIGN.md §14):
+        of the metadata-surviving ``ids``, the rows a scan must still
+        evaluate. Rows the index already decided 0 for any planned
+        predicate — or, in 'approx' mode, rows whose candidate set
+        excludes a planned concept — are dropped here and their
+        cascades never run. No-op (all ids survive) without an index."""
+        ids = np.asarray(ids, np.int64)
+        if self.index is None:
+            return ids
+        return self.index.survivors(ids, self.cascades,
+                                    exact=self.index_mode == "exact")
+
     def unshared_cost_per_row(self) -> float:
         """The SAME cascades and order priced without representation
         sharing (every predicate pays its standalone cost, in this
@@ -214,6 +237,11 @@ class PhysicalPlan:
             sel = ("" if self.meta_selectivity is None
                    else f"   (est. selectivity {self.meta_selectivity:.2f})")
             lines.append(f"  metadata: {meta}{sel}")
+        if self.index is not None:
+            lines.append("  ingest index: "
+                         + self.index.describe(
+                             self.cascades,
+                             exact=self.index_mode == "exact"))
         survive = 1.0
         for i, p in enumerate(self.predicates, 1):
             c = p.cascade
@@ -404,7 +432,8 @@ def plan_query(systems: Mapping, spec: QuerySpec, *,
                scenario: str = "CAMERA", max_level: int = 3,
                metadata: Mapping[str, np.ndarray] | None = None,
                joint: bool = False, costing: str = "engine",
-               max_combos: int = 20000, index=None) -> PhysicalPlan:
+               max_combos: int = 20000, index=None,
+               index_mode: str = "exact") -> PhysicalPlan:
     """systems: concept -> TahomaSystem (core/pipeline.py) holding the
     trained grid + cached evaluated spaces. metadata: the corpus metadata
     columns, if available, to estimate the metadata selectivity shown in
@@ -418,23 +447,42 @@ def plan_query(systems: Mapping, spec: QuerySpec, *,
     full-width DENSE levels (core/costs.decompose_cascade_cost
     dense_levels) — so the optimizer minimizes what the engine actually
     pays; 'paper' keeps the §VI reach-weighted per-image walk (whose
-    totals equal CascadeSpace.time_s). Expression trees (``spec.where``)
-    and ingest indexes (``index``) are ported in later slices and raise
-    NotImplementedError. Returns the ordered PhysicalPlan."""
+    totals equal CascadeSpace.time_s). ``index`` attaches an ingest-time
+    candidate-concept index (engine/ingest.CandidateIndex) the plan
+    consults as a metadata-like pre-filter (PhysicalPlan.index_prefilter,
+    DESIGN.md §14); ``index_mode`` is 'exact' (only ingest decisions the
+    query-time cascade repeats prune; skip-aliased rows are re-verified)
+    or 'approx' (skip-aliases + candidate pruning at the index's
+    measured-recall knob). A ``spec.where`` tree compiles through
+    engine/algebra.plan_expression into a TreePlan/JoinPlan. Returns the
+    ordered PhysicalPlan."""
+    if index_mode not in ("exact", "approx"):
+        raise ValueError(f"unknown index mode {index_mode!r}")
     if getattr(spec, "where", None) is not None:
-        raise NotImplementedError(
-            "QuerySpec.where: expression trees wait for the engine/algebra "
-            "slice of the port")
-    if index is not None:
-        raise NotImplementedError(
-            "plan_query(index=...): ingest indexes wait for the "
-            "engine/ingest slice of the port")
+        # boolean expression tree / cross-corpus join: compile through
+        # the tree algebra (engine/algebra, DESIGN.md §15). The index
+        # conditions leaf costing and seeds stores (exact labels only —
+        # decided-0 pruning is unsound under OR/NOT, so 'approx'
+        # prefiltering does not apply to trees).
+        from repro_torch.engine.algebra import plan_expression
+        if spec.predicates:
+            raise ValueError("QuerySpec.where and QuerySpec.predicates "
+                             "are mutually exclusive")
+        if index is not None and index_mode != "exact":
+            raise ValueError("expression trees support index_mode="
+                             "'exact' only (seeding, no pruning)")
+        return plan_expression(systems, spec.where, scenario=scenario,
+                               max_level=max_level, metadata=metadata,
+                               metadata_eq=spec.metadata_eq, index=index)
     if joint and spec.predicates:
         if costing not in ("engine", "paper"):
             raise ValueError(f"unknown costing mode {costing!r}")
-        return _plan_query_joint(systems, spec, scenario=scenario,
+        plan = _plan_query_joint(systems, spec, scenario=scenario,
                                  max_level=max_level, metadata=metadata,
-                                 costing=costing, max_combos=max_combos)
+                                 costing=costing, max_combos=max_combos,
+                                 index=index)
+        plan.index, plan.index_mode = index, index_mode
+        return plan
     planned = []
     for clause in spec.predicates:
         system = systems[clause.concept]
@@ -452,12 +500,14 @@ def plan_query(systems: Mapping, spec: QuerySpec, *,
                              [p.cascade.selectivity for p in planned])
     planned = [planned[i] for i in order]
     return PhysicalPlan(scenario, dict(spec.metadata_eq), planned,
-                        _meta_selectivity(spec, metadata))
+                        _meta_selectivity(spec, metadata),
+                        index=index, index_mode=index_mode)
 
 
 def _plan_query_joint(systems: Mapping, spec: QuerySpec, *,
                       scenario: str, max_level: int, metadata,
-                      costing: str, max_combos: int) -> PhysicalPlan:
+                      costing: str, max_combos: int,
+                      index=None) -> PhysicalPlan:
     """Joint cascade-set selection (DESIGN.md §11.2). Candidate pools =
     per-predicate constrained Pareto frontiers; each candidate carries
     (Selection, DecomposedCost, selectivity). The search prices every
@@ -469,7 +519,17 @@ def _plan_query_joint(systems: Mapping, spec: QuerySpec, *,
     (tests/test_joint_planner.py). A clause WITHOUT an explicit
     min_accuracy keeps the independent rule's promise (most accurate
     qualifying cascade): its pool is just the independent pick, and only
-    ordering + shared-level pricing remain to optimize for it."""
+    ordering + shared-level pricing remain to optimize for it.
+
+    ``index`` (engine/ingest.CandidateIndex, DESIGN.md §14.5) makes the
+    search cost candidates against INDEX-REDUCED cardinality: a
+    candidate whose cascade key the index holds decided labels for is
+    priced at its undecided-row fraction (DecomposedCost.scaled — rows
+    the seeded store answers cost nothing) with its selectivity
+    conditioned on the exact-mode prefilter survivors
+    (CandidateIndex.planning_stats). Candidates the index never scored
+    keep full-corpus pricing, so the never-worse guarantee holds within
+    the indexed costing."""
     clauses = spec.predicates
     spaces, pools, ind_pos = [], [], []
     for clause in clauses:
@@ -494,6 +554,15 @@ def _plan_query_joint(systems: Mapping, spec: QuerySpec, *,
                                          dense_levels=costing == "engine")
             frac = estimate_selectivity(space, s.index, system.eval_scores,
                                         system.p_low, system.p_high)
+            if index is not None:
+                # price this candidate against the rows the index leaves
+                # for it (its cascade key, computed without compiling)
+                key = (clause.concept, (int(space.kind[s.index]),
+                                        int(space.i1[s.index]),
+                                        int(space.i2[s.index])))
+                eval_frac, frac = index.planning_stats(key, frac,
+                                                       prefilter=True)
+                dec = dec.scaled(eval_frac)
             entries.append((s, dec, frac))
         spaces.append(space)
         pools.append(entries)

@@ -89,6 +89,15 @@ class VirtualColumnStore:
     def known_rows(self, key: tuple) -> int:
         return int((self.column(key) >= 0).sum())
 
+    def rows_with_label(self, key: tuple, ids: np.ndarray,
+                        label: int) -> np.ndarray:
+        """Of ``ids``, the rows whose stored label equals ``label``.
+        The algebra executor's NOT path (engine/algebra.py, DESIGN.md
+        §15): after a scan has decided every candidate row, the
+        decided-0 rows of a cascade's int8 column are exactly ¬Pred."""
+        ids = np.asarray(ids, np.int64)
+        return ids[self.column(key)[ids] == label]
+
     def keys(self) -> list[tuple]:
         return list(self._cols)
 
@@ -514,7 +523,8 @@ class ScanEngine:
 def naive_scan(images, cascades: Sequence[CompiledCascade],
                metadata: Mapping[str, np.ndarray] | None = None,
                metadata_eq: Mapping | None = None, *, chunk: int = 64,
-               int8: bool = False, device=None) -> np.ndarray:
+               int8: bool = False, device=None,
+               _fn_cache: dict | None = None) -> np.ndarray:
     """The seed workflow: each predicate's cascade runs a FULL corpus scan
     (its own pyramid per chunk, no sharing, no masking, no fused kernel);
     masks are ANDed at the end. The same row set as ScanEngine.execute
@@ -522,7 +532,9 @@ def naive_scan(images, cascades: Sequence[CompiledCascade],
     its dequantized int8 weights — the fused engine's ``int8=True``
     arithmetic, which quantizes only the stage-0 model its chunk ingest
     folds in. ``device`` defaults to the corpus tensor's device, else
-    ``cuda``."""
+    ``cuda``. ``_fn_cache`` (dict) lets callers that scan one cascade
+    many times (engine/algebra.naive_tree_rows) reuse its per-chunk
+    program."""
     from functools import partial
 
     from repro_torch.models.cnn import cnn_predict_proba, dequantize_cnn
@@ -536,14 +548,25 @@ def naive_scan(images, cascades: Sequence[CompiledCascade],
     for col, val in (metadata_eq or {}).items():
         mask &= np.asarray(metadata[col]) == val
 
+    cache = _fn_cache if _fn_cache is not None else {}
     for pos, casc in enumerate(cascades):
-        # full-width levels, matching ScanEngine (see CompiledCascade)
-        caps = [chunk] * (len(casc.model_fns) - 1)
-        fns = list(casc.model_fns)
-        if int8 and pos == 0 and casc.stage0 is not None \
-                and casc.stage0.qparams is not None:
-            fns[0] = partial(cnn_predict_proba,
-                             dequantize_cnn(casc.stage0.qparams))
+        q8 = (int8 and pos == 0 and casc.stage0 is not None
+              and casc.stage0.qparams is not None)
+        key = (casc.key, chunk, q8)
+        if key not in cache:
+            # full-width levels, matching ScanEngine (see CompiledCascade)
+            caps = [chunk] * (len(casc.model_fns) - 1)
+            fns = list(casc.model_fns)
+            if q8:
+                fns[0] = partial(cnn_predict_proba,
+                                 dequantize_cnn(casc.stage0.qparams))
+
+            def run(imgs, _c=casc, _fns=fns, _caps=caps):
+                pyr = materialize_pyramid(imgs, _c.resolutions)
+                return run_cascade_on_pyramid(pyr, _fns, _c.thresholds,
+                                              _c.reps, _caps)[0]
+            cache[key] = run
+        fn = cache[key]
         col = np.zeros(n, np.int8)
         for lo in range(0, n, chunk):
             imgs = images[lo:lo + chunk]
@@ -551,9 +574,6 @@ def naive_scan(images, cascades: Sequence[CompiledCascade],
             if nv < chunk:
                 imgs = torch.cat([imgs, imgs[-1:].expand(
                     chunk - nv, *imgs.shape[1:])])
-            pyr = materialize_pyramid(imgs, casc.resolutions)
-            labels = run_cascade_on_pyramid(pyr, fns, casc.thresholds,
-                                            casc.reps, caps)[0]
-            col[lo:lo + nv] = labels[:nv].cpu().numpy()
+            col[lo:lo + nv] = fn(imgs)[:nv].cpu().numpy()
         mask &= col == 1
     return np.where(mask)[0]

@@ -42,7 +42,8 @@ def check_family(cfg) -> None:
             or cfg.mla is not None:
         raise NotImplementedError(
             f"{cfg.name}: only the ssm and hybrid families (GQA attention, "
-            f"dense MLP) are ported (ROADMAP Queue 1, item 11)")
+            f"dense MLP) are ported (ROADMAP Queue 1, item 5: the rest "
+            f"of the LM substrate)")
 
 
 # ------------------------------------------------------------------ trees --

@@ -23,6 +23,8 @@ from repro.core.pipeline import initialize_system  # noqa: E402
 from repro.core.transforms import Representation as JRep  # noqa: E402
 from repro.data.synthetic import (DEFAULT_PREDICATES, make_corpus,  # noqa
                                   make_multi_corpus, three_way_split)
+from repro.engine import algebra as jalg  # noqa: E402
+from repro.engine import ingest as jing  # noqa: E402
 from repro.engine import planner as jplan  # noqa: E402
 from repro.engine.scan import ScanEngine as JEngine  # noqa: E402
 from repro_torch.configs.base import TahomaCNNConfig as TCfg  # noqa: E402
@@ -31,6 +33,8 @@ from repro_torch.core.pipeline import (ModelBank, ModelEntry,  # noqa: E402
                                        TahomaSystem, build_scan_engine,
                                        system_from_bank)
 from repro_torch.core.transforms import Representation  # noqa: E402
+from repro_torch.engine import algebra as talg  # noqa: E402
+from repro_torch.engine import ingest as ting  # noqa: E402
 from repro_torch.engine import planner as tplan  # noqa: E402
 from repro_torch.engine.scan import (ScanEngine, VirtualColumnStore,  # noqa
                                      naive_scan)
@@ -157,11 +161,17 @@ def test_plan_picks_same_cascades_in_same_order(world, joint, min_acc):
 
 
 def test_later_slices_raise_not_implemented(world):
+    """Expression trees and ingest indexes are ported and plan; the
+    sharded engine and the representation cache still refuse."""
     _, tq = _query(world)
-    with pytest.raises(NotImplementedError):
-        tplan.plan_query(world["tsys"], tplan.QuerySpec(where=object()))
-    with pytest.raises(NotImplementedError):
-        tplan.plan_query(world["tsys"], tq, index=object())
+    tree = talg.And(talg.Pred(SPECS[0].name), talg.Not(talg.Pred(
+        SPECS[1].name)))
+    assert isinstance(tplan.plan_query(world["tsys"],
+                                       tplan.QuerySpec(where=tree)),
+                      talg.TreePlan)
+    index = ting.CandidateIndex(len(world["qx"]), [])
+    plan = tplan.plan_query(world["tsys"], tq, index=index)
+    assert isinstance(plan, tplan.PhysicalPlan) and plan.index is index
     with pytest.raises(NotImplementedError):
         build_scan_engine(world["qx"], shards=2, device="cpu")
     with pytest.raises(NotImplementedError):
@@ -218,3 +228,101 @@ def test_virtual_column_store_round_trip(tmp_path):
                           store.column(("a", (1, 2, 3))))
     with pytest.raises(ValueError):
         VirtualColumnStore.load(path, token=(7.0,))
+
+
+# ------------------------------------------------ expression trees --------
+WHERE_TREES = [
+    lambda m, a, b: m.Or(m.And(m.Pred(a), m.Not(m.Pred(b))), m.Pred(b)),
+    lambda m, a, b: m.Not(m.Or(m.Pred(a), m.Pred(b))),
+    lambda m, a, b: m.And(m.Pred(a), m.Or(m.Pred(b), m.Not(m.Pred(a)))),
+    lambda m, a, b: m.Join(m.Pred(a), m.Not(m.Pred(b)), delta_t=4),
+]
+
+
+def _plan_shape(node):
+    if node.op == "pred":
+        return ("pred", node.cascade.key, node.negated, node.description,
+                node.est_sel, node.est_cost, node.index_cached)
+    return (node.op, node.est_sel, node.est_cost,
+            tuple(_plan_shape(c) for c in node.children))
+
+
+@pytest.mark.parametrize("case", range(len(WHERE_TREES)))
+def test_where_plan_matches_reference(world, case):
+    """plan_query(where=) picks the same cascades, negations and child
+    order as the reference, with the same estimates and EXPLAIN; the
+    port's tree executor returns the reference's rows."""
+    a, b = (s.name for s in SPECS)
+    qx, meta = world["qx"], dict(world["meta"],
+                                 t=np.arange(len(world["qx"])) * 3)
+    join = case == len(WHERE_TREES) - 1
+    md = (meta, meta) if join else meta
+    tp = tplan.plan_query(world["tsys"], tplan.QuerySpec(
+        where=WHERE_TREES[case](talg, a, b)), metadata=md)
+    jp = jplan.plan_query(world["jsys"], jplan.QuerySpec(
+        where=WHERE_TREES[case](jalg, a, b)), metadata=md)
+    if join:
+        assert tp.build_side == jp.build_side
+        assert tp.est_pairs == jp.est_pairs
+        sides = [(tp.left, jp.left), (tp.right, jp.right)]
+    else:
+        sides = [(tp, jp)]
+    for t, j in sides:
+        assert _plan_shape(t.root) == _plan_shape(j.root)
+    assert tp.explain() == jp.explain()
+    if join:
+        res = talg.execute_join((ScanEngine(qx, meta, chunk=32, device="cpu"),
+                                 ScanEngine(qx, meta, chunk=32, device="cpu")),
+                                tp)
+        ref = jalg.execute_join((JEngine(qx, meta, chunk=32),
+                                 JEngine(qx, meta, chunk=32)), jp)
+        assert np.array_equal(res.pairs, ref.pairs)
+    else:
+        res = talg.execute_tree(ScanEngine(qx, meta, chunk=32, device="cpu"),
+                                tp)
+        ref = jalg.execute_tree(JEngine(qx, meta, chunk=32), jp)
+        assert np.array_equal(res.indices, ref.indices)
+
+
+# --------------------------------------------------------- ingest index ---
+@pytest.mark.parametrize("mode", ["exact", "approx"])
+@pytest.mark.parametrize("joint", [False, True])
+def test_index_plan_matches_reference(world, joint, mode):
+    """Plan, ingest the corpus with the plan's cascades (the trained
+    stage-0 CNN is the anchor's real rung, weights via params_from_jax),
+    re-plan with index=: the same cascades and order as the reference,
+    the same EXPLAIN ingest line, and indexed_execute's rows."""
+    jq, tq = _query(world, min_acc=True)
+    qx, meta = world["qx"], world["meta"]
+    jp0 = jplan.plan_query(world["jsys"], jq, joint=joint)
+    tp0 = tplan.plan_query(world["tsys"], tq, joint=joint)
+    assert [c.key for c in jp0.cascades] == [c.key for c in tp0.cascades]
+    jpipe = jing.IngestPipeline(jp0.cascades, len(qx), chunk=32)
+    tpipe = ting.IngestPipeline(tp0.cascades, len(qx), chunk=32,
+                                device="cpu")
+    jpipe.run(qx)
+    tpipe.run(qx)
+    assert dataclasses.asdict(tpipe.stats) == dataclasses.asdict(jpipe.stats)
+    for k in jpipe.index.decided.keys():
+        assert np.array_equal(tpipe.index.decided.column(k),
+                              jpipe.index.decided.column(k))
+    jp = jplan.plan_query(world["jsys"], jq, joint=joint,
+                          index=jpipe.index, index_mode=mode)
+    tp = tplan.plan_query(world["tsys"], tq, joint=joint,
+                          index=tpipe.index, index_mode=mode)
+    assert [c.key for c in jp.cascades] == [c.key for c in tp.cascades]
+    assert tp.estimated_cost_per_row() == \
+        pytest.approx(jp.estimated_cost_per_row(), rel=1e-12)
+    assert tp.index_mode == mode and tp.index is tpipe.index
+    line = [ln for ln in tp.explain(n_rows=len(qx)).splitlines()
+            if "ingest index:" in ln]
+    assert line == [ln for ln in jp.explain(n_rows=len(qx)).splitlines()
+                    if "ingest index:" in ln] and len(line) == 1
+    tres = ting.indexed_execute(ScanEngine(qx, meta, chunk=32,
+                                           device="cpu"), tp)
+    jres = jing.indexed_execute(JEngine(qx, meta, chunk=32), jp)
+    assert np.array_equal(tres.indices, jres.indices)
+    if mode == "exact":
+        cold = ScanEngine(qx, meta, chunk=32, device="cpu").execute(
+            tp.cascades, tp.metadata_eq)
+        assert np.array_equal(tres.indices, cold.indices)

@@ -66,6 +66,23 @@
    level-0 scores within SCORE_TOL across a threshold). The kernels
    line's stage-0 launches add the phase's (``ingest_launches`` names the
    ingest path's).
+   Sharded scans, on the same systems, plan, corpus and stream: the
+   stage-0 kernel scores the same 16 rows at every slab width 16-256
+   (``torch.equal`` with the 256-wide launch, f32 and int8), and every
+   model a flush runs through ``cnn_forward`` is scored at those widths
+   too (rows that differ and the largest difference, printed). Then
+   ``ShardedScanEngine`` at SHARD_RUNS (1, 2 and 8 shards, range and
+   hash, as lanes on CUDA streams; the serial backend at 8), each row
+   set held against the serial scan's and ``naive_scan``'s; the 8-shard
+   engine again on its merged store (no superstep, no launch); the first
+   tree and the stream's exact indexed scan on 8 shards against the
+   phase before. Launch counts are reset just before and read just
+   after; a row that differs must be a threshold-boundary row at one of
+   the slab widths (``straddles(widths=)``). It prints each scan's ms,
+   supersteps, lanes, rows per shard, balance, stage-0 slabs by width
+   and peak memory, and profiles the 8- and 1-shard lockstep and the
+   serial scan. The kernels line's stage-0 launches add the phase's
+   (``sharded_launches``).
 4. LM serve path: zamba2-1.2b at full width (38 Mamba-2 layers, the shared
    attention+MLP block after every 6th; random bf16 weights from a seeded
    generator) serves 8 prompts of 512 tokens with 32 greedy decode steps
@@ -208,9 +225,10 @@ def main(argv=None) -> int:
     card = setup(dev)
     kern = check_kernels(dev, cfg, card, args.seed)
     launches, query = query_path(dev, cfg, card, kern, args.seed)
-    ingest = ingest_algebra_path(dev, cfg, kern, args.seed, query)
-    del query
-    launches["fused_pyramid_stage0"] += ingest
+    ingest, before = ingest_algebra_path(dev, cfg, kern, args.seed, query)
+    sharded = sharded_path(dev, cfg, kern, query, before)
+    del query, before
+    launches["fused_pyramid_stage0"] += ingest + sharded
     launches.update(lm_path(dev, cfg, card, kern, args.seed))
     launches.update(ops_path(dev, cfg, card, kern, args.seed))
     if "smi" in card:    # again near the end: the card beside the numbers
@@ -850,70 +868,101 @@ def check_stream_vs_dense(name, system):
         f"cascades) == dense frontier")
 
 
-def straddles(corpus, cascades, rows, chunk, *, int8=False, index=None):
-    """{row: (concept, scores)} for the rows of ``rows`` on which two
-    routes of some cascade's level 0 give scores on opposite sides of
-    one of that level's f32 thresholds and within SCORE_TOL of each
-    other. The routes: the fused kernel and the plain version, each at
-    the scan's batch width ``chunk``, and, with an ingest ``index``, the
-    score it recorded for the row (a reference frame scored at ingest).
-    ``int8`` scores the first cascade on its int8 weights."""
+def _at_width(corpus, rows, width, score):
+    """score(imgs) for each of ``rows``, launched in slabs of ``width``
+    rows (each padded by repeating its last row, as the engines pad)."""
     import numpy as np
     import torch
+    out = []
+    for lo in range(0, len(rows), width):
+        part = rows[lo:lo + width]
+        idx = np.concatenate([part, np.repeat(part[-1:], width - len(part))])
+        imgs = corpus[torch.as_tensor(idx, device=corpus.device)]
+        out += score(imgs)[:len(part)].tolist()
+    return out
 
+
+def straddles(corpus, cascades, rows, chunk, *, int8=False, index=None,
+              widths=()):
+    """{row: (where, scores)} for the rows of ``rows`` on which two
+    routes of some cascade's level give scores on opposite sides of one
+    of that level's f32 thresholds and within SCORE_TOL of each other.
+    Level 0's routes: the fused kernel and the plain version, each at the
+    scan's batch width ``chunk``, and, with an ingest ``index``, the
+    score it recorded for the row (a reference frame scored at ingest).
+    With ``widths`` (a sharded scan's slab widths), level 0 is also
+    scored by both routes at each of them, and every later level through
+    its model at ``chunk`` and at each of them. ``int8`` scores the first
+    cascade on its int8 weights."""
+    import numpy as np
+
+    from repro_torch.core.transforms import color_transform, resize_area
     from repro_torch.kernels.image_transform import fused_pyramid_stage0
     from repro_torch.kernels.ref import fused_pyramid_stage0_ref
     out = {}
     rows = np.asarray(rows, np.int64)
+    if not len(rows):
+        return out
     for pos, casc in enumerate(cascades):
         s0 = casc.stage0
         qp = s0.qparams if int8 and pos == 0 else None
-        lo, hi = casc.thresholds[0]
-        ts = [float(np.float32(t)) for t in ([0.5] if lo is None
-                                            else [lo, hi])]
-        ing = None
-        if index is not None and \
-                index.cascade_keys.get(casc.concept) == casc.key:
-            ing = index.scores[casc.concept]
-        for at in range(0, len(rows), chunk):
-            part = rows[at:at + chunk]
-            idx = np.concatenate([part, np.repeat(part[-1:],
-                                                  chunk - len(part))])
-            imgs = corpus[torch.as_tensor(idx, device=corpus.device)]
-            _, sk = fused_pyramid_stage0(imgs, [], s0.params, s0.rep,
-                                         qparams=qp)
-            _, sp = fused_pyramid_stage0_ref(imgs, [], s0.params, s0.rep,
-                                             qparams=qp)
-            for r, a, b in zip(part.tolist(), sk.tolist(), sp.tolist()):
-                got = [a, b]
+        for lvl in range(len(casc.model_fns) if widths else 1):
+            lo, hi = casc.thresholds[lvl]
+            ts = [float(np.float32(t)) for t in ([0.5] if lo is None
+                                                else [lo, hi])]
+            routes = []
+            for w in (chunk, *widths):
+                if lvl == 0:
+                    for fn in (fused_pyramid_stage0,
+                               fused_pyramid_stage0_ref):
+                        routes.append(_at_width(
+                            corpus, rows, w,
+                            lambda x, fn=fn: fn(x, [], s0.params, s0.rep,
+                                                qparams=qp)[1]))
+                else:
+                    rep, model = casc.reps[lvl], casc.model_fns[lvl]
+                    routes.append(_at_width(
+                        corpus, rows, w,
+                        lambda x, rep=rep, model=model: model(color_transform(
+                            resize_area(x, rep.resolution), rep.color))))
+            ing = None
+            if lvl == 0 and index is not None and \
+                    index.cascade_keys.get(casc.concept) == casc.key:
+                ing = index.scores[casc.concept]
+            where = casc.concept if lvl == 0 else f"{casc.concept}@{lvl}"
+            for i, r in enumerate(rows.tolist()):
+                got = [rt[i] for rt in routes]
                 if ing is not None and not np.isnan(ing[r]):
                     got.append(float(ing[r]))
                 if any(abs(x - y) <= SCORE_TOL
                        and ((x >= t) != (y >= t) or (x <= t) != (y <= t))
                        for x in got for y in got for t in ts):
-                    out.setdefault(r, (casc.concept, tuple(got)))
+                    out.setdefault(r, (where, tuple(got)))
     return out
 
 
-def boundary_rows(corpus, cascades, rows, chunk, *, int8=False, index=None):
+def boundary_rows(corpus, cascades, rows, chunk, *, int8=False, index=None,
+                  widths=()):
     """Of ``rows`` (where two paths disagree), each must be a threshold-
     boundary row of one of ``cascades`` (``straddles``): a flip explained
     by the stated f32 score tolerance. Raises on any other row; returns
-    [(row, concept, scores)]."""
-    found = straddles(corpus, cascades, rows, chunk, int8=int8, index=index)
+    [(row, where, scores)]."""
+    found = straddles(corpus, cascades, rows, chunk, int8=int8, index=index,
+                      widths=widths)
     for r in rows:
         if int(r) not in found:
             raise AssertionError(
                 f"row {int(r)}: the two paths differ and no cascade of "
-                f"{[c.concept for c in cascades]} has level-0 scores "
-                f"within {SCORE_TOL} across a threshold")
+                f"{[c.concept for c in cascades]} has scores of two "
+                f"routes within {SCORE_TOL} across a threshold")
     return [(r, *found[r]) for r in sorted(found)]
 
 
 def query_path(dev, cfg, card, kern, seed):
-    """-> (launch counts on the path, what the ingest and algebra phase
-    reuses: the trained systems, the joint plan, the corpus on the
-    device, the predicate specs and the query)."""
+    """-> (launch counts on the path, what the later phases reuse: the
+    trained systems, the joint plan, the corpus on the device, the
+    predicate specs, the query, the f32 scan's rows and seconds and
+    naive_scan's f32 rows)."""
     import numpy as np
 
     from repro_torch.data.synthetic import DEFAULT_PREDICATES
@@ -977,6 +1026,7 @@ def query_path(dev, cfg, card, kern, seed):
         paper_figures(name, system, cost_label)
     check_oracles(plan, systems)
     casc0 = plan.cascades[0]
+    naive_rows = {}
     for int8, (res, secs, _) in runs.items():
         st = res.stats
         kind = "int8" if int8 else "f32"
@@ -989,6 +1039,7 @@ def query_path(dev, cfg, card, kern, seed):
         ref = naive_scan(corpus, plan.cascades, chunk=cfg["chunk"],
                          int8=int8, device=dev)
         t_naive = time.perf_counter() - t0
+        naive_rows[int8] = ref
         diff = np.setxor1d(res.indices, ref)
         exempt = boundary_rows(corpus, [casc0], diff, cfg["chunk"],
                                int8=int8)
@@ -1036,7 +1087,9 @@ def query_path(dev, cfg, card, kern, seed):
         f"bound {bound:.4f} ms ({by})")
     matmul_main_path(dev, cfg, card, kern, systems[casc0.concept])
     return launches, dict(systems=systems, plan=plan, corpus=corpus,
-                          specs=specs, query=query)
+                          specs=specs, query=query,
+                          serial=(runs[False][0].indices, runs[False][1]),
+                          naive=naive_rows[False])
 
 
 def device_profile(run, dev, wall_s, label, top=12):
@@ -1157,7 +1210,9 @@ def ingest_algebra_path(dev, cfg, kern, seed, query):
     ``fused_pyramid_stage0`` must launch once per scored ingest chunk.
     Row sets are held against cold scans and the naive oracles, apart
     from counted threshold-boundary rows. Returns the phase's
-    ``fused_pyramid_stage0`` launches."""
+    ``fused_pyramid_stage0`` launches and what the sharded phase runs
+    again: the stream, its index and exact plan with the indexed, cold
+    and naive rows, and the first tree with its rows and oracle."""
     import numpy as np
     import torch
 
@@ -1290,6 +1345,7 @@ def ingest_algebra_path(dev, cfg, kern, seed, query):
     nq = int(corpus.shape[0])
     meta = {"cam": np.arange(nq) % 2, "t": 3 * np.arange(nq, dtype=np.int64)}
     fn_cache: dict = {}
+    trees = []
     for tree, eq in ((Or(And(a, Not(b)), c), {}),
                      (And(a, Or(b, Not(c))), {"cam": 0}),
                      (Not(Or(a, b)), {})):
@@ -1316,6 +1372,7 @@ def ingest_algebra_path(dev, cfg, kern, seed, query):
                             np.setxor1d(res.indices, oracle), tp.cascades,
                             corpus, None))
         log(f"  naive_tree_rows: {len(oracle)} rows in {t_naive:.2f} s")
+        trees.append((tree, eq, out[True].indices, oracle))
 
     # ---- (d) a temporal join over two cameras
     t0 = time.perf_counter()
@@ -1375,7 +1432,9 @@ def ingest_algebra_path(dev, cfg, kern, seed, query):
     ingest_profile(dev, plan, frames, ids, pipe, batch, t_ingest)
     kern["stage0"]["ingest_launches"] = ingest_launches
     log(f"  the phase: {time.perf_counter() - t_phase:.1f} s")
-    return launches
+    return launches, dict(frames=frames, index=index, plan=px, indexed=got,
+                          cold=cold_rows, naive=naive, tree=trees[0],
+                          meta=meta)
 
 
 def ingest_profile(dev, plan, frames, ids, pipe, batch, t_ingest):
@@ -1402,6 +1461,218 @@ def ingest_profile(dev, plan, frames, ids, pipe, batch, t_ingest):
         for lo in range(0, len(ids), batch):
             again.ingest(frames[lo:lo + batch], ids[lo:lo + batch])
     device_profile(run, dev, t_ingest, "ingest profile", top=6)
+
+
+# ---------------------------------------------------------- phase 3c --
+SHARD_RUNS = ((1, "range", True), (1, "hash", True), (2, "range", True),
+              (2, "hash", True), (8, "range", True), (8, "hash", True),
+              (8, "range", False))   # (shards, strategy, lockstep)
+
+
+def sharded_path(dev, cfg, kern, query, before):
+    """Row-sharded scans on the query path's trained systems, plan and
+    corpus, nothing trained again: (a) the stage-0 kernel's scores of the
+    same rows at every slab width the lockstep issues (``torch.equal``,
+    f32 and int8) and the ``cnn_forward`` levels' at the same widths
+    (printed); (b) ``ShardedScanEngine`` at SHARD_RUNS, each row set held
+    against the serial engine's and ``naive_scan``'s, the 8-shard engine
+    run again on its merged store (no superstep, no launch); (c) a tree
+    and the stream's exact indexed scan on an 8-shard engine against the
+    phase before. Launch counts are reset just before (b) and (c) and
+    read just after, before any launch that explains a differing row.
+    Returns the phase's ``fused_pyramid_stage0`` launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.transforms import color_transform, resize_area
+    from repro_torch.engine.algebra import execute_tree
+    from repro_torch.engine.ingest import indexed_execute
+    from repro_torch.engine.planner import QuerySpec, plan_query
+    from repro_torch.engine.scan import ScanEngine
+    from repro_torch.engine.sharded import ShardedScanEngine, slab_width
+    from repro_torch.kernels import image_transform, ops
+    from repro_torch.kernels.image_transform import fused_pyramid_stage0
+    log("== sharded scan")
+    t_phase = time.perf_counter()
+    systems, plan, corpus = query["systems"], query["plan"], query["corpus"]
+    chunk, base = cfg["chunk"], cfg["base"]
+    widths = []
+    w = slab_width(1, chunk)
+    while w <= chunk:
+        widths.append(w)
+        w *= 2
+    n_rows = min(16, widths[0])
+
+    # ---- (a) the same rows at every slab width
+    casc0 = plan.cascades[0]
+    s0 = casc0.stage0
+    for label, qp in (("f32", None), ("int8", s0.qparams)):
+        full = fused_pyramid_stage0(corpus[:chunk], [], s0.params, s0.rep,
+                                    qparams=qp)[1][:n_rows]
+        same = all(torch.equal(fused_pyramid_stage0(
+            corpus[:w], [], s0.params, s0.rep, qparams=qp)[1][:n_rows], full)
+            for w in widths)
+        log(f"  fused_pyramid_stage0 {label}, {s0.rep.name}: the first "
+            f"{n_rows} rows' scores at launch widths {widths} equal to the "
+            f"{chunk}-wide launch's: {same}")
+        # the CPU runs the plain version, whose sums may follow the width
+        if not same and dev.type == "cuda":
+            raise AssertionError("stage-0 scores depend on the launch width")
+    for pos, casc in enumerate(plan.cascades):
+        for lvl in range(1 if pos == 0 else 0, len(casc.model_fns)):
+            rep, model = casc.reps[lvl], casc.model_fns[lvl]
+
+            def score(x, rep=rep, model=model):
+                return model(color_transform(resize_area(x, rep.resolution),
+                                             rep.color))[:n_rows]
+            full = score(corpus[:chunk])
+            diff = [(score(corpus[:w]) - full).abs() for w in widths]
+            n_diff = [int((d > 0).sum()) for d in diff]
+            worst = max(float(d.max()) for d in diff)
+            log(f"  cnn_forward {casc.concept} level {lvl} ({rep.name}): "
+                f"rows of {n_rows} differing from the {chunk}-wide batch at "
+                f"widths {widths}: {n_diff}; max |diff| {worst:.3g}")
+
+    # ---- (b) sharded scans against the serial scan and naive_scan
+    serial_rows, serial_s = query["serial"]
+    naive = query["naive"]
+    ops.reset_launch_counts()
+    runs = {}
+    for shards, strategy, lock in SHARD_RUNS:
+        eng = ShardedScanEngine(corpus, shards=shards, chunk=chunk,
+                                strategy=strategy, device=dev)
+        eng.execute(plan.cascades, parallel=lock)     # cold: set-up paid
+        eng.reset_cache()
+        _sync(dev)
+        mem0 = _peak_reset(dev)
+        t0 = time.perf_counter()
+        res = eng.execute(plan.cascades, parallel=lock)
+        _sync(dev)
+        secs = time.perf_counter() - t0
+        runs[(shards, strategy, lock)] = (eng, res, secs,
+                                          _peak_extra(dev, mem0))
+    merged = runs[(8, "range", True)][0]
+    n0 = ops.LAUNCHES["fused_pyramid_stage0"]
+    again = merged.execute(plan.cascades)
+    rerun_launches = ops.LAUNCHES["fused_pyramid_stage0"] - n0
+
+    # ---- (c) a tree and the stream's exact indexed scan, 8 shards
+    tree, eq, tree_rows, oracle = before["tree"]
+    tp = plan_query(systems, QuerySpec(metadata_eq=eq, where=tree),
+                    metadata=before["meta"])
+    t0 = time.perf_counter()
+    tres = execute_tree(ShardedScanEngine(corpus, before["meta"], shards=8,
+                                          chunk=chunk, device=dev), tp)
+    _sync(dev)
+    t_tree = time.perf_counter() - t0
+    stream = torch.from_numpy(before["frames"]).to(dev)
+    seng = ShardedScanEngine(stream, shards=8, chunk=chunk, device=dev)
+    _sync(dev)
+    t0 = time.perf_counter()
+    ires = indexed_execute(seng, before["plan"])
+    _sync(dev)
+    t_idx = time.perf_counter() - t0
+    launches = ops.LAUNCHES["fused_pyramid_stage0"]
+    if dev.type == "cuda" and launches == 0:
+        raise AssertionError("fused_pyramid_stage0 was not launched on the "
+                             "sharded path")
+
+    # ---- prints, then every differing row explained
+    serial = ScanEngine(corpus, chunk=chunk, device=dev)
+    _sync(dev)
+    mem0 = _peak_reset(dev)
+    serial.execute(plan.cascades)
+    _sync(dev)
+    mem_serial = _peak_extra(dev, mem0)
+    log(f"  serial ScanEngine (query path): {serial_s * 1e3:.3f} ms, "
+        f"{len(serial_rows)} rows; peak memory above the corpus "
+        f"{_mb(mem_serial)}")
+    pending = []
+    for (shards, strategy, lock), (eng, res, secs, mem) in runs.items():
+        st = res.stats
+        slabs0 = {b: n for (s, b), n in sorted(st.slabs.items()) if s == 0}
+        log(f"  {shards} shards {strategy} {st.backend}: {secs * 1e3:.3f} ms "
+            f"({secs / serial_s:.2f}x serial), {len(res.indices)} rows, "
+            f"supersteps {st.supersteps}, lanes {st.lanes}, devices "
+            f"{st.n_devices}, rows per shard {st.plan.sizes}, balance "
+            f"{st.plan.balance:.3f}, rows evaluated "
+            f"{[g.rows_evaluated for g in st.stages]}, stage-0 slabs by "
+            f"width {slabs0}, later slabs {sum(st.slabs.values()) - sum(slabs0.values())}; "
+            f"peak memory above the corpus {_mb(mem)}")
+        label = f"{shards} shards {strategy} {st.backend}"
+        pending.append((f"{label} vs the serial scan",
+                        np.setxor1d(res.indices, serial_rows),
+                        plan.cascades, corpus))
+        pending.append((f"{label} vs naive_scan",
+                        np.setxor1d(res.indices, naive), plan.cascades,
+                        corpus))
+    log(f"  8 shards range lockstep again on its merged store: "
+        f"{len(again.indices)} rows, supersteps {again.stats.supersteps}, "
+        f"rows evaluated {again.stats.rows_evaluated}, fused_pyramid_stage0 "
+        f"launches {rerun_launches}")
+    if again.stats.supersteps or rerun_launches or \
+            not np.array_equal(again.indices,
+                               runs[(8, "range", True)][1].indices):
+        raise AssertionError("the re-run on the merged store did work or "
+                             "changed the rows")
+    log(f"  tree {expr(tree)} on 8 shards: {len(tres.indices)} rows, "
+        f"{tres.engine_calls} engine calls, rows evaluated "
+        f"{tres.rows_evaluated}, {t_tree:.3f} s")
+    pending.append((f"tree {expr(tree)} 8 shards vs the phase before",
+                    np.setxor1d(tres.indices, tree_rows), tp.cascades,
+                    corpus))
+    pending.append((f"tree {expr(tree)} 8 shards vs naive_tree_rows",
+                    np.setxor1d(tres.indices, oracle), tp.cascades, corpus))
+    ist = ires.stats
+    log(f"  exact indexed scan of the stream on 8 shards: "
+        f"{len(ires.indices)} rows, rows evaluated {ist.rows_evaluated}, "
+        f"supersteps {ist.supersteps}, {t_idx:.3f} s")
+    for label, rows in (("indexed", before["indexed"]),
+                        ("cold", before["cold"]),
+                        ("naive_scan", before["naive"])):
+        pending.append((f"stream 8 shards vs the {label} scan before",
+                        np.setxor1d(ires.indices, rows),
+                        before["plan"].cascades, stream))
+    log(f"  fused_pyramid_stage0 launches in the phase: {launches}; launch "
+        f"set-ups cached {len(image_transform._SETUP_CACHE)} of "
+        f"{image_transform._SETUP_CACHE_SIZE}")
+    for label, diff, cascades, data in pending:
+        exempt = boundary_rows(data, cascades, diff, chunk, widths=widths,
+                               index=before["index"] if data is stream
+                               else None)
+        log(f"  {label}: identical rows: {not len(diff)}"
+            + (f" except {len(exempt)} threshold-boundary rows {exempt}"
+               if exempt else ""))
+    if dev.type == "cuda":
+        for key in ((8, "range", True), (1, "range", True)):
+            eng, _, secs, _ = runs[key]
+            eng.reset_cache()
+            device_profile(lambda: eng.execute(plan.cascades), dev, secs,
+                           f"profile, {key[0]} shards lockstep", top=6)
+        serial.reset_cache()
+        device_profile(lambda: serial.execute(plan.cascades), dev, serial_s,
+                       "profile, serial scan", top=6)
+    kern["stage0"]["sharded_launches"] = launches
+    log(f"  the phase: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def _peak_reset(dev):
+    import torch
+    if dev.type != "cuda":
+        return None
+    torch.cuda.reset_peak_memory_stats(dev)
+    return torch.cuda.memory_allocated(dev)
+
+
+def _peak_extra(dev, mem0):
+    import torch
+    return None if mem0 is None else \
+        torch.cuda.max_memory_allocated(dev) - mem0
+
+
+def _mb(nbytes) -> str:
+    return "not measured" if nbytes is None else f"{nbytes / 1e6:.1f} MB"
 
 
 def expr(tree) -> str:
@@ -2001,7 +2272,8 @@ def kernels_line(kern, launches):
                     **{key: k[key] for key in ("device_ms",
                                                "library_device_ms",
                                                "tb_per_s", "other_shapes",
-                                               "ingest_launches")
+                                               "ingest_launches",
+                                               "sharded_launches")
                        if key in k}})
     print(json.dumps({"kernels": out}), flush=True)
 

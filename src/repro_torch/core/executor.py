@@ -20,6 +20,7 @@ from dataclasses import dataclass
 from functools import partial
 from typing import Any, Callable, Sequence
 
+import numpy as np
 import torch
 
 from repro_torch.core.transforms import (Representation, color_transform,
@@ -93,8 +94,12 @@ def run_cascade_batch(images, model_fns: Sequence[Callable],
                          thresholds, capacities)
 
 
-def _f32(x: float, like: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(x, dtype=torch.float32, device=like.device)
+def _f32(x: float) -> float:
+    """``x`` rounded to f32, kept a Python number: comparing f32 scores
+    with it is the f32 comparison, and it needs no host-to-device copy
+    (one from pageable memory waits for the stream, which would stall a
+    shard lane of engine/sharded.py)."""
+    return float(np.float32(x))
 
 
 def _cascade_loop(b: int, get_input, model_fns, thresholds, capacities,
@@ -110,7 +115,7 @@ def _cascade_loop(b: int, get_input, model_fns, thresholds, capacities,
     if lo is None:
         return (o >= 0.5).to(torch.int32), {"overflow": overflow,
                                             "levels_used": levels_used}
-    lo, hi = _f32(lo, o), _f32(hi, o)
+    lo, hi = _f32(lo), _f32(hi)
     decided = (o <= lo) | (o >= hi)
     labels = (o >= hi).to(torch.int32)
     forced = (o >= 0.5).to(torch.int32)      # fallback if never decided
@@ -132,7 +137,7 @@ def _cascade_loop(b: int, get_input, model_fns, thresholds, capacities,
             sub_decided = valid
             sub_labels = (o >= 0.5).to(torch.int32)
         else:
-            lo, hi = _f32(lo, o), _f32(hi, o)
+            lo, hi = _f32(lo), _f32(hi)
             sub_decided = valid & ((o <= lo) | (o >= hi))
             sub_labels = (o >= hi).to(torch.int32)
         labels[take] = torch.where(sub_decided, sub_labels, labels[take])

@@ -435,19 +435,24 @@ def initialize_system(train_split, config_split, eval_split, archs, reps,
 
 
 def build_scan_engine(images, metadata=None, *, shards: int | None = None,
-                      chunk: int = 64, repcache=None, fused: bool = True,
-                      lazy: bool = True, int8: bool = False,
-                      use_kernel: bool | None = None, device=None):
-    """System-level scan-executor factory: the single-device ScanEngine
-    (``fused``/``lazy``/``int8``/``use_kernel`` are the hot-path knobs).
-    The sharded engine and the cross-query representation cache are not
-    part of this package yet."""
+                      chunk: int = 64, strategy: str = "range",
+                      repcache=None, fused: bool = True, lazy: bool = True,
+                      int8: bool = False, use_kernel: bool | None = None,
+                      device=None):
+    """System-level scan-executor factory: ``shards=None``/0 builds the
+    single-device ScanEngine; any explicit shard count (including 1, the
+    scaling baseline) builds the ShardedScanEngine (``strategy`` 'range'
+    or 'hash'; DESIGN.md §9). ``repcache`` (serial engine only; the
+    cross-query representation cache is not part of this package yet).
+    ``fused``/``lazy``/``int8``/``use_kernel`` are the hot-path knobs."""
     from repro_torch.engine.scan import ScanEngine
+    from repro_torch.engine.sharded import ShardedScanEngine
 
     if shards:
-        raise NotImplementedError(
-            "build_scan_engine(shards=...): the sharded scan engine is "
-            "ported in a later slice (engine/sharded)")
+        return ShardedScanEngine(images, metadata, shards=shards,
+                                 chunk=chunk, strategy=strategy,
+                                 fused=fused, lazy=lazy, int8=int8,
+                                 use_kernel=use_kernel, device=device)
     return ScanEngine(images, metadata, chunk=chunk, repcache=repcache,
                       fused=fused, lazy=lazy, int8=int8,
                       use_kernel=use_kernel, device=device)
@@ -468,9 +473,9 @@ def build_ingest_pipeline(cascades, n_rows: int, *, chunk: int = 64,
     across calls) or sweep a resident corpus with ``.run(images)``; the
     resulting ``.index`` plugs into ``plan_query(..., index=...)``. The
     cascades must be the SAME physical cascades queries will select —
-    labels are keyed by CompiledCascade.key — and ``chunk`` the scan
-    engine's, so ingest and query-time stage-0 scores come from launches
-    of one width. ``skip_threshold=None`` auto-calibrates the
+    labels are keyed by CompiledCascade.key. A stage-0 score does not
+    depend on ``chunk`` (the kernel's launch width), only on its route
+    (engine/ingest.py). ``skip_threshold=None`` auto-calibrates the
     temporal-difference threshold per camera from the first
     ``calib_frames`` frames (IngestPipeline.calibrate_threshold)."""
     from repro_torch.engine.ingest import IngestPipeline

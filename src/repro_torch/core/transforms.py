@@ -12,6 +12,7 @@ ONCE (core/costs.py).
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Iterable
 
@@ -57,12 +58,19 @@ def resize_area(img: torch.Tensor, out_hw: int) -> torch.Tensor:
     return img.reshape(b, out_hw, f, out_hw, f, c).mean(dim=(2, 4))
 
 
+@functools.lru_cache(maxsize=None)
+def _gray_on(device: torch.device) -> torch.Tensor:
+    """The gray projection's weights on ``device``, copied there once (a
+    copy from pageable memory waits for the stream)."""
+    return torch.as_tensor(_GRAY, device=device)
+
+
 def color_transform(img: torch.Tensor, color: str) -> torch.Tensor:
     """(B,H,W,3) -> (B,H,W,C') per the color representation."""
     if color == "rgb":
         return img
     if color == "gray":
-        gray = torch.as_tensor(_GRAY, device=img.device)
+        gray = _gray_on(img.device)
         return (img * gray).sum(-1, keepdim=True)
     idx = {"r": 0, "g": 1, "b": 2}[color]
     return img[..., idx:idx + 1]

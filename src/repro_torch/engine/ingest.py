@@ -25,14 +25,14 @@ pre-filter:
   recall-knob threshold, optionally capped to the ``top_k`` best
   margins) that prune in 'approx' mode only.
 
-Which scores are "the same": a row's stage-0 score depends on the width
-of the launch it ran in (the kernel's dense pass splits K by the batch
-width) and on the route (the kernel, or ``models/cnn`` through
-``F.conv2d``). Build the pipeline with the scan engine's chunk so both
-pad to one width; where a concept's ingest route differs from its
-query-time route, scores differ within f32 tolerance and a row whose
-two scores straddle a threshold can take another label. On the CPU
-both routes are the plain versions and the labels are identical.
+Which scores are "the same": a row's stage-0 score from the kernel does
+not depend on the width of the launch it ran in (the dense pass's
+split-K follows from the model's shapes alone), but it does depend on
+the route (the kernel, or ``models/cnn`` through ``F.conv2d``). Where a
+concept's ingest route differs from its query-time route, scores differ
+within f32 tolerance and a row whose two scores straddle a threshold can
+take another label. On the CPU both routes are the plain versions and
+the labels are identical.
 
 ``plan_query(..., index=...)`` attaches the index to the
 ``PhysicalPlan``; ``indexed_execute`` seeds an engine's store from it,

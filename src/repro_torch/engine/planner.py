@@ -210,8 +210,9 @@ class PhysicalPlan:
             [p.cascade.cost_s if p.decomposed is None
              else p.decomposed.total_s for p in self.predicates], sels)
 
-    def explain(self, n_rows: int | None = None, *,
-                base_hw: int | None = None, actual=None) -> str:
+    def explain(self, n_rows: int | None = None,
+                shard_plan=None, *, base_hw: int | None = None,
+                actual=None) -> str:
         """EXPLAIN-style physical plan: predicate order, chosen cascade,
         estimated cost + selectivity per predicate, totals. Joint plans
         additionally print, per predicate, the pyramid levels it touches
@@ -226,7 +227,9 @@ class PhysicalPlan:
         ShardedScanStats from executing this plan, or a bare
         ``level_rows`` dict) renders measured counts side by side —
         estimated-vs-actual agreement is the engine-costing contract
-        (DESIGN.md §13)."""
+        (DESIGN.md §13). With a ``ShardPlan`` (sharding/policy.py) the
+        plan also reports the shard layout and the estimated per-shard
+        scan cost."""
         lines = [f"PHYSICAL PLAN  scenario={self.scenario}  "
                  f"binary predicates={len(self.predicates)}"
                  + (f"  [joint, {self.costing} costing]"
@@ -314,6 +317,17 @@ class PhysicalPlan:
                              if lr is not None else "")
                         parts.append(f"{r}: {e}{a}")
                     lines.append("  level rows: " + "; ".join(parts))
+        if shard_plan is not None:
+            lines.append(f"  sharding: {shard_plan.describe()}")
+            # per-shard cost follows the plan's own (possibly skew-aware)
+            # weights: shard i's share of the total estimated scan cost
+            total_w = sum(shard_plan.weights) or 1.0
+            total_cost = eng * shard_plan.n_rows
+            for i, (part, w) in enumerate(zip(shard_plan.shards,
+                                              shard_plan.weights)):
+                cost = total_cost * w / total_w
+                lines.append(f"    shard {i}: {len(part)} rows  "
+                             f"weight {w:.3g}  est {cost * 1e3:.1f}ms")
         return "\n".join(lines)
 
 

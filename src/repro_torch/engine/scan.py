@@ -101,6 +101,28 @@ class VirtualColumnStore:
     def keys(self) -> list[tuple]:
         return list(self._cols)
 
+    def seed_from(self, other: "VirtualColumnStore", rows) -> None:
+        """Copy ``other``'s labels for ``rows`` only — the shard-store
+        seed: a shard executor never looks beyond its partition, so
+        seeding its row slice is enough (and O(partition), not
+        O(corpus), per shard)."""
+        assert other.n_rows == self.n_rows
+        for key in other.keys():
+            self.column(key)[rows] = other.column(key)[rows]
+
+    def merge_from(self, other: "VirtualColumnStore") -> None:
+        """Union of computed entries: ``other``'s known labels fill this
+        store's unknown (-1) slots. A computed entry is NEVER overwritten
+        — neither by -1 nor by a conflicting label — so merging shard
+        stores in any order yields the same corpus-wide store as long as
+        shards evaluated disjoint rows (the ShardPlan invariant)."""
+        assert other.n_rows == self.n_rows
+        for key in other.keys():
+            src = other.column(key)
+            dst = self.column(key)
+            fill = (dst < 0) & (src >= 0)
+            dst[fill] = src[fill]
+
     def save(self, path, token: tuple = ()) -> None:
         """Persist the store as an npz (labels verbatim, keys via repr);
         ``token`` fingerprints the owning corpus."""

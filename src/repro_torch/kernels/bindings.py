@@ -24,6 +24,8 @@ PS0_RING = 4        # RING in csrc/pyramid_stage0.cu: base tiles staged
 PS0_DENSE_TILE = 64     # DT: the dense pass's (images x units) block tile
 PS0_DENSE_BK = 32       # DBK: a dense split's k_chunk is a multiple
 PS0_DENSE_BLOCKS_PER_SM = 1   # the dense pass's split-K aims at this
+PS0_DENSE_PLAN_ROWS = 256   # ... at this many images, whatever the launch
+#                             width (the scan's chunk: its plan and time)
 PS0_CNN_STAGE = 12 * 1024  # floats of shared memory that stage a conv
 #                            layer's input and weights when every layer fits
 IT_MAX_OUTPUTS = 32   # csrc/image_transform.cu: the query path needs 20
@@ -133,15 +135,22 @@ def _ps0_fn():
     return fn
 
 
-@functools.lru_cache(maxsize=256)
 def ps0_dense_plan(b: int, k: int, d: int) -> tuple[int, int]:
     """-> (split, k_chunk) for csrc/pyramid_stage0.cu's dense pass over a
     (b, k) @ (k, d) product: the fewest K chunks (each a multiple of
     PS0_DENSE_BK and at least two of them; the last may be short) that
-    give its (b x d) tiles of PS0_DENSE_TILE^2 PS0_DENSE_BLOCKS_PER_SM x
-    SMS blocks, or as many as K allows. The head pass
-    adds the chunks' partial sums in chunk order."""
-    tiles = _cdiv(b, PS0_DENSE_TILE) * _cdiv(d, PS0_DENSE_TILE)
+    give the (PS0_DENSE_PLAN_ROWS x d) tiles of PS0_DENSE_TILE^2
+    PS0_DENSE_BLOCKS_PER_SM x SMS blocks, or as many as K allows. The head
+    pass adds the chunks' partial sums in chunk order, so a row's score
+    follows from (k, d) alone: the same at every launch width ``b``
+    (narrower launches run fewer blocks)."""
+    return _ps0_dense_plan(k, d)
+
+
+@functools.lru_cache(maxsize=256)
+def _ps0_dense_plan(k: int, d: int) -> tuple[int, int]:
+    tiles = (_cdiv(PS0_DENSE_PLAN_ROWS, PS0_DENSE_TILE)
+             * _cdiv(d, PS0_DENSE_TILE))
     max_split = max(1, k // (2 * PS0_DENSE_BK))
     split = min(max_split, _cdiv(PS0_DENSE_BLOCKS_PER_SM * SMS, tiles))
     k_chunk = _cdiv(_cdiv(k, split), PS0_DENSE_BK) * PS0_DENSE_BK

@@ -192,13 +192,15 @@ def test_ps0_dense_split_chunks_partition_k_exactly(b, k, d):
     order z = 0, 1, ... as the head adds them, give the exact counts of
     0/1 operands: every k lies in exactly one chunk, each chunk a multiple
     of the kernel's k step (the last may be short), and the plan reaches
-    PS0_DENSE_BLOCKS_PER_SM blocks an SM where K allows."""
+    PS0_DENSE_BLOCKS_PER_SM blocks an SM at PS0_DENSE_PLAN_ROWS images
+    where K allows."""
     split, k_chunk = bindings.ps0_dense_plan(b, k, d)
     assert k_chunk % bindings.PS0_DENSE_BK == 0 and split >= 1
     chunks = [range(k)[z * k_chunk:(z + 1) * k_chunk] for z in range(split)]
     assert all(len(c) for c in chunks)
     assert sorted(i for c in chunks for i in c) == list(range(k))
-    tiles = -(-b // bindings.PS0_DENSE_TILE) * -(-d // bindings.PS0_DENSE_TILE)
+    tiles = (-(-bindings.PS0_DENSE_PLAN_ROWS // bindings.PS0_DENSE_TILE)
+             * -(-d // bindings.PS0_DENSE_TILE))
     assert (tiles * split >= bindings.PS0_DENSE_BLOCKS_PER_SM * bindings.SMS
             or split >= k // (2 * bindings.PS0_DENSE_BK))
     rng = np.random.default_rng(b + k + d)
@@ -208,6 +210,17 @@ def test_ps0_dense_split_chunks_partition_k_exactly(b, k, d):
     for c in chunks:
         got += a[:, c.start:c.stop] @ w[c.start:c.stop]
     assert np.array_equal(got, a @ w)
+
+
+@pytest.mark.parametrize("b,k,d", DENSE_SHAPES)
+def test_ps0_dense_plan_ignores_launch_width(b, k, d):
+    """A row's dense sums (its K chunks, added in chunk order) do not
+    depend on how many images share its launch: the plan is the same at
+    every width, so a sharded scan's narrow slabs score a row as the
+    serial scan's full chunks do."""
+    plans = {bindings.ps0_dense_plan(w, k, d)
+             for w in (1, 16, 64, 200, 256, 1024, b)}
+    assert len(plans) == 1
 
 
 @pytest.mark.parametrize("levels,mask", [

@@ -38,6 +38,7 @@ from repro_torch.engine import ingest as ting  # noqa: E402
 from repro_torch.engine import planner as tplan  # noqa: E402
 from repro_torch.engine.scan import (ScanEngine, VirtualColumnStore,  # noqa
                                      naive_scan)
+from repro_torch.engine.sharded import ShardedScanEngine  # noqa: E402
 from repro_torch.models.cnn import params_from_jax  # noqa: E402
 
 SPECS = DEFAULT_PREDICATES[:2]
@@ -161,8 +162,8 @@ def test_plan_picks_same_cascades_in_same_order(world, joint, min_acc):
 
 
 def test_later_slices_raise_not_implemented(world):
-    """Expression trees and ingest indexes are ported and plan; the
-    sharded engine and the representation cache still refuse."""
+    """Expression trees, ingest indexes and the sharded engine are ported;
+    the representation cache still refuses."""
     _, tq = _query(world)
     tree = talg.And(talg.Pred(SPECS[0].name), talg.Not(talg.Pred(
         SPECS[1].name)))
@@ -172,8 +173,8 @@ def test_later_slices_raise_not_implemented(world):
     index = ting.CandidateIndex(len(world["qx"]), [])
     plan = tplan.plan_query(world["tsys"], tq, index=index)
     assert isinstance(plan, tplan.PhysicalPlan) and plan.index is index
-    with pytest.raises(NotImplementedError):
-        build_scan_engine(world["qx"], shards=2, device="cpu")
+    assert isinstance(build_scan_engine(world["qx"], shards=2, device="cpu"),
+                      ShardedScanEngine)
     with pytest.raises(NotImplementedError):
         ScanEngine(world["qx"], repcache=object(), device="cpu")
 
@@ -215,6 +216,56 @@ def test_scan_engine_matches_reference(world, fused, lazy, int8,
     again = teng.execute(tp.cascades, tp.metadata_eq)
     assert np.array_equal(again.indices, tr.indices)
     assert again.stats.rows_evaluated == 0
+
+
+def _pinned(js):
+    """The reference system priced by each model's FLOPs at 1 GFLOP/s
+    instead of its measured wall-clock costs (which flip the plan between
+    machines), and its port twin."""
+    from repro.core.costs import CostProfile as JProfile
+    from repro.models.cnn import cnn_flops
+    infer = {e.name: cnn_flops(e.arch) / 1e9 for e in js.bank.entries}
+    jp = dataclasses.replace(
+        js, infer_s=infer, space_cache={}, dec_cache={},
+        profile=JProfile.modeled(infer, list(set(js.bank.reps)),
+                                 base_hw=js.profile.base_hw))
+    return jp, _port_system(jp)
+
+
+@pytest.mark.parametrize("shards", [1, 8])
+def test_joint_plan_rows_identical_sharded(world, shards):
+    """tests/test_joint_planner.py::test_joint_plan_rows_identical_sharded
+    with pinned costs and no accuracy floor (on this world the reference
+    test's floor of 0.6 plans single 32 px models): the joint plan (the
+    reference's cascades, with a level below the base) on a sharded
+    engine returns the serial engines' rows, and every shard that scanned
+    rows reports the plan's level set plus the base."""
+    pinned = {n: _pinned(js) for n, js in world["jsys"].items()}
+    qx, meta = world["qx"], world["meta"]
+    clauses = [(s.name, None) for s in SPECS]
+    jp = jplan.plan_query(
+        {n: p[0] for n, p in pinned.items()},
+        jplan.QuerySpec(metadata_eq={"cam": 0}, predicates=[
+            jplan.PredicateClause(n, min_accuracy=a) for n, a in clauses]),
+        scenario="CAMERA", metadata=meta, joint=True, costing="engine")
+    tp = tplan.plan_query(
+        {n: p[1] for n, p in pinned.items()},
+        tplan.QuerySpec(metadata_eq={"cam": 0}, predicates=[
+            tplan.PredicateClause(n, min_accuracy=a) for n, a in clauses]),
+        scenario="CAMERA", metadata=meta, joint=True, costing="engine")
+    assert [c.key for c in tp.cascades] == [c.key for c in jp.cascades]
+    assert set(tp.level_set) - {qx.shape[1]}       # a non-base level
+    ref = ScanEngine(qx, meta, chunk=32, device="cpu").execute(
+        tp.cascades, tp.metadata_eq)
+    jref = JEngine(qx, meta, chunk=32).execute(jp.cascades, jp.metadata_eq)
+    assert np.array_equal(ref.indices, jref.indices)
+    eng = ShardedScanEngine(qx, meta, shards=shards, chunk=32, device="cpu")
+    res = eng.execute(tp.cascades, tp.metadata_eq)
+    assert np.array_equal(res.indices, ref.indices)
+    for sh in res.stats.shards:
+        if sh.rows_scanned:
+            assert set(sh.pyramid_levels) == \
+                set(tp.level_set) | {qx.shape[1]}
 
 
 def test_virtual_column_store_round_trip(tmp_path):

@@ -83,6 +83,35 @@
    and peak memory, and profiles the 8- and 1-shard lockstep and the
    serial scan. The kernels line's stage-0 launches add the phase's
    (``sharded_launches``).
+   Serving, on the same systems, plan, corpus, stream and index: the
+   planned scan through ``ScanEngine(repcache=)`` (rows equal to the
+   serial scan's), timed beside a fresh engine without a cache and a
+   second engine on the warm cache; ``build_cascade_service`` (async,
+   batch 32, max wait 5 ms) over a 4096-request stream of the plan's
+   three concepts, half of it re-asking a hot set (the reference's
+   ``bench_serve.make_stream``), at 1 and 8 shards (lanes on CUDA streams
+   of the one card), first on the scan's store and cache, then fresh (the
+   from-base flush is the ``fused_pyramid_stage0`` kernel), and at 8
+   lanes on a fresh store with the scan's warm cache and with none; the
+   sync ``CascadeService`` on the
+   same stream; the wall-clock event host on a paced stream; an unpaced
+   burst on the deepest cascade's concept against ``queue_limit`` 64
+   with ``overload="degrade"`` and its ``compiled_ladder``; the fault
+   drill at 8 lanes (lane 3 failing every dispatch, lane 5 dead, two
+   transient errors, a batch timeout, on a manual clock: every request
+   ends, labels equal the unfaulted run's, lanes [3, 5] failed); and a
+   service over the stream seeded by its ingest index (index-decided
+   rows answered with no batch). Every served label is held against
+   ``naive_scan``'s column of the cascade or rung that answered it,
+   apart from counted threshold-boundary rows at the flush widths
+   (``straddles(widths=)``). It prints requests/s, latency
+   percentiles, store hit rates, each run's own repcache hit rate,
+   flushes by reason, padded
+   slots, lanes, peak memory and a device profile of the 8-lane run.
+   Launch counts are reset just before and read just after: the stage-0
+   launches must equal the scan's chunks plus the services' "base"
+   executions (flushes, re-dispatches, warmup) plus the sync batches
+   (``serving_launches``).
 4. LM serve path: zamba2-1.2b at full width (38 Mamba-2 layers, the shared
    attention+MLP block after every 6th; random bf16 weights from a seeded
    generator) serves 8 prompts of 512 tokens with 32 greedy decode steps
@@ -183,6 +212,9 @@ FULL = dict(base=224, chunk=256, out_res=(112, 56, 28), split=512,
             train=1024, steps=120, floors=(0.85, 0.80), pinned=True,
             profile_steps=10, corpus=8192, gen_batch=512, stream=4096,
             stream_batch=512, join=2048,
+            serve=dict(requests=4096, hot=64, host=512, pace=0.0005,
+                       burst=2048, limit=64, faults=1024, ingest=256,
+                       budget=256 << 20),
             resolutions=(28, 56, 112, 224),
             small_grid=False, mm_shapes=((33, 17, 65), (256, 64, 130),
                                          (128, 512, 1805), (128, 512, 361)),
@@ -193,6 +225,9 @@ FULL = dict(base=224, chunk=256, out_res=(112, 56, 28), split=512,
 REHEARSE = dict(base=32, chunk=32, out_res=(16, 8, 4), split=48, train=48,
                 steps=3, floors=(0.0, 0.0), pinned=False, corpus=96,
                 gen_batch=48, stream=96, stream_batch=40, join=48,
+                serve=dict(requests=180, hot=8, host=24, pace=0.0005,
+                           burst=40, limit=2, faults=90, ingest=8,
+                           budget=8 << 20),
                 resolutions=(4, 8, 16, 32), small_grid=True,
                 mm_shapes=((33, 17, 65),), mm_probe=64, iters=1,
                 lm=dict(arch="zamba2-1.2b", full=False, batch=2, prompt=64,
@@ -227,8 +262,9 @@ def main(argv=None) -> int:
     launches, query = query_path(dev, cfg, card, kern, args.seed)
     ingest, before = ingest_algebra_path(dev, cfg, kern, args.seed, query)
     sharded = sharded_path(dev, cfg, kern, query, before)
+    serving = serving_path(dev, cfg, card, kern, query, before)
     del query, before
-    launches["fused_pyramid_stage0"] += ingest + sharded
+    launches["fused_pyramid_stage0"] += ingest + sharded + serving
     launches.update(lm_path(dev, cfg, card, kern, args.seed))
     launches.update(ops_path(dev, cfg, card, kern, args.seed))
     if "smi" in card:    # again near the end: the card beside the numbers
@@ -1657,6 +1693,416 @@ def sharded_path(dev, cfg, kern, query, before):
     return launches
 
 
+# ---------------------------------------------------------- phase 3d --
+def make_stream(n_requests, n_corpus, concepts, *, hot=64, repeat=0.5,
+                seed=13):
+    """The interactive mixed stream of the reference's
+    benchmarks/bench_serve.py (``make_stream``, copied): every concept is
+    asked about every frame the session walks, and ``repeat`` of the
+    requests after the first ``2 * hot`` re-ask a frame of the hot set.
+    -> [(concept, row)]."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    stream = []
+    for i in range(n_requests):
+        c = concepts[i % len(concepts)]
+        if i >= 2 * hot and rng.uniform() < repeat:
+            row = int(rng.integers(0, hot))
+        else:
+            row = (i // len(concepts)) % n_corpus
+        stream.append((c, row))
+    return stream
+
+
+SERVE_BATCH = 32
+
+
+def serving_path(dev, cfg, card, kern, query, before):
+    """Cascade serving on the query path's trained systems, plan and
+    corpus, and the ingest phase's stream and index (nothing trained
+    again). (a) the planned scan through ``ScanEngine(repcache=)``, rows
+    equal to the serial scan's; (b) ``build_cascade_service`` (async,
+    batch 32, max wait 5 ms) over the mixed stream at 1 and 8 shards,
+    first on the scan's store and cache, then on a fresh store and cache
+    (flushes run: the from-base flush is ``fused_pyramid_stage0``), and
+    the sync ``CascadeService`` on the same stream; (c) the event host,
+    paced; (d) overload: an unpaced burst on the deepest cascade's
+    concept with ``queue_limit`` 64 below a batch of 128 (so queues fill),
+    ``overload="degrade"`` and its ``compiled_ladder``; (e) the fault
+    drill at 8 lanes on a manual clock; (f) a service over the ingest
+    stream seeded by its index. Every label is held against
+    ``naive_scan``'s column of the cascade (or rung) that answered it,
+    apart from counted threshold-boundary rows at the flush widths.
+    Launch counts are reset just before (a) and read just after (f): the
+    stage-0 launches must equal the scan's chunks, the services' "base"
+    executions (flushes, re-dispatches and warmup) and the sync batches.
+    Returns the phase's ``fused_pyramid_stage0`` launches."""
+    import numpy as np
+
+    from repro_torch.core.pipeline import build_cascade_service
+    from repro_torch.engine.scan import ScanEngine, VirtualColumnStore, \
+        naive_scan
+    from repro_torch.engine.sharded import slab_width
+    from repro_torch.kernels import ops
+    from repro_torch.serve import (FaultInjector, FaultPlan, ManualClock,
+                                   RepresentationCache, Request, Shed,
+                                   TimedOut, is_label)
+    log("== serving")
+    t_phase = time.perf_counter()
+    on = card.get("smi", "cpu")
+    systems, plan, corpus = query["systems"], query["plan"], query["corpus"]
+    chunk, sc = cfg["chunk"], cfg["serve"]
+    cascades = {c.concept: c for c in plan.cascades}
+    stream = make_stream(sc["requests"], cfg["corpus"], list(cascades),
+                         hot=sc["hot"])
+    widths = sorted({slab_width(n, SERVE_BATCH)
+                     for n in range(1, SERVE_BATCH + 1)})
+    asked = max(r for _, r in stream) + 1
+    deep = max(plan.cascades, key=lambda c: len(c.model_fns)).concept
+    burst = np.arange(asked, min(cfg["corpus"], asked + sc["burst"]))
+    pred = next(p for p in plan.predicates if p.cascade.concept == deep)
+    ladder = systems[deep].compiled_ladder(
+        systems[deep].cascade_space("CAMERA"), pred.selection.index,
+        concept=deep, max_rungs=2)
+    t0 = time.perf_counter()
+    cols = {}            # cascade key -> naive_scan's labels (-1: not run)
+
+    def column(casc, lo, hi):
+        col = cols.setdefault(casc.key, np.full(cfg["corpus"], -1, np.int8))
+        col[lo:hi] = 0
+        col[lo + naive_scan(corpus[lo:hi], [casc], chunk=chunk,
+                            device=dev)] = 1
+    for casc in plan.cascades:
+        column(casc, 0, asked)
+    for casc in [cascades[deep], *ladder]:
+        column(casc, int(burst[0]), int(burst[-1]) + 1)
+    log(f"  stream: {len(stream)} requests over {len(cascades)} concepts, "
+        f"rows 0..{asked - 1}, {sum(r < sc['hot'] for _, r in stream)} "
+        f"on the {sc['hot']}-row hot set; naive_scan columns "
+        f"{time.perf_counter() - t0:.2f} s; {deep}'s ladder "
+        f"{[c.cascade_id for c in ladder]}; flush widths {widths} [{on}]")
+    checks = []          # (label, [(casc, row, label)], widths)
+    ops.reset_launch_counts()
+
+    # ---- (a) the planned scan through a repcache-backed engine, beside
+    # a fresh engine without one; then a second engine on the warm cache
+    def timed_scan(engine):
+        _sync(dev)
+        t0 = time.perf_counter()
+        res = engine.execute(plan.cascades)
+        _sync(dev)
+        return res, time.perf_counter() - t0
+    cache = RepresentationCache(sc["budget"])
+    plain, t_plain = timed_scan(ScanEngine(corpus, chunk=chunk, device=dev))
+    eng = ScanEngine(corpus, chunk=chunk, repcache=cache, device=dev)
+    sres, t_scan = timed_scan(eng)
+    filled = cache.stats()
+    wres, t_warm = timed_scan(ScanEngine(corpus, chunk=chunk, repcache=cache,
+                                         device=dev))
+    serial_rows = query["serial"][0]
+    log(f"  ScanEngine(repcache=) scan: {len(sres.indices)} rows in "
+        f"{t_scan * 1e3:.3f} ms ({t_scan / t_plain:.3f}x a fresh engine "
+        f"without a cache: {t_plain * 1e3:.3f} ms), {sres.stats.chunks} "
+        f"chunks; cache {filled}, slabs on {cache.device}; again on the "
+        f"warm cache: {t_warm * 1e3:.3f} ms ({t_warm / t_plain:.3f}x), "
+        f"rows from the cache {wres.stats.rep_rows_cached}, chunks "
+        f"{wres.stats.chunks} [{on}]")
+    scan_diff = np.setxor1d(sres.indices, serial_rows)
+    scan_diff = np.union1d(scan_diff, np.setxor1d(wres.indices, serial_rows))
+    scan_diff = np.union1d(scan_diff, np.setxor1d(plain.indices, serial_rows))
+
+    # ---- (b) async at 1 and 8 shards, warm then fresh; sync baseline
+    def serve(label, shards, profile_against=None, **kw):
+        """One async service over the stream (after its warmup); with
+        ``profile_against`` (a run's seconds) the stream runs under the
+        profiler instead, and nothing is printed or checked."""
+        kw.setdefault("repcache_bytes", sc["budget"])
+        svc = build_cascade_service(corpus, cascades, mode="async",
+                                    shards=shards, batch_size=SERVE_BATCH,
+                                    max_wait_s=0.005, device=dev, **kw)
+        n_warm = svc.warmup()
+        rc0 = svc.repcache.stats() if svc.repcache is not None else None
+        reqs = []
+
+        def run():
+            for i, (c, row) in enumerate(stream):
+                reqs.append(Request(i, row))
+                svc.submit(c, reqs[-1])
+                svc.poll()
+            svc.drain()
+        _sync(dev)
+        if profile_against is not None:
+            return device_profile(run, dev, profile_against, label, top=8)
+        mem0 = _peak_reset(dev)
+        t0 = time.perf_counter()
+        run()
+        _sync(dev)
+        secs = time.perf_counter() - t0
+        mem = _peak_extra(dev, mem0)
+        s = svc.summary()
+        rate = None       # the run's own lookups, not the scan's before it
+        if rc0 is not None:
+            hits = s["repcache"]["hits"] - rc0["hits"]
+            looked = hits + s["repcache"]["misses"] - rc0["misses"]
+            rate = f"{hits / looked:.4f} of {looked}" if looked else "-"
+        log(f"  {label}: {len(stream)} requests in {secs * 1e3:.3f} ms "
+            f"({len(stream) / secs:.0f} requests/s) [{on}]; latency ms "
+            f"p50/p95/p99 {s['latency_ms']['p50']}/{s['latency_ms']['p95']}"
+            f"/{s['latency_ms']['p99']}; store hit rate "
+            f"{s['store_hit_rate']:.4f}; repcache hit rate {rate} "
+            f"entry lookups, rep_hit_rows {s['rep_hit_rows']}; "
+            f"flushes size/deadline/drain {s['size_flushes']}/"
+            f"{s['deadline_flushes']}/{s['drain_flushes']}, batches "
+            f"{s['batches']}, padded slots {s['padded_slots']}, rows "
+            f"evaluated {s['rows_evaluated']}; lanes {s['lanes']}, devices "
+            f"{s['devices']}, in flight max {s['in_flight']['max']}; warmup "
+            f"{n_warm} executions; stage-0 runs {svc.stage0_runs}; peak "
+            f"memory above the corpus {_mb(mem)}")
+        checks.append((label, [(cascades[c], row, r.result)
+                               for (c, row), r in zip(stream, reqs)],
+                       widths))
+        return svc, reqs, secs
+
+    def scan_store():
+        st = VirtualColumnStore(cfg["corpus"])
+        st.merge_from(eng.store)
+        return st
+
+    services = []
+    for shards in (1, 8):
+        services.append(serve(f"async {shards} lanes on the scan's store "
+                              f"and cache", shards, store=scan_store(),
+                              repcache=cache))
+    fresh = {}
+    for shards in (1, 8):
+        fresh[shards] = serve(f"async {shards} lanes, fresh store and "
+                              f"cache", shards)
+        services.append(fresh[shards])
+    # does the cache pay for itself? a fresh store (flushes run) on the
+    # scan's warm cache, and with no cache, alternated (ABBAAB) since the
+    # host clock moves between runs
+    paired = {"warm": [], "none": []}
+    for side in ("none", "warm", "warm", "none", "none", "warm"):
+        kw = {"repcache": cache} if side == "warm" else {"repcache_bytes": 0}
+        what = "the scan's warm cache" if side == "warm" else "no cache"
+        services.append(serve(f"async 8 lanes, fresh store, {what}", 8,
+                              **kw))
+        paired[side].append(services[-1][2])
+    med = {k: float(np.median(v)) * 1e3 for k, v in paired.items()}
+    log(f"  8 lanes, fresh store, the scan's warm cache against no cache: "
+        f"median {med['warm']:.3f} against {med['none']:.3f} ms "
+        f"({med['none'] / med['warm']:.3f}x the requests/s), runs "
+        f"{[round(t * 1e3, 3) for t in paired['warm']]} against "
+        f"{[round(t * 1e3, 3) for t in paired['none']]} [{on}]")
+    sync = build_cascade_service(corpus, cascades, mode="sync",
+                                 batch_size=SERVE_BATCH, max_wait_s=0.005,
+                                 device=dev)
+    _sync(dev)
+    t0 = time.perf_counter()
+    sreqs = []
+    for i, (c, row) in enumerate(stream):
+        sreqs.append(Request(i, corpus[row]))
+        sync.submit(c, sreqs[-1])
+        sync.poll()
+    sync.drain()
+    _sync(dev)
+    t_sync = time.perf_counter() - t0
+    lat = np.asarray(sync.latencies()) * 1e3
+    sync_batches = sum(s.batches for s in sync.stats.values())
+    log(f"  sync CascadeService: {len(stream)} requests in "
+        f"{t_sync * 1e3:.3f} ms ({len(stream) / t_sync:.0f} requests/s) "
+        f"[{on}]; latency ms p50/p95/p99 {np.percentile(lat, 50):.3f}/"
+        f"{np.percentile(lat, 95):.3f}/{np.percentile(lat, 99):.3f}; "
+        f"batches {sync_batches}, padded slots "
+        f"{sum(s.padded_slots for s in sync.stats.values())}")
+    checks.append(("sync CascadeService", [
+        (cascades[c], row, r.result) for (c, row), r in zip(stream, sreqs)],
+        (SERVE_BATCH,)))
+
+    # ---- (c) the event host, paced: deadlines fire without the caller
+    host = build_cascade_service(corpus, cascades, shards=8,
+                                 batch_size=SERVE_BATCH, max_wait_s=0.005,
+                                 repcache_bytes=sc["budget"], device=dev,
+                                 host=True)
+    hreqs = []
+    t0 = time.perf_counter()
+    try:
+        for i, (c, row) in enumerate(stream[:sc["host"]]):
+            hreqs.append(Request(i, row))
+            host.submit(c, hreqs[-1])
+            time.sleep(sc["pace"])
+        idle = host.wait_idle(60.0)
+    finally:
+        host.stop()
+    t_host = time.perf_counter() - t0
+    hs = host.service.summary()
+    log(f"  event host (WallTimer, 8 lanes): {len(hreqs)} requests paced "
+        f"{sc['pace'] * 1e3:.1f} ms apart, served in {t_host:.3f} s [{on}]; "
+        f"idle {idle}, host steps {host.steps}; flushes size/deadline/"
+        f"drain {hs['size_flushes']}/{hs['deadline_flushes']}/"
+        f"{hs['drain_flushes']}; latency ms p50/p95/p99 "
+        f"{hs['latency_ms']['p50']}/{hs['latency_ms']['p95']}/"
+        f"{hs['latency_ms']['p99']}")
+    if not idle or hs["deadline_flushes"] == 0 or hs["drain_flushes"] or \
+            any(r.result is None for r in hreqs):
+        raise AssertionError("the event host did not serve the paced "
+                             "stream by its own deadlines")
+    checks.append(("event host", [(cascades[c], row, r.result) for (c, row), r
+                                  in zip(stream, hreqs)], widths))
+
+    # ---- (d) overload: an unpaced burst, queues bounded, ladder stepped
+    # (a batch of twice the queue limit, so a queue fills before it
+    # would flush by size)
+    limit = sc["limit"]
+    over = build_cascade_service(
+        corpus, {deep: cascades[deep]}, shards=8, batch_size=2 * limit,
+        max_wait_s=0.005, repcache_bytes=sc["budget"], device=dev,
+        queue_limit=limit, overload="degrade", ladders={deep: ladder})
+    over.warmup()
+    breqs = [Request(i, int(row)) for i, row in enumerate(burst)]
+    t0 = time.perf_counter()
+    for r in breqs:
+        over.submit(deep, r)
+    over.drain()
+    _sync(dev)
+    t_over = time.perf_counter() - t0
+    os_ = over.summary()
+    rungs = [cascades[deep], *ladder]
+    answered = []
+    for r in breqs:
+        if is_label(r.result):
+            by = next(c for c in rungs
+                      if over.store.column(c.key)[r.payload] >= 0)
+            answered.append((by, r.payload, r.result))
+    log(f"  overload ({deep}, 8 lanes, batch {2 * limit}, queue limit "
+        f"{limit}, degrade over {len(ladder)} rungs): {len(breqs)} "
+        f"requests unpaced in {t_over * 1e3:.3f} ms [{on}]; shed "
+        f"{os_['shed']}, served {len(answered)}, degraded rows "
+        f"{os_['degraded_rows']}, degrade steps {os_['degrade_steps']}, "
+        f"active levels {os_['active_levels']}, queue depth max "
+        f"{os_['queue_depth']['max']}")
+    if os_["shed"] == 0 or os_["shed"] + len(answered) != len(breqs) or (
+            ladder and not os_["degraded_rows"]):
+        raise AssertionError("the burst was neither shed nor degraded")
+    checks.append(("overload", answered,
+                   sorted({slab_width(n, 2 * limit)
+                           for n in range(1, limit + 1)})))
+
+    # ---- (e) the fault drill at 8 lanes on a manual clock
+    dt = 2.0 ** -10
+
+    def drill(plan_):
+        clk = ManualClock()
+        faults = (None if plan_ is None
+                  else FaultInjector(plan_, clock=clk))
+        svc = build_cascade_service(
+            corpus, cascades, shards=8, batch_size=SERVE_BATCH,
+            max_wait_s=5 * dt, clock=clk, repcache_bytes=sc["budget"],
+            device=dev, batch_timeout_s=dt / 2, faults=faults)
+        reqs = []
+        for i, (c, row) in enumerate(stream[:sc["faults"]]):
+            reqs.append(Request(i, row))
+            svc.submit(c, reqs[-1])
+            # the card finishes every healthy batch before virtual time
+            # moves: only the dead lane's batch can outlive the timeout
+            _sync(dev)
+            clk.advance(dt)
+            svc.poll()
+        while svc.busy():      # one deadline comes due per step
+            _sync(dev)
+            clk.advance(dt)
+            svc.poll()
+        return svc, reqs
+
+    t0 = time.perf_counter()
+    fsvc, freqs = drill(FaultPlan(fail_dispatch={3: -1}, dead_devices={5},
+                                  transient_errors=2))
+    clean, creqs = drill(None)
+    t_drill = time.perf_counter() - t0
+    fs = fsvc.summary()
+    ended = sum(is_label(r.result) or isinstance(r.result, (Shed, TimedOut))
+                for r in freqs)
+    same = all(r.result == c.result for r, c in zip(freqs, creqs)
+               if is_label(r.result))
+    log(f"  fault drill (8 lanes, lane 3 failing every dispatch, lane 5 "
+        f"dead, 2 transient errors, batch timeout {dt / 2:.3g} virtual s): "
+        f"{len(freqs)} requests, {ended} ended (labels "
+        f"{sum(is_label(r.result) for r in freqs)}, shed {fs['shed']}, "
+        f"timed out {fs['timeouts']}); retries {fs['retries']}; "
+        f"failed_devices {fs['failed_devices']}; faults injected "
+        f"{fs['faults_injected']}; labels equal the unfaulted run's: {same}; "
+        f"both runs {t_drill:.2f} s [{on}]")
+    if ended != len(freqs) or not same or fs["failed_devices"] != [3, 5]:
+        raise AssertionError("the fault drill left a request unended, "
+                             "changed a label or failed other lanes")
+    checks.append(("fault drill", [(cascades[c], row, r.result)
+                                   for (c, row), r in zip(stream, freqs)
+                                   if is_label(r.result)], widths))
+
+    # ---- (f) a service seeded by the ingest index: 0 model invocations
+    index, iplan = before["index"], before["plan"]
+    held = {c.concept: c for c in iplan.cascades
+            if index.cascade_keys.get(c.concept) == c.key}
+    isvc = build_cascade_service(before["frames"], held, shards=8,
+                                 batch_size=SERVE_BATCH, repcache_bytes=0,
+                                 device=dev, ingest_index=index)
+    ireqs = []
+    for c, casc in held.items():
+        col = index.decided.column(casc.key)
+        for row in np.where(col >= 0)[0][:sc["ingest"]]:
+            ireqs.append((c, int(col[row]), Request(len(ireqs), int(row))))
+            isvc.submit(c, ireqs[-1][2])
+    ist = isvc.summary()
+    log(f"  ingest-seeded service over the stream: {len(ireqs)} requests "
+        f"on index-decided rows of {list(held)}; store hits "
+        f"{ist['store_hits']}, batches {ist['batches']}, stage-0 runs "
+        f"{isvc.stage0_runs}")
+    if not ireqs or ist["store_hits"] != len(ireqs) or ist["batches"] or \
+            any(r.result != want for _, want, r in ireqs):
+        raise AssertionError("ingest-decided rows were not answered from "
+                             "the seeded store")
+    del isvc
+
+    launches = ops.LAUNCHES["fused_pyramid_stage0"]
+    runs = [s for s, _, _ in services] + [host.service, over, fsvc, clean]
+    scan_chunks = [r.stats.chunks for r in (plain, sres, wres)]
+    expect = sum(scan_chunks) + sum(s.stage0_runs for s in runs) \
+        + sync_batches
+    log(f"  fused_pyramid_stage0 launches in the phase: {launches} (scan "
+        f"chunks {scan_chunks} + services' base runs "
+        f"{[s.stage0_runs for s in runs]} + sync batches {sync_batches} = "
+        f"{expect})")
+    if dev.type == "cuda" and (launches != expect or launches == 0):
+        raise AssertionError("stage-0 launches do not match the serving "
+                             "path's base runs")
+
+    # ---- every label against naive_scan's, boundary rows counted
+    exempt = boundary_rows(corpus, plan.cascades, scan_diff, chunk,
+                           widths=widths)
+    log(f"  ScanEngine(repcache=) vs the serial scan: identical rows: "
+        f"{not len(scan_diff)}" + (f" except {len(exempt)} threshold-"
+                                   f"boundary rows {exempt}" if exempt
+                                   else ""))
+    for label, got, w in checks:
+        bad = {}
+        for casc, row, lab in got:
+            if lab != int(cols[casc.key][row]):
+                bad.setdefault(casc.key, (casc, set()))[1].add(row)
+        found = []
+        for casc, rows in bad.values():
+            found += boundary_rows(corpus, [casc], sorted(rows), chunk,
+                                   widths=tuple(w))
+        log(f"  {label}: {len(got)} labels vs naive_scan: identical: "
+            f"{not found}" + (f" except {len(found)} threshold-boundary "
+                              f"rows {found}" if found else ""))
+    if dev.type == "cuda":
+        serve("profile, serving 8 lanes (fresh store and cache)", 8,
+              profile_against=fresh[8][2])
+    kern["stage0"]["serving_launches"] = launches
+    log(f"  the phase: {time.perf_counter() - t_phase:.1f} s [{on}]")
+    return launches
+
+
 def _peak_reset(dev):
     import torch
     if dev.type != "cuda":
@@ -2273,7 +2719,8 @@ def kernels_line(kern, launches):
                                                "library_device_ms",
                                                "tb_per_s", "other_shapes",
                                                "ingest_launches",
-                                               "sharded_launches")
+                                               "sharded_launches",
+                                               "serving_launches")
                        if key in k}})
     print(json.dumps({"kernels": out}), flush=True)
 

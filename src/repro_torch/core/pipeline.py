@@ -359,6 +359,22 @@ class TahomaSystem:
                 scenario, dense_levels=dense_levels)
         return self.dec_cache[key]
 
+    def compiled_ladder(self, space: CascadeSpace, index: int, *,
+                        concept: str = "pred",
+                        min_accuracy: float | None = None,
+                        max_rungs: int | None = None) -> list:
+        """The serving degradation ladder for the cascade at ``index``:
+        every strictly cheaper Pareto-frontier cascade (optionally
+        floored/truncated), compiled with DISTINCT cascade ids so their
+        labels land in their own virtual columns
+        (core/selector.degradation_ladder; serve/service.py ladders=)."""
+        from repro_torch.core.selector import degradation_ladder
+
+        return [self.compiled_cascade(space, sel.index, concept=concept)
+                for sel in degradation_ladder(space, index,
+                                              min_accuracy=min_accuracy,
+                                              max_rungs=max_rungs)]
+
     def compiled_cascade(self, space: CascadeSpace, index: int, *,
                          concept: str = "pred", capacities=None):
         """Decode cascade ``index`` of an evaluated space into an
@@ -442,8 +458,9 @@ def build_scan_engine(images, metadata=None, *, shards: int | None = None,
     """System-level scan-executor factory: ``shards=None``/0 builds the
     single-device ScanEngine; any explicit shard count (including 1, the
     scaling baseline) builds the ShardedScanEngine (``strategy`` 'range'
-    or 'hash'; DESIGN.md §9). ``repcache`` (serial engine only; the
-    cross-query representation cache is not part of this package yet).
+    or 'hash'; DESIGN.md §9). ``repcache`` (serial engine only) plugs a
+    cross-query representation cache into per-chunk pyramid
+    materialization (DESIGN.md §10.3).
     ``fused``/``lazy``/``int8``/``use_kernel`` are the hot-path knobs."""
     from repro_torch.engine.scan import ScanEngine
     from repro_torch.engine.sharded import ShardedScanEngine
@@ -456,6 +473,64 @@ def build_scan_engine(images, metadata=None, *, shards: int | None = None,
     return ScanEngine(images, metadata, chunk=chunk, repcache=repcache,
                       fused=fused, lazy=lazy, int8=int8,
                       use_kernel=use_kernel, device=device)
+
+
+def build_cascade_service(images, cascades, *, mode: str = "async",
+                          shards: int | None = None, batch_size: int = 32,
+                          max_wait_s: float = 0.005, clock=None,
+                          repcache_bytes: int | None = 64 << 20,
+                          repcache=None, store=None, device=None,
+                          host: bool = False, **hardening):
+    """System-level serving factory (DESIGN.md §10, §12):
+    ``mode='async'`` builds the shard-aware AsyncCascadeService
+    (deadline scheduler, one queue and one lane per shard, cross-query
+    representation cache — a fresh ``repcache_bytes``-budget cache
+    unless the caller shares one via ``repcache``, e.g. the same object
+    backing a ScanEngine); ``mode='sync'`` builds the synchronous-polling
+    CascadeService from the same {concept -> CompiledCascade} table.
+    ``store`` shares a scan engine's virtual columns with the service so
+    previously scanned rows are served with zero model invocations.
+    ``device`` (default ``cuda``; a CUDA request without a card raises)
+    is where the corpus lives and the batches run.
+
+    Hardening (async only; DESIGN.md §12): extra keyword args pass
+    straight to AsyncCascadeService — ``queue_limit``, ``overload``,
+    ``ladders`` (e.g. from ``TahomaSystem.compiled_ladder``),
+    ``degrade`` (a DegradeConfig), ``batch_timeout_s``,
+    ``request_deadline_s``, ``dispatch_retries``, ``faults``,
+    ``devices``, and the ingest-index seeds
+    ``ingest_index``/``ingest_exact`` (a CandidateIndex built by
+    build_ingest_pipeline seeds the service store so ingest-decided rows
+    answer at submit with zero model invocations).
+    ``host=True`` wraps the service in a started wall-clock EventHost
+    (serve/host.py) so deadlines fire without caller cooperation; the
+    caller gets the HOST (``host.service`` reaches the service) and
+    must ``stop()`` it."""
+    import time
+
+    from repro_torch.serve.batcher import CascadeService
+    from repro_torch.serve.repcache import RepresentationCache
+    from repro_torch.serve.service import AsyncCascadeService
+
+    clock = clock or time.perf_counter
+    if mode == "sync":
+        if hardening or host:
+            raise ValueError("hardening knobs require mode='async'")
+        return CascadeService.from_cascades(cascades, batch_size,
+                                            max_wait_s, clock, device=device)
+    if mode != "async":
+        raise ValueError(f"unknown serving mode {mode!r}")
+    if repcache is None and repcache_bytes:
+        repcache = RepresentationCache(repcache_bytes)
+    service = AsyncCascadeService(images, cascades, shards=shards,
+                                  batch_size=batch_size,
+                                  max_wait_s=max_wait_s, clock=clock,
+                                  repcache=repcache, store=store,
+                                  device=device, **hardening)
+    if host:
+        from repro_torch.serve.host import EventHost
+        return EventHost(service).start()
+    return service
 
 
 def build_ingest_pipeline(cascades, n_rows: int, *, chunk: int = 64,
@@ -471,7 +546,8 @@ def build_ingest_pipeline(cascades, n_rows: int, *, chunk: int = 64,
     ``n_rows`` frames. Feed arriving frames with ``.ingest(frames,
     ids)`` (any batch granularity — the temporal skip detector chains
     across calls) or sweep a resident corpus with ``.run(images)``; the
-    resulting ``.index`` plugs into ``plan_query(..., index=...)``. The
+    resulting ``.index`` plugs into ``plan_query(..., index=...)`` and
+    ``build_cascade_service(..., ingest_index=...)``. The
     cascades must be the SAME physical cascades queries will select —
     labels are keyed by CompiledCascade.key. A stage-0 score does not
     depend on ``chunk`` (the kernel's launch width), only on its route

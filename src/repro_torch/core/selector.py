@@ -65,6 +65,30 @@ def select_candidates(space: CascadeSpace, *,
                       float(space.throughput[i])) for i in cand]
 
 
+def degradation_ladder(space: CascadeSpace, primary_index: int, *,
+                       min_accuracy: float | None = None,
+                       max_rungs: int | None = None) -> list[Selection]:
+    """The overload degradation ladder for a selected cascade: every
+    Pareto-frontier cascade STRICTLY CHEAPER than the primary, ordered
+    nearest-cost-first (gentlest accuracy sacrifice first), optionally
+    floored at ``min_accuracy`` and truncated to ``max_rungs``. The
+    serving layer (serve/service.py) steps down this list under load
+    and back up on recovery. The primary itself is never in the ladder;
+    an empty list means the primary is already the cheapest qualifying
+    frontier point (nothing to degrade to)."""
+    idx = pareto_set(space)
+    t0 = float(space.time_s[primary_index])
+    rungs = [int(i) for i in idx
+             if float(space.time_s[i]) < t0 and int(i) != int(primary_index)]
+    if min_accuracy is not None:
+        rungs = [i for i in rungs if space.acc[i] >= min_accuracy]
+    rungs.sort(key=lambda i: -float(space.time_s[i]))
+    if max_rungs is not None:
+        rungs = rungs[:max_rungs]
+    return [Selection(i, float(space.acc[i]), float(space.throughput[i]))
+            for i in rungs]
+
+
 # --------------------------------------------- planner-facing estimates ----
 def cascade_eval_labels(space: CascadeSpace, i: int, scores_eval,
                         p_low, p_high) -> np.ndarray:

@@ -123,6 +123,19 @@ class VirtualColumnStore:
             fill = (dst < 0) & (src >= 0)
             dst[fill] = src[fill]
 
+    def merge_rows_from(self, other: "VirtualColumnStore", rows) -> None:
+        """``merge_from`` restricted to ``rows``: identical union /
+        never-overwrite semantics at O(len(rows)) per column instead of
+        O(corpus) — the serving path's per-delivery commit."""
+        assert other.n_rows == self.n_rows
+        rows = np.asarray(rows, np.int64)
+        for key in other.keys():
+            src = other.column(key)[rows]
+            dst = self.column(key)
+            take = (dst[rows] < 0) & (src >= 0)
+            if take.any():
+                dst[rows[take]] = src[take]
+
     def save(self, path, token: tuple = ()) -> None:
         """Persist the store as an npz (labels verbatim, keys via repr);
         ``token`` fingerprints the owning corpus."""
@@ -200,6 +213,9 @@ class StageStats:
 class ScanStats:
     chunks: int = 0           # ingest chunks == shared pyramids built
     rows_scanned: int = 0     # rows surviving metadata (pyramid rows)
+    rep_rows_cached: int = 0  # rows whose pooled levels came from the
+    #                           cross-query representation cache (no
+    #                           per-chunk pyramid materialization)
     reorders: int = 0         # mid-scan predicate re-orderings applied
     pyramid_levels: tuple = ()  # static union level set (+ raw base)
     level_rows: dict = field(default_factory=dict)  # measured per-level
@@ -252,20 +268,24 @@ class ScanEngine:
     later-stage-only levels are pooled at flush-time first touch.
     ``int8``: stage-0 inference on int8-quantized weights.
     ``use_kernel``: force the fused pyramid+stage-0 kernel on/off (None:
-    on for CUDA chunks with stage-0 params). ``repcache`` (the
-    cross-query representation cache) is ported in a later slice."""
+    on for CUDA chunks with stage-0 params). ``repcache``
+    (serve/repcache.RepresentationCache): chunks whose non-base ingest
+    levels are all cached skip pyramid materialization, and freshly
+    pooled ingest levels are published for later queries and the
+    serving path; row sets are the same either way."""
 
     def __init__(self, images, metadata: Mapping[str, np.ndarray]
                  | None = None, *, chunk: int = 64, repcache=None,
                  fused: bool = True, lazy: bool = True,
                  int8: bool = False, use_kernel: bool | None = None,
                  device=None):
-        if repcache is not None:
-            raise NotImplementedError(
-                "ScanEngine(repcache=...): the representation cache "
-                "waits for the serving slice of the port")
         self.device = resolve_device(device)
         self.images = _corpus(images, self.device)
+        self.repcache = repcache
+        if repcache is not None:
+            from repro_torch.serve.repcache import corpus_token
+            repcache.bind_corpus(corpus_token(self.images),
+                                 self.images.device)
         self.n_rows = int(self.images.shape[0])
         self.metadata = dict(metadata or {})
         self.chunk = int(chunk)
@@ -470,7 +490,7 @@ class ScanEngine:
         def apply_order(perm: list) -> None:
             """Drain every buffer under the current order, then permute
             the per-stage structures and rebuild empty buffers."""
-            nonlocal needed, ingest_set, carry, derive
+            nonlocal needed, ingest_set, carry, derive, small
             for s in range(k):
                 flush(s)
             cascades[:] = [cascades[i] for i in perm]
@@ -478,54 +498,73 @@ class ScanEngine:
             needed, _ = stage_needs(cascades, base_hw)
             ingest_set, carry, derive = level_schedule(
                 cascades, base_hw, self.lazy)
+            small = list(ingest_set)
             buffers[:] = [_StageBuffer(self.chunk, carry[s], dev)
                           for s in range(k)]
             stats.reorders += 1
 
         stats.rows_scanned = len(ids_all)
+        small = list(ingest_set)
         for lo in range(0, len(ids_all), self.chunk):
             sel = ids_all[lo:lo + self.chunk]
             casc0 = cascades[0]
             cached0 = store.lookup(casc0.key, sel)
             unk = cached0 < 0
             n_unknown = int(unk.sum())
-            if n_unknown == 0:
+            cached = (self.repcache.lookup_rows(sel, small)
+                      if self.repcache is not None and small else None)
+            if cached is not None:
+                # every ingest level of every chunk row is cached: skip
+                # materialization; stage 0 evaluates through its buffer
+                # like any later stage
+                stats.rep_rows_cached += len(sel)
+                route(0, sel, {r: v.to(dev) for r, v in cached.items()})
+            elif n_unknown == 0:
                 # stage-0 labels all known: no ingest work at all
                 route(0, sel, {})
-                continue
-            # static-width pad (repeat the last row): per-row results do
-            # not depend on the batch, and one width serves every chunk
-            idx = np.concatenate([sel, np.repeat(sel[-1:],
-                                                 self.chunk - len(sel))])
-            imgs = self._gather(idx)
-            if self.fused:
-                # fused ingest: pyramid + the FULL first cascade; only
-                # unknown rows are recorded/counted
-                out_res = carry[1] if k > 1 else ()
-                labels, levels = self._ingest_fn(casc0, out_res)(imgs)
-                labels = labels[:len(sel)].cpu().numpy()
-                rows = {r: v[:len(sel)] for r, v in levels.items()}
-                stats.chunks += 1
-                count_levels(ingest_set, len(sel))
-                st = stats.stages[0]
-                st.rows_in += len(sel)
-                st.rows_cached += len(sel) - n_unknown
-                st.rows_evaluated += n_unknown
-                st.batches += 1
-                store.record(casc0.key, sel[unk], labels[unk])
-                if monitor is not None:
-                    monitor.observe(casc0.key, labels[unk], marginal=True)
-                keep = np.where(unk, labels, cached0) == 1
-                route(1, sel[keep], {r: _mask(v, keep)
-                                     for r, v in rows.items()})
             else:
-                # unfused ingest: one pyramid pass per chunk, stage 0
-                # through its buffer
-                levels = materialize_pyramid(imgs, ingest_set)
-                rows = {r: levels[r][:len(sel)] for r in ingest_set}
-                stats.chunks += 1
-                count_levels(ingest_set, len(sel))
-                route(0, sel, rows)
+                # static-width pad (repeat the last row): per-row results
+                # do not depend on the batch, and one width serves every
+                # chunk
+                idx = np.concatenate([sel, np.repeat(
+                    sel[-1:], self.chunk - len(sel))])
+                imgs = self._gather(idx)
+                if self.fused:
+                    # fused ingest: pyramid + the FULL first cascade; only
+                    # unknown rows are recorded/counted. With a repcache
+                    # every ingest level leaves the program (the cache
+                    # sees complete chunks), otherwise only what later
+                    # stages carry
+                    out_res = (tuple(ingest_set)
+                               if self.repcache is not None
+                               else (carry[1] if k > 1 else ()))
+                    labels, levels = self._ingest_fn(casc0, out_res)(imgs)
+                    labels = labels[:len(sel)].cpu().numpy()
+                    rows = {r: v[:len(sel)] for r, v in levels.items()}
+                    stats.chunks += 1
+                    count_levels(ingest_set, len(sel))
+                    self._publish(sel, small, rows)
+                    st = stats.stages[0]
+                    st.rows_in += len(sel)
+                    st.rows_cached += len(sel) - n_unknown
+                    st.rows_evaluated += n_unknown
+                    st.batches += 1
+                    store.record(casc0.key, sel[unk], labels[unk])
+                    if monitor is not None:
+                        monitor.observe(casc0.key, labels[unk],
+                                        marginal=True)
+                    keep = np.where(unk, labels, cached0) == 1
+                    route(1, sel[keep], {r: _mask(v, keep)
+                                         for r, v in rows.items()})
+                else:
+                    # unfused ingest: one pyramid pass per chunk, stage 0
+                    # through its buffer
+                    levels = materialize_pyramid(imgs, ingest_set)
+                    rows = {r: levels[r][:len(sel)] for r in ingest_set}
+                    stats.chunks += 1
+                    count_levels(ingest_set, len(sel))
+                    self._publish(sel, small, rows)
+                    route(0, sel, rows)
             if monitor is not None and k > 1:
                 perm = monitor.propose(cascades)
                 if perm is not None:
@@ -538,6 +577,13 @@ class ScanEngine:
         else:
             out = np.empty(0, np.int64)
         return ScanResult(out, stats)
+
+    def _publish(self, ids: np.ndarray, small, rows: dict) -> None:
+        """Hand a chunk's freshly pooled ingest levels to the repcache."""
+        if self.repcache is not None:
+            for r in small:
+                if r in rows:
+                    self.repcache.put_rows(ids, r, rows[r])
 
 
 # ------------------------------------------------------- reference paths --
@@ -599,3 +645,27 @@ def naive_scan(images, cascades: Sequence[CompiledCascade],
             col[lo:lo + nv] = fn(imgs)[:nv].cpu().numpy()
         mask &= col == 1
     return np.where(mask)[0]
+
+
+def make_batch_runner(casc: CompiledCascade, batch_size: int, *,
+                      device=None) -> Callable[[list], list]:
+    """``run_batch`` callable for serve.Batcher / CascadeService: stacks
+    request payloads (one image each) on ``device`` (default ``cuda``),
+    runs the cascade and returns per-request int labels. Levels past the
+    first run at ``casc.capacities`` (default: the full batch), the
+    sync batcher's bounded-tail knob (see CompiledCascade). The batch
+    goes through the scan engines' fused ingest
+    (core/executor.make_fused_ingest): on a card, with stage-0 params,
+    the pyramid and level 0 are one ``fused_pyramid_stage0`` launch."""
+    dev = resolve_device(device)
+    caps = (list(casc.capacities) if casc.capacities is not None
+            else [batch_size] * (len(casc.model_fns) - 1))
+    fn = make_fused_ingest(casc.model_fns, casc.thresholds, casc.reps, caps,
+                           (), stage0=casc.stage0)
+
+    @torch.no_grad()
+    def run_batch(payloads: list) -> list:
+        imgs = torch.stack([torch.as_tensor(p, dtype=torch.float32,
+                                            device=dev) for p in payloads])
+        return [int(v) for v in fn(imgs)[0].cpu().tolist()]
+    return run_batch

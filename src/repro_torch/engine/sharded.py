@@ -203,20 +203,28 @@ def _indexed(dev) -> torch.device:
 
 
 class _Lane:
-    """One shard's lane for one scan: its device and stream (None on the
-    CPU), the tensor its rows are gathered from with each row's position
+    """One shard's lane: its device and stream (None on the CPU) and, for
+    a scan, the tensor its rows are gathered from with each row's position
     there, the cascades as its device holds them, and the engine whose
-    ingest and flush programs it runs."""
+    ingest and flush programs it runs. The serving path
+    (serve/service.py) keeps one lane per shard for a service's life and
+    uses its device, stream and copies."""
 
-    def __init__(self, device, stream, src, pos, cascades, programs):
+    def __init__(self, device, stream, src=None, pos=None, cascades=None,
+                 programs=None):
         self.device, self.stream = device, stream
         self.src, self.pos = src, pos
         self.cascades, self.programs = cascades, programs
 
     def __enter__(self):
-        self._ctx = (torch.cuda.stream(self.stream) if self.stream is not None
-                     else contextlib.nullcontext())
-        return self._ctx.__enter__()
+        # the lane's device AND stream, both entered: CUDA's current
+        # device and stream are per thread, and the serving event host
+        # dispatches from a thread of its own
+        self._ctx = contextlib.ExitStack()
+        if self.stream is not None:
+            self._ctx.enter_context(torch.cuda.device(self.device))
+            self._ctx.enter_context(torch.cuda.stream(self.stream))
+        return self
 
     def __exit__(self, *exc):
         return self._ctx.__exit__(*exc)

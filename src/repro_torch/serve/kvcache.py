@@ -86,8 +86,7 @@ def init_cache(cfg, batch: int, seq: int, kv_dtype: str = "bfloat16", *,
     if cfg.family not in ("ssm", "hybrid"):
         raise NotImplementedError(
             f"family {cfg.family!r}: only the ssm and hybrid caches are "
-            f"ported (ROADMAP Queue 1, item 5: the rest of the LM "
-            f"substrate)")
+            f"ported (ROADMAP Queue 1: the rest of the LM substrate)")
     cache: dict = {"pos": torch.zeros((batch,), dtype=torch.int32,
                                       device=dev)}
     one = init_ssm_cache(cfg, batch, device=dev)

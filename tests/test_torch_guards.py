@@ -60,6 +60,20 @@ def test_no_jax_or_reference_import_statements(path):
         assert not any(_is_forbidden(n) for n in names), (path, names)
 
 
+def test_the_walk_covers_the_serving_modules():
+    """The import-statement walk above is over every file of the package;
+    the serving layer's modules are among them (and the module import
+    check imports each)."""
+    walked = {str(p.relative_to(ROOT)) for p in
+              (ROOT / "src" / "repro_torch").rglob("*.py")}
+    for name in ("faults", "scheduler", "batcher", "repcache", "service",
+                 "host", "kvcache"):
+        assert f"src/repro_torch/serve/{name}.py" in walked, name
+    assert "examples/serve_cascade_torch.py" not in walked
+    test_no_jax_or_reference_import_statements(
+        "examples/serve_cascade_torch.py")
+
+
 def _no_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default is usable")
@@ -293,6 +307,8 @@ def test_chip_smoke_rehearsal_runs_every_phase_on_the_cpu():
     assert names == ["fused_pyramid_stage0", "matmul", "flash_attention",
                      "ssd_scan", "fused_transform", "fused_pyramid_transform"]
     assert "prefill + decode_step == forward" in out.stdout
+    assert "== serving" in out.stdout and "failed_devices [3, 5]" in \
+        out.stdout and "labels equal the unfaulted run's: True" in out.stdout
 
 
 def _c_struct_fields(source: str, struct: str) -> list[str]:

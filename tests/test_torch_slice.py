@@ -162,8 +162,9 @@ def test_plan_picks_same_cascades_in_same_order(world, joint, min_acc):
 
 
 def test_later_slices_raise_not_implemented(world):
-    """Expression trees, ingest indexes and the sharded engine are ported;
-    the representation cache still refuses."""
+    """Expression trees, ingest indexes, the sharded engine and the
+    representation cache are ported: nothing here refuses any more (the
+    name is kept)."""
     _, tq = _query(world)
     tree = talg.And(talg.Pred(SPECS[0].name), talg.Not(talg.Pred(
         SPECS[1].name)))
@@ -175,8 +176,11 @@ def test_later_slices_raise_not_implemented(world):
     assert isinstance(plan, tplan.PhysicalPlan) and plan.index is index
     assert isinstance(build_scan_engine(world["qx"], shards=2, device="cpu"),
                       ShardedScanEngine)
-    with pytest.raises(NotImplementedError):
-        ScanEngine(world["qx"], repcache=object(), device="cpu")
+    from repro.serve.repcache import corpus_token as j_token
+    from repro_torch.serve import RepresentationCache
+    cache = RepresentationCache()
+    eng = ScanEngine(world["qx"], repcache=cache, device="cpu")
+    assert eng.repcache is cache and cache._corpus == j_token(world["qx"])
 
 
 # --------------------------------------------------------- scan engine ----

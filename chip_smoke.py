@@ -132,6 +132,33 @@
    against its plain version at mamba2-130m's shape (24 heads, N 128) and
    at the reference tests' shapes in bf16 (the tensor-core kernel) as well
    as f32 (the FFMA kernel), and timed at both model shapes.
+   Dense LM path: deepseek-7b at full width and depth (30 layers,
+   d_model 4096, 32 heads of 128, d_ff 11008, vocab 102400; ~6.9 B random
+   bf16 parameters from a seeded generator) serves 8 prompts of 512 tokens
+   with 32 greedy steps and bf16 KV through ``launch.serve.serve``. Launch
+   counts are reset just before the timed serve and read just after: one
+   prefill must launch ``flash_attention`` 30 times (the kernels line's
+   flash launches add them, ``dense_launches``). The prefill and one
+   decode step are profiled. The flash kernel at head width 128 is held
+   against its plain version at the path's shape (bf16 causal, on the
+   model's views and contiguous; not causal), at a ragged S != T and in
+   f32 (the FFMA kernel), and timed beside SDPA on the same views. An f32
+   copy cut to 4 layers gives the same logits from ``prefill`` + one
+   ``decode_step`` as from ``forward``; minitron-4b (GQA), granite-20b
+   (MQA) and qwen2.5-32b (QKV bias) do the same at full width and depth 2
+   in bf16 (DENSE_BF16_CONSIST_TOL). Greedy speculative decoding with
+   deepseek-7b as the target (gamma 4, 32 tokens) self-drafted accepts
+   every proposal in 7 target calls, and drafted by deepseek-7b's config
+   cut to 4 layers gives ``generate_greedy``'s tokens; ``ContinuousBatcher``
+   (8 slots of 640 tokens, 24 requests of 32-512 prompt tokens and 4-32
+   new tokens) gives every request its own B = 1 greedy decode; each apart
+   from a first divergence at a counted bf16 near-tie (NEAR_TIE_BF16). The
+   LM cascade (minitron-4b on the last 128 tokens, then deepseek-7b, random
+   weights) is calibrated on 256 rows of tests/test_lm_cascade.py's task
+   at 512 tokens and run over 256 more in batches of 32: labels and levels
+   equal a host oracle routing each row from the levels' scores, apart
+   from counted rows within SCORE_TOL of a threshold; it prints each
+   level's seconds per row and ``expected_cost``.
 5. Kernel entry points (``kernels/ops``), the twin of the reference's
    ``bench_transform_kernel`` at the query path's width: a chunk of 256
    dyadic 224 px frames through ``pyramid_transform_op`` with all 20
@@ -196,6 +223,24 @@ SSD_TOL = (5e-4, 5e-3)       # atol, rtol: tests/test_kernels.py::test_ssd_*
 # the decode recurrence through 38 layers, the flash kernel vs sdpa over
 # the cache); a state, position or mask fault moves logits by O(1).
 CONSIST_TOL = 1e-3
+# prefill + decode_step vs forward in bf16 at full width (minitron-4b,
+# granite-20b, qwen2.5-32b at depth 2): max |diff| over the largest |logit|.
+# The two paths round differently in bf16: the flash kernel rounds P and
+# its output, decode's sdpa rounds the scores before the softmax (2^-9 of a
+# score of up to ~10 moves a probability by ~1%), and every layer rounds
+# its outputs; ~1% of the logits' scale after two layers, 2^-5 with room.
+DENSE_BF16_CONSIST_TOL = 2.0 ** -5
+# bf16 logits' near-ties (atol, rtol against the top logit): where two
+# greedy paths of one bf16 model (other GEMM shapes, flash kernel vs sdpa
+# over the cache) may rightly pick different tokens. Each path rounds the
+# top two logits to bf16 (2^-8 relative each, so the gap moves by up to
+# 2^-7 of the top logit) and carries its own rounding through the layers
+# (the bf16 consistency lines print the decode path's: ~1% of the largest
+# logit at depth 2). A random model's logits are ~N(0, 1): the top two of
+# 10^5 are ~0.2 apart, so a good share of positions are near-ties; each
+# is counted and printed, and only the first divergence of a sequence
+# may be one.
+NEAR_TIE_BF16 = (2.0 ** -6, 2.0 ** -6)
 # transform kernels vs plain versions. On dyadic (k/256) pixels the pooled
 # sums are exact and x1/x0 projections too, so rgb/r/g/b must be equal;
 # gray sums three products in another order (|err| <= ~2 ulp of 1, x4 by
@@ -220,7 +265,15 @@ FULL = dict(base=224, chunk=256, out_res=(112, 56, 28), split=512,
                                          (128, 512, 1805), (128, 512, 361)),
             mm_probe=2048, iters=10,
             lm=dict(arch="zamba2-1.2b", full=True, batch=8, prompt=512,
-                    gen=32, check_at=256))
+                    gen=32, check_at=256),
+            dense=dict(full=True, batch=8, prompt=512, gen=32, check_at=256,
+                       check_layers=4, other_layers=2, spec_prompt=128,
+                       spec_tokens=32, gamma=4, draft_layers=4, slots=8,
+                       capacity=640, requests=24, prompt_range=(32, 512),
+                       budget_range=(4, 32), context=128, calib=256,
+                       eval=256, cascade_batch=32,
+                       flash_shapes=(((2, 8, 200, 128), (2, 8, 333, 128)),
+                                     ((2, 8, 333, 128), (2, 8, 200, 128)))))
 # the rehearsal's few steps teach its toy models little: no learning floor
 REHEARSE = dict(base=32, chunk=32, out_res=(16, 8, 4), split=48, train=48,
                 steps=3, floors=(0.0, 0.0), pinned=False, corpus=96,
@@ -231,7 +284,15 @@ REHEARSE = dict(base=32, chunk=32, out_res=(16, 8, 4), split=48, train=48,
                 resolutions=(4, 8, 16, 32), small_grid=True,
                 mm_shapes=((33, 17, 65),), mm_probe=64, iters=1,
                 lm=dict(arch="zamba2-1.2b", full=False, batch=2, prompt=64,
-                        gen=4, check_at=32))
+                        gen=4, check_at=32),
+                dense=dict(full=False, batch=2, prompt=64, gen=4, check_at=32,
+                           check_layers=2, other_layers=2, spec_prompt=16,
+                           spec_tokens=8, gamma=4, draft_layers=1, slots=3,
+                           capacity=80, requests=6, prompt_range=(8, 48),
+                           budget_range=(2, 6), context=16, calib=48,
+                           eval=32, cascade_batch=16,
+                           flash_shapes=(((1, 2, 20, 128), (1, 2, 33, 128)),
+                                         ((1, 2, 33, 128), (1, 2, 20, 128)))))
 
 
 def log(msg: str) -> None:
@@ -266,6 +327,9 @@ def main(argv=None) -> int:
     del query, before
     launches["fused_pyramid_stage0"] += ingest + sharded + serving
     launches.update(lm_path(dev, cfg, card, kern, args.seed))
+    kern["flash_attention"]["dense_launches"] = dense_lm_path(
+        dev, cfg, card, kern, args.seed)
+    launches["flash_attention"] += kern["flash_attention"]["dense_launches"]
     launches.update(ops_path(dev, cfg, card, kern, args.seed))
     if "smi" in card:    # again near the end: the card beside the numbers
         log(card["smi"])
@@ -2244,7 +2308,7 @@ def lm_path(dev, cfg, card, kern, seed):
         device_profile(lambda: serve(model, params, prompts[:, :8], steps,
                                      device=dev), dev,
                        time.perf_counter() - t0, "prefill(8) + decode profile")
-    consistency(lm, arch, params, prompts)
+    consistency(lm["check_at"], arch, params, prompts)
     return launches
 
 
@@ -2427,39 +2491,503 @@ def check_lm_kernels(dev, cfg, card, kern, arch, gen):
     kern["flash_attention"], kern["ssd_scan"] = fl, ss
 
 
-def consistency(lm, arch, params, prompts):
-    """In an f32 copy of the model: ``prefill`` on the first ``check_at``
+def consistency(c, arch, params, prompts, *, dtype="float32",
+                tol=CONSIST_TOL):
+    """In a ``dtype`` copy of the model: ``prefill`` on the first ``c``
     tokens, then one ``decode_step``, against ``forward`` over all of them
-    at those positions (the kernel path vs the plain decode recurrences)."""
+    at those positions (the kernel path vs the plain decode recurrences).
+    In bf16 a row's argmax may differ only at a near-tie (NEAR_TIE_BF16),
+    counted and printed."""
     import torch
 
     from repro_torch.launch.serve import grow_cache
+    from repro_torch.models.common import DTYPES
     from repro_torch.models.factory import build_model
-    c = lm["check_at"]
-    m32 = build_model(arch.replace(dtype="float32"))
+    m = build_model(arch.replace(dtype=dtype))
 
-    def f32(tree):
+    def cast(tree):
         if isinstance(tree, dict):
-            return {k: f32(v) for k, v in tree.items()}
-        return tree.float()
+            return {k: cast(v) for k, v in tree.items()}
+        return tree.to(DTYPES[dtype])
 
-    p32 = f32(params)
-    full, _, _ = m32.forward(p32, {"tokens": prompts})
-    last, cache = m32.prefill(p32, {"tokens": prompts[:, :c]},
-                              kv_dtype="float32")
-    step, _ = m32.decode(p32, grow_cache(cache, 1),
-                         {"tokens": prompts[:, c:c + 1]})
+    p = cast(params)
+    full, _, _ = m.forward(p, {"tokens": prompts})
+    last, cache = m.prefill(p, {"tokens": prompts[:, :c]}, kv_dtype=dtype)
+    step, _ = m.decode(p, grow_cache(cache, 1),
+                       {"tokens": prompts[:, c:c + 1]})
     for name, got, want in (("prefill", last, full[:, c - 1]),
                             ("decode_step", step, full[:, c])):
+        got, want = got.float(), want.float()
         rel = float((got - want).abs().max() / want.abs().max())
-        same = bool(torch.equal(got.argmax(-1), want.argmax(-1)))
-        log(f"  f32 {name} at position {c - (name == 'prefill')} vs "
-            f"forward over {prompts.shape[1]} tokens: max |diff| / max "
-            f"|logit| {rel:.3g} (tol {CONSIST_TOL}), argmax identical: {same}")
-        if rel > CONSIST_TOL or not same or not torch.isfinite(got).all():
-            raise AssertionError(f"{name} disagrees with forward: {rel}")
-    log("  prefill + decode_step == forward (f32, kernel path vs the plain "
-        "decode recurrences)")
+        differ = (got.argmax(-1) != want.argmax(-1)).nonzero()[:, 0].tolist()
+        ties = near_ties(want.topk(2, -1).values) if dtype != "float32" \
+            else torch.zeros(len(want), dtype=torch.bool)
+        log(f"  {dtype} {arch.name} ({arch.n_layers} layers) {name} at "
+            f"position {c - (name == 'prefill')} vs forward over "
+            f"{prompts.shape[1]} tokens: max |diff| / max |logit| {rel:.3g} "
+            f"(tol {tol:.3g}), argmax differs in rows {differ} (near-ties "
+            f"among the {len(want)} rows: {ties.nonzero()[:, 0].tolist()})")
+        if rel > tol or any(not ties[r] for r in differ) \
+                or not torch.isfinite(got).all():
+            raise AssertionError(f"{arch.name} {name} disagrees with "
+                                 f"forward: {rel}, rows {differ}")
+    log(f"  prefill + decode_step == forward ({dtype}, kernel path vs the "
+        f"plain decode recurrences)")
+
+
+def near_ties(top2, tol=NEAR_TIE_BF16):
+    """(..., 2) top-two logits (descending) -> bool: the gap lies within
+    the bf16 near-tie tolerance."""
+    return top2[..., 0] - top2[..., 1] <= tol[0] + tol[1] * top2[..., 0].abs()
+
+
+# ----------------------------------------------------------- phase 4b --
+def dense_lm_path(dev, cfg, card, kern, seed):
+    """deepseek-7b served through ``launch.serve.serve``, the flash kernel
+    at head width 128, prefill/decode consistency of the four dense archs,
+    speculative decoding, continuous batching and the LM cascade. Returns
+    the serve's ``flash_attention`` launches."""
+    import torch
+
+    from repro_torch.configs.registry import get_arch, smoke_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import grow_cache, serve
+    from repro_torch.models.factory import build_model, count_params
+    dn = cfg["dense"]
+    log("== dense LM path")
+
+    def arch_of(name):
+        return get_arch(name) if dn["full"] else smoke_config(name)
+
+    arch = arch_of("deepseek-7b")
+    model = build_model(arch)
+    gen = torch.Generator(device=dev).manual_seed(seed + 5)
+    t0 = time.perf_counter()
+    params = model.init(gen, device=dev)
+    _sync(dev)
+    log(f"  {arch.name}: {count_params(params):,} parameters ({arch.dtype}), "
+        f"{arch.n_layers} layers, d_model {arch.d_model}, {arch.n_heads} "
+        f"heads of {arch.head_dim} ({arch.n_kv_heads} KV heads), d_ff "
+        f"{arch.d_ff}, vocab {arch.vocab_size}; random weights in "
+        f"{time.perf_counter() - t0:.3f} s")
+    b, s, n_gen = dn["batch"], dn["prompt"], dn["gen"]
+    prompts = torch.randint(0, arch.vocab_size, (b, s), generator=gen,
+                            device=dev)
+    serve(model, params, prompts, 2, "bfloat16", device=dev)   # warm-up
+
+    # ---- the main path, with the launch counts read around it
+    mem0 = _peak_reset(dev)
+    ops.reset_launch_counts()
+    res = serve(model, params, prompts, n_gen, "bfloat16", device=dev)
+    launches = dict(ops.LAUNCHES)
+    peak = _peak_extra(dev, mem0)
+    expect = {k: (arch.n_layers if k == "flash_attention" else 0)
+              for k in launches}
+    log(f"  served {b} prompts x {s} tokens + {n_gen} greedy decode steps, "
+        f"bf16 KV: prefill {res.prefill_s * 1e3:.3f} ms "
+        f"({b * s / res.prefill_s:.0f} prompt tok/s), decode "
+        f"{res.decode_s * 1e3 / n_gen:.3f} ms/step "
+        f"({b * n_gen / res.decode_s:.1f} tok/s); peak memory above the "
+        f"weights {_mb(peak)}")
+    log(f"  launches on the serve path: {launches} (one prefill; expected "
+        f"flash_attention {arch.n_layers})")
+    if dev.type == "cuda" and launches != expect:
+        raise AssertionError(f"dense serve path launches {launches} != "
+                             f"{expect}")
+    toks, lg = res.tokens, res.logits
+    if tuple(toks.shape) != (b, n_gen + 1) or not torch.isfinite(lg).all() \
+            or int(toks.max()) >= arch.vocab_size or int(toks.min()) < 0:
+        raise AssertionError("dense serve produced bad tokens or logits")
+    log(f"  sample tokens: {toks[0, :8].tolist()}")
+    if dev.type == "cuda":
+        device_profile(lambda: serve(model, params, prompts, 0, device=dev),
+                       dev, res.prefill_s, "prefill profile (bf16)")
+        _, cache = model.prefill(params, {"tokens": prompts})
+        cache = grow_cache(cache, 2)
+        step_in = {"tokens": toks[:, :1]}
+        _sync(dev)
+        t0 = time.perf_counter()
+        model.decode(params, cache, step_in)
+        _sync(dev)
+        device_profile(lambda: model.decode(params, cache, step_in), dev,
+                       time.perf_counter() - t0,
+                       f"decode step profile (batch {b}, {s + 1} cached "
+                       f"tokens)")
+        del cache
+    check_flash_128(dev, cfg, card, kern, arch, gen)
+    dense_consistency(dn, arch_of, arch, params, prompts, gen, dev)
+    del res, lg
+    speculative_check(dn, arch, model, params, prompts, dev, seed)
+    batching_check(dn, arch, model, params, dev, seed)
+    cascade_check(dn, arch_of, model, params, dev, seed)
+    return launches["flash_attention"]
+
+
+def check_flash_128(dev, cfg, card, kern, arch, gen):
+    """The flash kernel at head width 128 against its plain version: the
+    serve path's shape on the model's (B,S,H,D) views and contiguous,
+    without the causal mask, ragged S != T, and f32 (the FFMA kernel);
+    then kernel, plain, bound and SDPA times at the path's shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import flash_attention_ref
+    dn = cfg["dense"]
+    b, s, h, d = dn["batch"], dn["prompt"], arch.n_heads, arch.head_dim
+    bf = torch.bfloat16
+    path = (b, h, s, d)
+
+    def inputs(qshape, kshape, dt, view):
+        def one(shape):
+            bb, hh, sl, dd = shape
+            x = torch.randn((bb, sl, hh, dd) if view else shape,
+                            generator=gen, device=dev) * 0.5
+            return x.to(dt).transpose(1, 2) if view else x.to(dt)
+        return one(qshape), one(kshape), one(kshape)
+
+    cases = [(path, path, True, bf, True), (path, path, True, bf, False),
+             (path, path, False, bf, True)]
+    cases += [(q, k, c, bf, False) for (q, k), c in
+              zip(dn["flash_shapes"], (False, True))]
+    f32 = (2, 8, 512, 128) if dn["full"] else (1, 2, 64, 128)
+    cases += [(f32, f32, True, torch.float32, False)]
+    cases += [(q, k, c, torch.float32, False) for (q, k), c in
+              zip(dn["flash_shapes"], (False, True))]
+    fl = kern["flash_attention"]
+    for qs, ks, causal, dt, view in cases:
+        q, k, v = inputs(qs, ks, dt, view)
+        tol = FLASH_BF16_TOL if dt == bf else (FLASH_TOL, FLASH_TOL)
+        want = flash_attention_ref(q.float(), k.float(), v.float(),
+                                   causal=causal)
+        out = flash_attention(q, k, v, causal=causal)
+        err, ok = _close(out, want, *tol)
+        same = (out.transpose(1, 2).is_contiguous() if view
+                else out.is_contiguous())
+        log(f"  flash_attention D={qs[3]} q {qs} k/v {ks} "
+            f"{'(B,S,H,D).transpose(1, 2)' if view else '(B,H,S,D)'} {dt} "
+            f"causal={causal}: max |err| {err:.3g} (atol, rtol {tol[0]:.3g}, "
+            f"{tol[1]:.3g}; mean |out| {float(want.abs().mean()):.3g}); "
+            f"output in q's layout: {same}")
+        if not ok or (dev.type == "cuda" and not same):
+            raise AssertionError(f"flash_attention {qs} {ks} {dt}: "
+                                 f"{err}, layout {same}")
+        fl["max_abs_err"] = max(fl["max_abs_err"], err)
+    # under autograd (a model trained on the card): the kernel's forward,
+    # the plain version's backward
+    from repro_torch.kernels import ops
+    q, k, v = (t.float().requires_grad_() for t in inputs(
+        dn["flash_shapes"][0][0], dn["flash_shapes"][0][0], bf, False))
+    w = torch.randn(q.shape, generator=gen, device=dev)
+    ops.reset_launch_counts()
+    out = flash_attention(q, k, v)
+    n_fwd = ops.LAUNCHES["flash_attention"]
+    got = torch.autograd.grad((out * w).sum(), (q, k, v))
+    want = torch.autograd.grad((flash_attention_ref(q, k, v) * w).sum(),
+                               (q, k, v))
+    same = all(torch.equal(a, b) for a, b in zip(got, want))
+    log(f"  flash_attention under autograd, q/k/v {tuple(q.shape)} f32: "
+        f"forward by the kernel ({n_fwd} launch), gradients equal the plain "
+        f"version's: {same}")
+    if not same or (dev.type == "cuda" and n_fwd != 1):
+        raise AssertionError("flash_attention's autograd path")
+    q, k, v = inputs(path, path, bf, True)
+    it = cfg["iters"]
+    t = alternating(
+        f"flash_attention {path} bf16 causal on (B,S,H,D) views",
+        (("kernel", lambda: flash_attention(q, k, v)),
+         ("sdpa", lambda: F.scaled_dot_product_attention(q, k, v,
+                                                          is_causal=True))),
+        dev, it)
+    row = dict(ms=t["kernel"]["ms"][0], library_ms=t["sdpa"]["ms"][0],
+               device_ms=t["kernel"]["device_ms"][0],
+               library_device_ms=t["sdpa"]["device_ms"][0],
+               plain_ms=time_ms(lambda: flash_attention_ref(q, k, v), dev,
+                                it))
+    t_ops = 4.0 * b * h * d * s * (s + 1) / 2 / card["bf16"]
+    t_mem = 4.0 * b * h * s * d * 2 / card["bw"]
+    row.update(bound_ms=max(t_ops, t_mem) * 1e3,
+               bound_by="operations" if t_ops > t_mem else "bytes",
+               launches=arch.n_layers,
+               shape=f"q,k,v {path} bf16 causal, (B,S,H,D).transpose(1, 2) "
+                     f"views ({arch.name}, {arch.n_layers} launches a "
+                     f"prefill)")
+    log(f"  flash_attention {path} bf16 causal: kernel {row['ms']:.4f} ms, "
+        f"plain {row['plain_ms']:.4f} ms, sdpa {row['library_ms']:.4f} ms "
+        f"(CUDA events); device time kernel {_ms(row['device_ms'])} ms, sdpa "
+        f"{_ms(row['library_device_ms'])} ms; bound {row['bound_ms']:.4f} ms "
+        f"({row['bound_by']})")
+    fl.setdefault("other_shapes", []).append(row)
+
+
+def dense_consistency(dn, arch_of, arch, params, prompts, gen, dev):
+    """prefill + decode_step == forward: an f32 copy of deepseek-7b cut to
+    ``check_layers``, then minitron-4b (GQA), granite-20b (MQA) and
+    qwen2.5-32b (QKV bias, random biases) at full width and
+    ``other_layers`` in bf16, with random weights."""
+    from repro_torch.models.factory import build_model
+    c, n = dn["check_at"], dn["check_layers"]
+
+    def first_layers(tree):
+        if isinstance(tree, dict):
+            return {k: first_layers(v) for k, v in tree.items()}
+        return tree[:n]
+
+    cut = dict(params, layers=first_layers(params["layers"]))
+    consistency(c, arch.replace(n_layers=n), cut, prompts)
+    del cut
+    for name in ("minitron-4b", "granite-20b", "qwen2.5-32b"):
+        other = arch_of(name).replace(n_layers=dn["other_layers"])
+        p = build_model(other).init(gen, device=dev)
+        if other.qkv_bias:     # zeros at init: give the biases a value
+            for key in ("bq", "bk", "bv"):
+                p["layers"]["attn"][key].normal_(0.0, 0.5, generator=gen)
+        toks = prompts % other.vocab_size
+        consistency(c, other, p, toks, dtype="bfloat16",
+                    tol=DENSE_BF16_CONSIST_TOL)
+        del p
+
+
+def _recording(model, calls):
+    """``model`` whose forward appends, for batch row 0, the input tokens
+    and the top two logits (values, ids) of every output row to
+    ``calls``."""
+    def forward(p, batch, **kw):
+        out = model.forward(p, batch, **kw)
+        top = out[0][0].float().topk(2, dim=-1)
+        calls.append((batch["tokens"][0].tolist(), top.values.cpu(),
+                      top.indices.cpu()))
+        return out
+    return model._replace(forward=forward)
+
+
+def first_divergence(got, want, top2_want):
+    """-> (index of the first token where ``got`` leaves ``want`` or None,
+    whether the reference's top two logits there are a near-tie)."""
+    for i, (g, w) in enumerate(zip(got, want)):
+        if int(g) != int(w):
+            return i, bool(near_ties(top2_want[i]))
+    return None, False
+
+
+def speculative_check(dn, arch, model, params, prompts, dev, seed):
+    """Greedy speculative decoding with deepseek-7b as the target: drafted
+    by itself (every proposal accepted, apart from counted near-ties) and
+    by an independent model, deepseek-7b's config cut to ``draft_layers``
+    with its own seed. Both outputs equal ``generate_greedy``'s, apart
+    from a first divergence at a counted near-tie."""
+    import torch
+
+    from repro_torch.models.factory import build_model
+    from repro_torch.serve.speculative import (generate_greedy,
+                                               generate_speculative)
+    n, g = dn["spec_tokens"], dn["gamma"]
+    prompt = prompts[0, :dn["spec_prompt"]].cpu().numpy()
+    greedy_calls: list = []
+    t0 = time.perf_counter()
+    want = generate_greedy(_recording(model, greedy_calls), params, prompt,
+                           n, device=dev)
+    t_greedy = time.perf_counter() - t0
+    top2 = [c[1][-1] for c in greedy_calls]     # position len(prompt) + i
+    ties = int(near_ties(torch.stack(top2)).sum())
+    log(f"  generate_greedy {arch.name}, prompt {len(prompt)}, {n} tokens: "
+        f"{t_greedy:.3f} s ({len(greedy_calls)} forwards); near-ties among "
+        f"its {n} positions: {ties}")
+    dcfg = arch.replace(n_layers=dn["draft_layers"])
+    draft = build_model(dcfg)
+    dparams = draft.init(torch.Generator(device=dev).manual_seed(seed + 6),
+                         device=dev)
+    fails = []
+    for label, dm, dp in (("self-draft", model, params),
+                          (f"draft {arch.name} cut to {dcfg.n_layers} "
+                           f"layers", draft, dparams)):
+        calls: list = []
+        target = _recording(model, calls)
+        if dm is model:
+            dm = target
+        _sync(dev)
+        t0 = time.perf_counter()
+        out, st = generate_speculative(dm, dp, target, params, prompt, n,
+                                       gamma=g, device=dev)
+        _sync(dev)
+        wall = time.perf_counter() - t0
+        at, tie = first_divergence(out, want, top2)
+        rej = verify_rejections(calls, len(prompt), n)
+        log(f"  speculative, {label}, gamma {g}: acceptance "
+            f"{st.acceptance_rate:.3f} ({st.accepted} of {st.proposed}), "
+            f"target calls {st.target_calls}, draft calls {st.draft_calls}; "
+            f"{wall:.3f} s vs generate_greedy's {t_greedy:.3f} s "
+            f"({t_greedy / wall:.2f}x); output equals generate_greedy's: "
+            + ("True" if at is None else
+               f"up to token {at}, where greedy's top two logits are "
+               f"{'a near-tie' if tie else 'NOT a near-tie'}")
+            + f"; rejected proposals at (position, near-tie): {rej}")
+        if at is not None and not tie:
+            fails.append(f"{label}: output leaves greedy's at {at}")
+        if dm is target and (any(not t for _, t in rej) or not rej and (
+                st.acceptance_rate != 1.0
+                or st.target_calls != -(-n // (g + 1)))):
+            fails.append(f"self-draft: {st}, rejected {rej}")
+    del draft, dparams
+    if fails:
+        raise AssertionError("; ".join(fails))
+
+
+def verify_rejections(calls, n_prompt, n_tokens):
+    """Replays the target's verification forwards (recorded by
+    ``_recording``; the draft's have one output row): -> [(position of a
+    rejected proposal, whether the target's top two logits there are a
+    near-tie)]."""
+    out_len, rejected = 0, []
+    for toks, top2, ids in calls:
+        if len(ids) != len(toks):
+            continue                      # a draft call (last row only)
+        base = n_prompt + out_len - 1
+        props = toks[n_prompt + out_len:]
+        n_acc = 0
+        while n_acc < len(props) and props[n_acc] == int(ids[base + n_acc,
+                                                              0]):
+            n_acc += 1
+        if n_acc < len(props):
+            rejected.append((base + n_acc + 1,
+                             bool(near_ties(top2[base + n_acc]))))
+        out_len = min(n_tokens, out_len + n_acc + 1)
+    return rejected
+
+
+def batching_check(dn, arch, model, params, dev, seed):
+    """``ContinuousBatcher`` with ``slots`` slots of ``capacity`` tokens
+    over ``requests`` requests (prompt lengths and budgets drawn from the
+    seed): every request's tokens equal its own B = 1 ``generate_greedy``,
+    apart from a first divergence at a counted near-tie."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serve.continuous_batching import (ContinuousBatcher,
+                                                       GenRequest)
+    from repro_torch.serve.speculative import generate_greedy
+    rng = np.random.default_rng(seed + 7)
+    lo, hi = dn["prompt_range"]
+    blo, bhi = dn["budget_range"]
+    reqs = [GenRequest(i, rng.integers(0, arch.vocab_size,
+                                       int(rng.integers(lo, hi + 1))
+                                       ).astype(np.int32),
+                       int(rng.integers(blo, bhi + 1)))
+            for i in range(dn["requests"])]
+    eng = ContinuousBatcher(model, params, n_slots=dn["slots"],
+                            capacity=dn["capacity"], device=dev)
+    for r in reqs:
+        eng.submit(r)
+    _sync(dev)
+    t0 = time.perf_counter()
+    st = eng.run_to_completion()
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    made = sum(len(r.out) for r in reqs)
+    log(f"  continuous batching, {dn['slots']} slots x {dn['capacity']} "
+        f"tokens, {len(reqs)} requests (prompts {lo}-{hi}, budgets "
+        f"{blo}-{bhi}): {st.steps} steps, mean slot occupancy "
+        f"{st.mean_occupancy:.3f}, {made} tokens in {wall:.3f} s "
+        f"({made / wall:.1f} tok/s, prefills included), finished "
+        f"{st.finished}")
+    if st.finished != len(reqs) or any(not r.done for r in reqs):
+        raise AssertionError(f"continuous batching left requests: {st}")
+    diverged, bad, agree_noise = [], [], 0.0
+    for r in reqs:
+        calls: list = []
+        want = generate_greedy(_recording(model, calls), params, r.prompt,
+                               r.max_new, device=dev)
+        top2 = [c[1][-1] for c in calls]
+        at, tie = first_divergence(r.out, want, top2)
+        if at is not None:
+            (diverged if tie else bad).append((r.rid, at, len(r.out)))
+    log(f"  every request's tokens equal its own B = 1 greedy decode: "
+        f"{len(reqs) - len(diverged) - len(bad)} of {len(reqs)} to the "
+        f"last token; first divergence at a near-tie (request, token, of): "
+        f"{diverged}; elsewhere: {bad}")
+    if bad:
+        raise AssertionError(f"continuous batching left greedy away from a "
+                             f"near-tie: {bad}")
+
+
+def cascade_check(dn, arch_of, trusted_model, trusted_params, dev, seed):
+    """The LM predicate cascade: minitron-4b reading the last ``context``
+    tokens as the cheap level, deepseek-7b as the trusted level (random
+    weights), tests/test_lm_cascade.py's task at ``prompt`` tokens;
+    calibrated on ``calib`` rows (prec_target 0.8), run over ``eval`` rows
+    in batches of ``cascade_batch``. Labels and levels equal a host oracle
+    that routes each row from the levels' own scores; rows whose cheap
+    score lies within SCORE_TOL of a threshold are counted."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.lm_cascade import (LMLevel, calibrate,
+                                             expected_cost,
+                                             lm_predicate_score,
+                                             run_lm_cascade)
+    from repro_torch.models.factory import build_model
+    yes, no = 7, 13
+    cheap_arch = arch_of("minitron-4b")
+    cheap = build_model(cheap_arch)
+    cparams = cheap.init(torch.Generator(device=dev).manual_seed(seed + 8),
+                         device=dev)
+    rng = np.random.default_rng(seed + 9)
+    n, seq = dn["calib"] + dn["eval"], dn["prompt"]
+    toks = rng.integers(0, arch_of("deepseek-7b").vocab_size,
+                        (n, seq)).astype(np.int32)
+    toks[toks == yes] = yes + 1
+    truth = rng.integers(0, 2, n).astype(np.int32)
+    for i in np.where(truth == 1)[0]:
+        toks[i, rng.integers(0, seq - 1, size=3)] = yes
+    levels = [LMLevel(cheap, cparams, yes, no, max_context=dn["context"]),
+              LMLevel(trusted_model, trusted_params, yes, no)]
+    ca = dn["calib"]
+    calibrate(levels, toks[:ca], truth[:ca], prec_target=0.8, device=dev)
+    lv0 = levels[0]
+    bs = dn["cascade_batch"]
+    labels, used, scores, secs = [], [], [[], []], [0.0, 0.0]
+    t_run = 0.0
+    for i in range(ca, n, bs):
+        batch = toks[i:i + bs]
+        _sync(dev)
+        t0 = time.perf_counter()
+        lab, u = run_lm_cascade(levels, batch, device=dev)
+        t_run += time.perf_counter() - t0
+        labels.append(lab)
+        used.append(u)
+        for li, lvl in enumerate(levels):
+            t0 = time.perf_counter()
+            scores[li].append(lm_predicate_score(lvl, batch, device=dev))
+            secs[li] += time.perf_counter() - t0
+    labels, used = np.concatenate(labels), np.concatenate(used)
+    s0, s1 = (np.concatenate(x) for x in scores)
+    certain = (s0 <= lv0.p_low) | (s0 >= lv0.p_high)
+    o_used = np.where(certain, 0, 1).astype(np.int32)
+    o_labels = np.where(certain, s0 >= lv0.p_high, s1 >= 0.5).astype(np.int32)
+    near = np.minimum(np.abs(s0 - lv0.p_low), np.abs(s0 - lv0.p_high)
+                      ) <= SCORE_TOL
+    differ = (labels != o_labels) | (used != o_used)
+    per_row = [x / dn["eval"] for x in secs]
+    ev = truth[ca:]
+    log(f"  LM cascade: {cheap_arch.name} on the last {dn['context']} "
+        f"tokens, then {arch_of('deepseek-7b').name} on {seq}; calibrated "
+        f"on {ca} rows (prec_target 0.8): p_low {lv0.p_low:.2f}, p_high "
+        f"{lv0.p_high:.2f}; {dn['eval']} rows in batches of {bs}: "
+        f"{int((used == 0).sum())} exit at level 0; accuracy vs the task's "
+        f"labels {float((labels == ev).mean()):.3f} (random weights); "
+        f"cascade run {t_run:.3f} s")
+    log(f"  LM cascade seconds per row: level 0 {per_row[0] * 1e3:.4f} ms, "
+        f"level 1 {per_row[1] * 1e3:.4f} ms (whole batches, measured); "
+        f"expected_cost {expected_cost(levels, used, per_row) * 1e3:.4f} ms "
+        f"a row vs the trusted level alone {per_row[1] * 1e3:.4f} ms")
+    log(f"  labels and levels equal the host oracle's: "
+        f"{not differ.any()} ({int(differ.sum())} rows differ, "
+        f"{int((differ & near).sum())} of them within {SCORE_TOL} of a "
+        f"threshold; rows that near a threshold: {int(near.sum())})")
+    if (differ & ~near).any():
+        raise AssertionError(f"LM cascade rows {np.nonzero(differ & ~near)}"
+                             f" differ from the oracle")
+    del levels, cparams
 
 
 # ------------------------------------------------------------ phase 5 --
@@ -2720,7 +3248,8 @@ def kernels_line(kern, launches):
                                                "tb_per_s", "other_shapes",
                                                "ingest_launches",
                                                "sharded_launches",
-                                               "serving_launches")
+                                               "serving_launches",
+                                               "dense_launches")
                        if key in k}})
     print(json.dumps({"kernels": out}), flush=True)
 

@@ -1,0 +1,16 @@
+"""qwen2.5-32b [dense]: GQA kv=8, QKV bias. [hf:Qwen/Qwen2.5-0.5B; hf]"""
+from repro_torch.configs.base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="qwen2.5-32b",
+    family="dense",
+    n_layers=64,
+    d_model=5120,
+    n_heads=40,
+    n_kv_heads=8,
+    d_ff=27648,
+    vocab_size=152064,
+    head_dim=128,
+    qkv_bias=True,
+    source="[hf:Qwen/Qwen2.5-0.5B; hf]",
+)

@@ -1,7 +1,9 @@
 """Synthetic labeled image corpora with *representation-sensitive* class
 signal, standing in for the paper's ImageNet predicates (numpy; a copy of
 the reference's generators, pinned equal to them by
-tests/test_torch_transforms_cnn.py and tests/test_torch_ingest.py).
+tests/test_torch_transforms_cnn.py and tests/test_torch_ingest.py), and the
+reference's token stream for LM examples (``lm_token_batches``, pinned by
+tests/test_torch_lm_dense.py).
 
 Each binary predicate k is parameterized by a color channel c_k and a
 spatial frequency f_k. Positive images carry a sinusoidal texture of
@@ -218,3 +220,15 @@ def three_way_split(x, y, seed: int = 0, frac=(0.5, 0.25, 0.25)):
     n2 = n1 + int(len(x) * frac[1])
     tr, cf, ev = idx[:n1], idx[n1:n2], idx[n2:]
     return (x[tr], y[tr]), (x[cf], y[cf]), (x[ev], y[ev])
+
+
+def lm_token_batches(vocab: int, batch: int, seq: int, steps: int,
+                     seed: int = 0):
+    """Markov-ish synthetic token stream for LM training examples."""
+    rng = np.random.default_rng(seed)
+    base = rng.integers(0, vocab, size=(steps, batch, seq + 1),
+                        dtype=np.int32)
+    # inject learnable structure: every even position repeats prev token
+    base[:, :, 2::2] = base[:, :, 1:-1:2]
+    for s in range(steps):
+        yield {"tokens": base[s, :, :-1], "labels": base[s, :, 1:]}

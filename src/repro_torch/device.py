@@ -39,3 +39,15 @@ def tensor_device(tree) -> torch.device | None:
             if dev is not None:
                 return dev
     return None
+
+
+def params_device(params, device=None) -> torch.device:
+    """``resolve_device(device)``, after checking that ``params`` (a tree
+    of tensors) lie on that device: an entry point computes where its
+    weights are and never moves them."""
+    dev = resolve_device(device)
+    pdev = tensor_device(params)
+    if pdev is None or pdev.type != dev.type or (
+            dev.index is not None and pdev.index != dev.index):
+        raise ValueError(f"params on {pdev}, running on {dev}")
+    return pdev

@@ -4,8 +4,11 @@ heads already repeated, scale D^-0.5, causal or not.
 ``flash_attention`` picks by the device of its inputs: on CPU tensors it
 runs the plain version (kernels/ref.flash_attention_ref); on CUDA tensors
 it launches the hand-written kernel (csrc/flash_attention.cu) or raises.
+Under autograd (an operand that requires grad) the kernel still computes
+the forward; the backward is the plain version's, recomputed (``_Flash``),
+so a model trains on the card through the kernel.
 q, k, v share one dtype (f32 or bf16); the output is in that dtype; head
-width D is 16, 32 or 64 on the card.
+width D is 16, 32, 64 or 128 on the card.
 
 The kernel takes strided operands: any (B,H,S,D) view whose last
 dimension is contiguous and whose rows start 16-byte aligned
@@ -23,7 +26,7 @@ from repro_torch.kernels import bindings
 from repro_torch.kernels.ref import flash_attention_ref
 
 _DTYPES = (torch.float32, torch.bfloat16)
-_HEAD_DIMS = (16, 32, 64)
+_HEAD_DIMS = (16, 32, 64, 128)
 
 
 def kernel_operand(t: torch.Tensor) -> torch.Tensor:
@@ -51,10 +54,36 @@ def flash_attention(q, k, v, *, causal: bool = True):
     if q.shape[3] not in _HEAD_DIMS:
         raise ValueError(f"flash_attention: head width {q.shape[3]} not in "
                          f"{_HEAD_DIMS}")
-    q, k, v = (kernel_operand(t) for t in args)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return _Flash.apply(q, k, v, causal)
+    return _launch(q, k, v, causal)
+
+
+def _launch(q, k, v, causal):
+    q, k, v = (kernel_operand(t) for t in (q, k, v))
     out = torch.empty_like(q)
     if not k.shape[2]:
         return out.zero_()         # no keys: the kernel's 0 / max(0, 1e-30)
     if out.numel():
         bindings.launch_flash_attention(q, k, v, out, causal)
     return out
+
+
+class _Flash(torch.autograd.Function):
+    """The kernel's forward under autograd. The backward differentiates
+    the plain version, recomputed from the saved inputs: the reference's
+    Pallas kernel has no backward to port, and its models differentiate
+    plain softmax attention."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal = causal
+        return _launch(q, k, v, causal)
+
+    @staticmethod
+    def backward(ctx, grad):
+        with torch.enable_grad():
+            args = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+            out = flash_attention_ref(*args, causal=ctx.causal)
+        return (*torch.autograd.grad(out, args, grad), None)

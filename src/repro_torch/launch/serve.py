@@ -5,6 +5,11 @@ reference's ``launch/serve.py`` for the architectures the port runs.
       [--batch 8 --prompt-len 64 --gen 32 --kv-dtype bfloat16 --full] \\
       [--device cuda]
 
+``--arch`` takes every architecture the port registers: the hybrid
+zamba2-1.2b, the ssm mamba2-130m, and the dense deepseek-7b, minitron-4b,
+granite-20b and qwen2.5-32b (``--arch deepseek-7b --full`` serves its 6.9 B
+parameters at full width on one card).
+
 Without ``--full`` the arch's smoke config is served. Weights and prompts
 are random, seeded with 0 as the reference seeds them. ``--device``
 defaults to ``cuda``; without a card that raises, and ``--device cpu``
@@ -19,7 +24,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from repro_torch.device import resolve_device, tensor_device
+from repro_torch.device import params_device, resolve_device
 
 _CACHE_SEQ_LEAVES = ("k", "v", "k_scale", "v_scale")
 
@@ -55,11 +60,7 @@ def serve(model, params, tokens, gen: int, kv_dtype: str = "bfloat16", *,
     """Prefill ``tokens`` (B, S), then ``gen`` greedy decode steps. Runs
     on the card unless ``device`` says otherwise; ``params`` must lie on
     that device."""
-    dev = resolve_device(device)
-    pdev = tensor_device(params)
-    if pdev is None or pdev.type != dev.type or (
-            dev.index is not None and pdev.index != dev.index):
-        raise ValueError(f"serve: params on {pdev}, serving on {dev}")
+    pdev = params_device(params, device)
     tokens = torch.as_tensor(tokens).to(device=pdev, dtype=torch.int64)
     _sync(pdev)
     t0 = time.perf_counter()

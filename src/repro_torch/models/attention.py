@@ -1,6 +1,8 @@
 """GQA/MQA attention (optional QKV bias, RoPE), ported from the
 reference's ``models/attention.py``: head padding layout, projections,
-the decode ``sdpa`` over the cache and the masked output projection.
+the decode ``sdpa`` over the cache and the masked output projection, and
+``chunked_sdpa``, the reference's query-chunked attention as a plain
+function.
 
 The full-sequence causal attention of prefill/forward is not here: the
 decoder block calls the ``flash_attention`` kernel wrapper
@@ -35,6 +37,12 @@ class HeadLayout(NamedTuple):
             g = self.n_q // self.n_kv
             return ((i % self.gp) < g).to(torch.float32)
         return (i < self.n_q).to(torch.float32)
+
+    def q_head_is_real(self, i: int) -> bool:
+        if self.khp == self.n_kv:
+            g = self.n_q // self.n_kv
+            return (i % self.gp) < g
+        return i < self.n_q
 
 
 def head_layout(n_q: int, n_kv: int, pad_to: int) -> HeadLayout:
@@ -112,6 +120,33 @@ def sdpa(q, k, v, *, k_valid, gp: int = 1):
     probs = torch.softmax(scores, dim=-1)
     ctx = torch.einsum("bkgst,btkd->bskgd", probs.to(q.dtype), v)
     return ctx.reshape(b, s, h, v.shape[-1])
+
+
+def chunked_sdpa(q, k, v, *, causal: bool, chunk: int, gp: int = 1):
+    """The reference's jnp-flash as a plain function: softmax attention one
+    query chunk at a time, so the (S x T) scores are never all held.
+    q (B,S,H,dh) with S a multiple of ``chunk``; k/v (B,T,KH,dh), H =
+    KH*gp, GQA-grouped as ``sdpa`` (k/v never repeated). The causal mask
+    compares absolute positions, query i seeing keys 0..i."""
+    b, s, h, dh = q.shape
+    kh, t = k.shape[2], k.shape[1]
+    if s % chunk or h != kh * gp:
+        raise ValueError(f"chunked_sdpa: S {s}, chunk {chunk}, {h} q heads "
+                         f"vs {kh} kv heads x {gp}")
+    kpos = torch.arange(t, device=q.device)
+    neg = torch.finfo(torch.float32).min
+    outs = []
+    for c0 in range(0, s, chunk):
+        qc = q[:, c0:c0 + chunk].reshape(b, chunk, kh, gp, dh)
+        scores = torch.einsum("bskgd,btkd->bkgst", qc, k).to(torch.float32)
+        scores = scores * dh ** -0.5
+        if causal:
+            qpos = c0 + torch.arange(chunk, device=q.device)
+            scores = scores.masked_fill(
+                (qpos[:, None] < kpos[None, :])[None, None, None], neg)
+        probs = torch.softmax(scores, dim=-1)
+        outs.append(torch.einsum("bkgst,btkd->bskgd", probs.to(q.dtype), v))
+    return torch.cat(outs, 1).reshape(b, s, h, v.shape[-1])
 
 
 def gqa_out(p, ctx, cfg):

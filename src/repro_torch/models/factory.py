@@ -1,6 +1,6 @@
 """config -> Model: uniform init/forward/prefill/decode, ported from the
-reference's ``models/factory.py`` for the families the port runs (``ssm``
-and ``hybrid``)."""
+reference's ``models/factory.py`` for the families the port runs
+(``dense``, ``ssm`` and ``hybrid``)."""
 from __future__ import annotations
 
 from typing import Any, Callable, NamedTuple

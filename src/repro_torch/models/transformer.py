@@ -1,5 +1,6 @@
-"""Decoder-only model assembly for the ``ssm`` and ``hybrid`` (zamba2)
-families, ported from the reference's ``models/transformer.py``.
+"""Decoder-only model assembly for the ``dense`` (GQA/MQA attention +
+MLP), ``ssm`` and ``hybrid`` (zamba2) families, ported from the
+reference's ``models/transformer.py``.
 
 Parameters are plain dicts of tensors with the reference's tree and leaf
 names, the per-layer leaves stacked on a leading ``(L, ...)`` axis; the
@@ -12,10 +13,18 @@ Three entry points, shared by serving and the tests:
   decode_step(params, cache, tok) -> (logits (B,Vp), cache)
 
 On the full-sequence path the SSD runs through the ``ssd_scan`` kernel
-wrapper and the shared block's causal attention through the
-``flash_attention`` kernel wrapper; decode keeps the plain recurrences
-(``ssd_decode``, ``sdpa`` over the cache), as the reference does.
-``decode_step`` writes the new token's state into ``cache`` in place.
+wrapper and every attention block's causal attention (the dense family's
+layers, the hybrid's shared block) through the ``flash_attention`` kernel
+wrapper; decode keeps the plain recurrences (``ssd_decode``, ``sdpa`` over
+the cache), as the reference does. ``decode_step`` writes the new token's
+state into ``cache`` in place.
+
+The reference's ``attn_chunk`` (query chunks of ``chunked_sdpa`` for long
+prefill) has no counterpart here: on the card the flash kernel tiles the
+queries itself (64 rows a block) whatever chunk the reference would use,
+and on CPU tensors its plain version computes the same softmax attention
+unchunked. ``attention.chunked_sdpa`` is the reference's chunked
+function, held against it by the tests.
 """
 from __future__ import annotations
 
@@ -34,16 +43,16 @@ from repro_torch.models.common import (
     init_norm, lm_logits, pdtype, rope_for_heads)
 from repro_torch.serve import kvcache
 
-FAMILIES = ("ssm", "hybrid")
+FAMILIES = ("dense", "ssm", "hybrid")
 
 
 def check_family(cfg) -> None:
     if cfg.family not in FAMILIES or cfg.moe is not None \
             or cfg.mla is not None:
         raise NotImplementedError(
-            f"{cfg.name}: only the ssm and hybrid families (GQA attention, "
-            f"dense MLP) are ported (ROADMAP Queue 1: the rest of the LM "
-            f"substrate)")
+            f"{cfg.name}: only the dense, ssm and hybrid families (GQA "
+            f"attention, dense MLP) are ported (ROADMAP Queue 1: the rest "
+            f"of the LM substrate, moe/MLA/vlm/audio)")
 
 
 # ------------------------------------------------------------------ trees --
@@ -87,7 +96,9 @@ def init_decoder(gen: torch.Generator, cfg, *, device=None):
     p: dict[str, Any] = {"embed": init_embedding(gen, cfg, device=dev),
                          "final_norm": init_norm(cfg, device=dev)}
     p.update(init_lm_head(gen, cfg, device=dev))
-    p["layers"] = _stack([_init_ssm_layer(gen, cfg, device=dev)
+    init_layer = (_init_dense_layer if cfg.family == "dense"
+                  else _init_ssm_layer)
+    p["layers"] = _stack([init_layer(gen, cfg, device=dev)
                           for _ in range(cfg.n_layers)])
     if cfg.family == "hybrid":
         p["shared"] = _init_dense_layer(gen, cfg, device=dev)  # ONE block
@@ -186,7 +197,15 @@ def forward(params, batch, cfg, *, collect_cache=False,
     b, s, _ = h.shape
     positions = torch.arange(s, device=h.device)[None].expand(b, s)
     rope = _make_rope(cfg, positions)
-    if cfg.family == "ssm":
+    if cfg.family == "dense":
+        kv = []
+        for i in range(cfg.n_layers):
+            h, coll, _ = _dense_block(_layer(params["layers"], i), h, cfg,
+                                      rope)
+            if collect_cache:
+                kv.append(coll)
+        cache_pieces = _stack(kv) if collect_cache else None
+    elif cfg.family == "ssm":
         states = []
         for i in range(cfg.n_layers):
             h, st = _ssm_layer(params, i, h, cfg, collect_state=collect_cache)
@@ -220,16 +239,27 @@ def _hybrid_forward(params, h, cfg, rope, *, collect_cache):
 
 
 # ---------------------------------------------------------------- prefill --
-def prefill(params, batch, cfg, *, kv_dtype="bfloat16"):
-    """Returns (last-token logits (B,Vp), decode-ready cache). As in the
-    reference, the hybrid's shared-attention k/v go to the cache in bf16
-    when ``kv_dtype`` is int8 (int8 caches come from ``init_cache``)."""
-    logits, _, pieces = forward(params, batch, cfg, collect_cache=True)
+def prefill(params, batch, cfg, *, kv_dtype="bfloat16", last_only=False):
+    """Returns (last-token logits (B,Vp), decode-ready cache). The dense
+    family's k/v go to the cache in ``kv_dtype`` (int8 with per-(token,
+    head) scales); as in the reference, the hybrid's shared-attention k/v
+    go in bf16 when ``kv_dtype`` is int8 (int8 caches come from
+    ``init_cache``). last_only: the LM head on the final position only."""
+    logits, _, pieces = forward(params, batch, cfg, collect_cache=True,
+                                logits_last_only=last_only)
     b, s = batch["tokens"].shape
     cache: dict = {"pos": torch.full((b,), s, dtype=torch.int32,
                                      device=logits.device)}
     cache_dt = torch.bfloat16 if kv_dtype == "int8" else DTYPES[kv_dtype]
-    if cfg.family == "ssm":
+    if cfg.family == "dense":
+        if kv_dtype == "int8":
+            kq, ks = kvcache._q8(pieces["k"])
+            vq, vs = kvcache._q8(pieces["v"])
+            cache["kv"] = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+        else:
+            cache["kv"] = {"k": pieces["k"].to(cache_dt),
+                           "v": pieces["v"].to(cache_dt)}
+    elif cfg.family == "ssm":
         cache["ssm"] = pieces
     else:
         cache["ssm"] = pieces["ssm"]
@@ -247,6 +277,22 @@ def decode_step(params, cache, batch, cfg):
     h = _embed_input(params, batch, cfg)
     pos = cache["pos"]                                  # (B,) write index
     rope = _make_rope(cfg, pos[:, None])
+    if cfg.family == "dense":
+        for i in range(cfg.n_layers):
+            h, _, _ = _dense_block(_layer(params["layers"], i), h, cfg, rope,
+                                   cache_slice=_layer(cache["kv"], i),
+                                   pos=pos)
+    else:
+        h = _ssm_decode(params, h, cache, cfg, rope, pos)
+    h = apply_norm(params["final_norm"], h, cfg)
+    logits = lm_logits(params, params["embed"], h, cfg)
+    cache["pos"] = pos + 1
+    return logits[:, -1], cache
+
+
+def _ssm_decode(params, h, cache, cfg, rope, pos):
+    """The SSM stack's step (and the hybrid's shared block between its
+    segments), writing each layer's state into ``cache`` in place."""
     lo_i = inv = 0
     segs = (hybrid_segments(cfg) if cfg.family == "hybrid"
             else [(cfg.n_layers, False)])
@@ -262,7 +308,4 @@ def decode_step(params, cache, batch, cfg):
             inv += 1
             h, _, _ = _dense_block(params["shared"], h, cfg, rope,
                                    cache_slice=lc, pos=pos)
-    h = apply_norm(params["final_norm"], h, cfg)
-    logits = lm_logits(params, params["embed"], h, cfg)
-    cache["pos"] = pos + 1
-    return logits[:, -1], cache
+    return h

@@ -1,11 +1,13 @@
 """KV / state cache layouts and physical representations, ported from the
-reference's ``serve/kvcache.py`` for the ``ssm`` and ``hybrid`` families.
+reference's ``serve/kvcache.py`` for the ``dense``, ``ssm`` and ``hybrid``
+families.
 
 The cache dtype is a physical representation choice: bfloat16 or float32,
 or int8 with per-(token, head) f32 scales.
 
 Layouts (stacked over layers):
   attention: k/v (L, B, T, KHp, Dh) [+ k_scale/v_scale (L,B,T,KHp) if int8]
+             (the dense family's cache["kv"])
   SSM:       conv_x/b/c (L, B, ch, K-1), state (L, B, H, P, N) fp32
   hybrid:    SSM stack + shared-attn k/v (J, B, T, KHp, Dh), J = invocations
   pos:       (B,) int32 -- number of valid tokens (same for all layers)
@@ -80,15 +82,20 @@ def read_kv_layer(layer_cache, dtype=torch.bfloat16):
 
 def init_cache(cfg, batch: int, seq: int, kv_dtype: str = "bfloat16", *,
                device=None):
-    """Full decode cache of an ``ssm`` or ``hybrid`` model. 'pos' counts
-    valid tokens. Runs on the card unless ``device`` says otherwise."""
+    """Full decode cache of a ``dense``, ``ssm`` or ``hybrid`` model. 'pos'
+    counts valid tokens. Runs on the card unless ``device`` says
+    otherwise."""
     dev = resolve_device(device)
-    if cfg.family not in ("ssm", "hybrid"):
+    if cfg.family not in ("dense", "ssm", "hybrid") or cfg.mla is not None:
         raise NotImplementedError(
-            f"family {cfg.family!r}: only the ssm and hybrid caches are "
-            f"ported (ROADMAP Queue 1: the rest of the LM substrate)")
+            f"family {cfg.family!r}: only the dense, ssm and hybrid caches "
+            f"are ported (ROADMAP Queue 1: the rest of the LM substrate, "
+            f"moe/MLA/vlm/audio)")
     cache: dict = {"pos": torch.zeros((batch,), dtype=torch.int32,
                                       device=dev)}
+    if cfg.family == "dense":
+        cache["kv"] = init_attn_kv(cfg, batch, seq, kv_dtype, device=dev)
+        return cache
     one = init_ssm_cache(cfg, batch, device=dev)
     cache["ssm"] = {k: v[None].repeat((cfg.n_layers,) + (1,) * v.dim())
                     for k, v in one.items()}

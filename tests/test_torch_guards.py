@@ -67,8 +67,9 @@ def test_the_walk_covers_the_serving_modules():
     walked = {str(p.relative_to(ROOT)) for p in
               (ROOT / "src" / "repro_torch").rglob("*.py")}
     for name in ("faults", "scheduler", "batcher", "repcache", "service",
-                 "host", "kvcache"):
+                 "host", "kvcache", "speculative", "continuous_batching"):
         assert f"src/repro_torch/serve/{name}.py" in walked, name
+    assert "src/repro_torch/core/lm_cascade.py" in walked
     assert "examples/serve_cascade_torch.py" not in walked
     test_no_jax_or_reference_import_statements(
         "examples/serve_cascade_torch.py")
@@ -309,6 +310,8 @@ def test_chip_smoke_rehearsal_runs_every_phase_on_the_cpu():
     assert "prefill + decode_step == forward" in out.stdout
     assert "== serving" in out.stdout and "failed_devices [3, 5]" in \
         out.stdout and "labels equal the unfaulted run's: True" in out.stdout
+    assert "== dense LM path" in out.stdout and "labels and levels equal " \
+        "the host oracle's: True" in out.stdout
 
 
 def _c_struct_fields(source: str, struct: str) -> list[str]:

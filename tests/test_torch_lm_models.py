@@ -108,9 +108,10 @@ def test_other_archs_wait_for_their_slice():
             t_registry.get_arch(name)
     with pytest.raises(KeyError):
         t_registry.get_arch("no-such-arch")
-    dense = t_base.ArchConfig("d", "dense", 1, 8, 2, 2, 16, 32)
+    moe = t_base.ArchConfig("m", "moe", 1, 8, 2, 2, 16, 32,
+                            moe=t_base.MoEConfig(4, 2, 8))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(dense)
+        build_model(moe)
 
 
 # ------------------------------------------------------------- elementwise --

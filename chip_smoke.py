@@ -159,6 +159,46 @@
    equal a host oracle routing each row from the levels' scores, apart
    from counted rows within SCORE_TOL of a threshold; it prints each
    level's seconds per row and ``expected_cost``.
+   moe, MLA, vlm and audio LM paths (FAMILY_MODELS), one model at a time,
+   built, used and freed, widths as published and depth cut as printed
+   beside the published depth (random bf16 weights from a seeded
+   generator, drawn layer by layer into preallocated stacks; the init
+   peak is printed beside the weights): phi3.5-moe at 16 of 32 layers,
+   deepseek-v2 (MLA + MoE with shared experts) at 4 of 60, qwen2-vl at 4
+   of 80 (a 256-patch ``vision_embeds`` prefix and (t, h, w) M-RoPE
+   positions) and whisper-tiny whole (1500 encoder frames), each serving
+   8 prompts (512 tokens; whisper 128) with 32 greedy steps and bf16 KV
+   through ``launch.serve.serve``. Launch counts are reset just before
+   each timed serve and read just after: one prefill launches
+   ``flash_attention`` 16, 0 (MLA's attention is plain: its q/k and v
+   heads differ in width), 4 and 12 times (whisper: 4 encoder, 4 decoder
+   self, 4 cross), and no other kernel (the kernels line's flash
+   launches add them, ``families_launches``). Each prints prefill ms,
+   decode ms/step, tok/s and peak memory. The flash kernel is held
+   against its plain version at each model's shapes on its views (qwen2-vl
+   (8,64,512,128) causal; whisper (8,6,1500,64) not causal, (8,6,128,64)
+   causal, 128 queries on 1500 frames not causal; FLASH_BF16_TOL) and
+   timed beside SDPA on the same views (rows of the flash entry's
+   ``other_shapes``). Each row's launches are the serve's, as the wrapper
+   counted them by problem (``ops.FLASH_SHAPES``): one per layer of the
+   row's role, and the rows together hold every launch. phi3.5's prefill is profiled,
+   with one ``apply_moe``'s device time split into GEMMs and routing,
+   gather and combine; one deepseek-v2 decode step (the absorbed MLA
+   decode) is profiled. For the two MoE archs: the first layer's
+   ``apply_moe`` in f32 with no token dropped equals a per-token float64
+   loop on the card (MOE_LOOP_TOL; router near-ties counted); at the
+   published capacity factor, 0.5 and 0.1 each expert keeps min(routed,
+   capacity) tokens and a token every expert dropped gets exactly the
+   shared experts' output (zero for phi3.5), and some factor must drop
+   such a token; two bf16 prefills give
+   ``torch.equal`` logits and caches. For qwen2-vl and whisper the served
+   greedy tokens are held against ``forward``'s argmax over the prompt
+   and the served tokens, differing only at counted near-ties. Then in
+   f32 (capacity factor E/k, ``no_drops``): ``prefill`` + one
+   ``decode_step`` ==
+   ``forward`` (CONSIST_TOL) for phi3.5 at 2 layers, deepseek-v2 at 1
+   (the absorbed decode against the full path), qwen2-vl at 2 (patches
+   and M-RoPE) and whisper whole, batch 2 x 512 tokens.
 5. Kernel entry points (``kernels/ops``), the twin of the reference's
    ``bench_transform_kernel`` at the query path's width: a chunk of 256
    dyadic 224 px frames through ``pyramid_transform_op`` with all 20
@@ -186,6 +226,7 @@ versions only; exits 3 and never prints a result).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -241,6 +282,16 @@ DENSE_BF16_CONSIST_TOL = 2.0 ** -5
 # is counted and printed, and only the first divergence of a sequence
 # may be one.
 NEAR_TIE_BF16 = (2.0 ** -6, 2.0 ** -6)
+# apply_moe in f32 vs a per-token float64 loop (tests/test_ssm_moe_attention
+# .py's atol, rtol): f32 sums of up to 5120 terms in another order
+MOE_LOOP_TOL = (1e-4, 1e-3)
+# a router near-tie: the k-th and (k+1)-th router probabilities (float64)
+# closer than this, relative; the f32 router's logits (sums of 5120 f32
+# products, ~1e-6 relative) may then rank the other expert k-th. Such a
+# token is counted and printed, and held to the loop only if its experts
+# agree.
+MOE_ROUTER_TIE = 1e-5
+MOE_SESSIONS = 5    # profiler sessions of one apply_moe call (its split)
 # transform kernels vs plain versions. On dyadic (k/256) pixels the pooled
 # sums are exact and x1/x0 projections too, so rgb/r/g/b must be equal;
 # gray sums three products in another order (|err| <= ~2 ulp of 1, x4 by
@@ -251,6 +302,11 @@ FLASH_TEST_SHAPES = ((1, 2, 64, 32), (2, 3, 128, 64), (1, 1, 256, 16))
 SSD_TEST_SHAPES = ((1, 64, 2, 8, 16), (2, 128, 3, 16, 32))
 PROFILER_SESSIONS = 3   # device_ms: sessions tried before it gives up
 
+# the moe/MLA/vlm/audio phase: (arch, depth served, depth of the f32
+# consistency check); None: the published depth. phi3.5-moe's 16 layers
+# are ~42 GB of bf16 weights, deepseek-v2's 4 ~34 GB, qwen2-vl's 4 ~12 GB.
+FAMILY_MODELS = (("phi3.5-moe-42b-a6.6b", 16, 2), ("deepseek-v2-236b", 4, 1),
+                 ("qwen2-vl-72b", 4, 2), ("whisper-tiny", None, None))
 # floors: the least eval accuracy of the best model and of the trusted
 # model (tests/test_system.py's)
 FULL = dict(base=224, chunk=256, out_res=(112, 56, 28), split=512,
@@ -273,7 +329,11 @@ FULL = dict(base=224, chunk=256, out_res=(112, 56, 28), split=512,
                        budget_range=(4, 32), context=128, calib=256,
                        eval=256, cascade_batch=32,
                        flash_shapes=(((2, 8, 200, 128), (2, 8, 333, 128)),
-                                     ((2, 8, 333, 128), (2, 8, 200, 128)))))
+                                     ((2, 8, 333, 128), (2, 8, 200, 128)))),
+            families=dict(full=True, models=FAMILY_MODELS, batch=8,
+                          prompt=512, audio_prompt=128, gen=32,
+                          check_batch=2, check_prompt=512, check_at=256,
+                          moe_tokens=64, iters=10))
 # the rehearsal's few steps teach its toy models little: no learning floor
 REHEARSE = dict(base=32, chunk=32, out_res=(16, 8, 4), split=48, train=48,
                 steps=3, floors=(0.0, 0.0), pinned=False, corpus=96,
@@ -292,7 +352,11 @@ REHEARSE = dict(base=32, chunk=32, out_res=(16, 8, 4), split=48, train=48,
                            budget_range=(2, 6), context=16, calib=48,
                            eval=32, cascade_batch=16,
                            flash_shapes=(((1, 2, 20, 128), (1, 2, 33, 128)),
-                                         ((1, 2, 33, 128), (1, 2, 20, 128)))))
+                                         ((1, 2, 33, 128), (1, 2, 20, 128)))),
+                families=dict(full=False, models=FAMILY_MODELS, batch=2,
+                              prompt=32, audio_prompt=16, gen=4,
+                              check_batch=2, check_prompt=32, check_at=16,
+                              moe_tokens=16, iters=1))
 
 
 def log(msg: str) -> None:
@@ -330,6 +394,10 @@ def main(argv=None) -> int:
     kern["flash_attention"]["dense_launches"] = dense_lm_path(
         dev, cfg, card, kern, args.seed)
     launches["flash_attention"] += kern["flash_attention"]["dense_launches"]
+    kern["flash_attention"]["families_launches"] = families_lm_path(
+        dev, cfg, card, kern, args.seed)
+    launches["flash_attention"] += \
+        kern["flash_attention"]["families_launches"]
     launches.update(ops_path(dev, cfg, card, kern, args.seed))
     if "smi" in card:    # again near the end: the card beside the numbers
         log(card["smi"])
@@ -2492,29 +2560,30 @@ def check_lm_kernels(dev, cfg, card, kern, arch, gen):
 
 
 def consistency(c, arch, params, prompts, *, dtype="float32",
-                tol=CONSIST_TOL):
+                tol=CONSIST_TOL, extras=None):
     """In a ``dtype`` copy of the model: ``prefill`` on the first ``c``
     tokens, then one ``decode_step``, against ``forward`` over all of them
     at those positions (the kernel path vs the plain decode recurrences).
-    In bf16 a row's argmax may differ only at a near-tie (NEAR_TIE_BF16),
-    counted and printed."""
+    ``extras``: the family's other inputs over the whole sequence
+    (``enc_frames``, ``vision_embeds``, ``mrope_positions`` (3,B,S), cut
+    to the prefix and the step). In bf16 a row's argmax may differ only at
+    a near-tie (NEAR_TIE_BF16), counted and printed."""
     import torch
 
     from repro_torch.launch.serve import grow_cache
     from repro_torch.models.common import DTYPES
     from repro_torch.models.factory import build_model
     m = build_model(arch.replace(dtype=dtype))
-
-    def cast(tree):
-        if isinstance(tree, dict):
-            return {k: cast(v) for k, v in tree.items()}
-        return tree.to(DTYPES[dtype])
-
-    p = cast(params)
-    full, _, _ = m.forward(p, {"tokens": prompts})
-    last, cache = m.prefill(p, {"tokens": prompts[:, :c]}, kv_dtype=dtype)
-    step, _ = m.decode(p, grow_cache(cache, 1),
-                       {"tokens": prompts[:, c:c + 1]})
+    p = _cast(params, DTYPES[dtype])
+    extras = extras or {}
+    pre, one = dict(extras, tokens=prompts[:, :c]), {
+        "tokens": prompts[:, c:c + 1]}
+    if "mrope_positions" in extras:
+        pre["mrope_positions"] = extras["mrope_positions"][:, :, :c]
+        one["mrope_positions"] = extras["mrope_positions"][:, :, c:c + 1]
+    full, _, _ = m.forward(p, dict(extras, tokens=prompts))
+    last, cache = m.prefill(p, pre, kv_dtype=dtype)
+    step, _ = m.decode(p, grow_cache(cache, 1), one)
     for name, got, want in (("prefill", last, full[:, c - 1]),
                             ("decode_step", step, full[:, c])):
         got, want = got.float(), want.float()
@@ -2580,6 +2649,7 @@ def dense_lm_path(dev, cfg, card, kern, seed):
     ops.reset_launch_counts()
     res = serve(model, params, prompts, n_gen, "bfloat16", device=dev)
     launches = dict(ops.LAUNCHES)
+    served = dict(ops.FLASH_SHAPES)
     peak = _peak_extra(dev, mem0)
     expect = {k: (arch.n_layers if k == "flash_attention" else 0)
               for k in launches}
@@ -2614,7 +2684,7 @@ def dense_lm_path(dev, cfg, card, kern, seed):
                        f"decode step profile (batch {b}, {s + 1} cached "
                        f"tokens)")
         del cache
-    check_flash_128(dev, cfg, card, kern, arch, gen)
+    check_flash_128(dev, cfg, card, kern, arch, gen, served)
     dense_consistency(dn, arch_of, arch, params, prompts, gen, dev)
     del res, lg
     speculative_check(dn, arch, model, params, prompts, dev, seed)
@@ -2623,11 +2693,13 @@ def dense_lm_path(dev, cfg, card, kern, seed):
     return launches["flash_attention"]
 
 
-def check_flash_128(dev, cfg, card, kern, arch, gen):
+def check_flash_128(dev, cfg, card, kern, arch, gen, served):
     """The flash kernel at head width 128 against its plain version: the
     serve path's shape on the model's (B,S,H,D) views and contiguous,
     without the causal mask, ragged S != T, and f32 (the FFMA kernel);
-    then kernel, plain, bound and SDPA times at the path's shape."""
+    then kernel, plain, bound and SDPA times at the path's shape, with
+    its launches in the serve (``served``: the serve's
+    ``ops.FLASH_SHAPES``)."""
     import torch
     import torch.nn.functional as F
 
@@ -2706,11 +2778,16 @@ def check_flash_128(dev, cfg, card, kern, arch, gen):
                                 it))
     t_ops = 4.0 * b * h * d * s * (s + 1) / 2 / card["bf16"]
     t_mem = 4.0 * b * h * s * d * 2 / card["bw"]
+    n = served.get((b, h, s, s, d, True), 0)
+    if dev.type == "cuda" and n != arch.n_layers:
+        raise AssertionError(f"{arch.name} serve: {n} flash launches at "
+                             f"{path} causal, not {arch.n_layers} "
+                             f"({served})")
     row.update(bound_ms=max(t_ops, t_mem) * 1e3,
                bound_by="operations" if t_ops > t_mem else "bytes",
-               launches=arch.n_layers,
+               launches=n,
                shape=f"q,k,v {path} bf16 causal, (B,S,H,D).transpose(1, 2) "
-                     f"views ({arch.name}, {arch.n_layers} launches a "
+                     f"views ({arch.name}, {n} launches in the serve's "
                      f"prefill)")
     log(f"  flash_attention {path} bf16 causal: kernel {row['ms']:.4f} ms, "
         f"plain {row['plain_ms']:.4f} ms, sdpa {row['library_ms']:.4f} ms "
@@ -2990,6 +3067,510 @@ def cascade_check(dn, arch_of, trusted_model, trusted_params, dev, seed):
     del levels, cparams
 
 
+# ----------------------------------------------------------- phase 4c --
+def families_lm_path(dev, cfg, card, kern, seed):
+    """The moe (phi3.5-moe), MLA + moe (deepseek-v2), vlm (qwen2-vl) and
+    audio (whisper-tiny) LM families at published widths, one model at a
+    time, built, used and freed. Returns their serves' flash launches."""
+    import torch
+
+    from repro_torch.configs.registry import get_arch, smoke_config
+    fm = cfg["families"]
+    log("== moe, MLA, vlm and audio LM paths")
+    t_phase = time.perf_counter()
+    flash = 0
+    if dev.type == "cuda":     # the earlier phases' cached blocks
+        torch.cuda.empty_cache()
+    for name, depth, check_depth in fm["models"]:
+        published = get_arch(name)
+        base = published if fm["full"] else smoke_config(name)
+        arch = base.replace(n_layers=min(depth or base.n_layers,
+                                         base.n_layers))
+        log(f"  -- {name} ({published.family}): "
+            + (f"{arch.n_layers} of {published.n_layers} layers (depth cut; "
+               f"widths as published)" if arch.n_layers < published.n_layers
+               else f"all {published.n_layers} layers")
+            + ("" if arch.encoder is None else
+               f" + {arch.encoder.n_layers} of "
+               f"{published.encoder.n_layers} encoder layers")
+            + ("" if fm["full"] else " (smoke config)"))
+        flash += family_model(dev, fm, card, kern, arch, base, check_depth,
+                              seed)
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    log(f"  the phase: {time.perf_counter() - t_phase:.1f} s")
+    return flash
+
+
+def family_model(dev, fm, card, kern, arch, base, check_depth, seed):
+    """One model of the phase: init (its peak memory), the timed serve
+    with its launch counts, the flash kernel at its shapes, a profile,
+    the consistency check, the MoE checks or the greedy tokens' second
+    route. Returns the serve's flash launches."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.factory import build_model, count_params
+    model = build_model(arch)
+    gen = torch.Generator(device=dev).manual_seed(
+        seed + 10 + sum(map(ord, arch.name)))
+    mem0 = _peak_reset(dev)
+    t0 = time.perf_counter()
+    params = model.init(gen, device=dev)
+    _sync(dev)
+    t_init = time.perf_counter() - t0
+    n = count_params(params)
+    wbytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    log(f"  {arch.name}: {n:,} parameters ({arch.dtype}, {_mb(wbytes)}), "
+        f"d_model {arch.d_model}, {arch.n_heads} heads of {arch.head_dim} "
+        f"({arch.n_kv_heads} KV heads), vocab {arch.vocab_size}"
+        + ("" if arch.moe is None else
+           f", {arch.moe.num_experts} experts top-{arch.moe.top_k} of width "
+           f"{arch.moe.d_ff_expert} + {arch.moe.num_shared_experts} shared, "
+           f"capacity factor {arch.moe.capacity_factor}")
+        + ("" if arch.mla is None else
+           f", MLA kv_lora {arch.mla.kv_lora_rank} q_lora "
+           f"{arch.mla.q_lora_rank} heads {arch.mla.qk_nope_head_dim}+"
+           f"{arch.mla.qk_rope_head_dim} (v {arch.mla.v_head_dim})")
+        + f"; random weights in {t_init:.3f} s, init peak "
+        f"{_mb(_peak_extra(dev, mem0))} for {_mb(wbytes)} of weights")
+    audio = arch.family == "audio"
+    b, s, n_gen = fm["batch"], fm["audio_prompt" if audio else "prompt"], \
+        fm["gen"]
+    prompts, extras = family_inputs(arch, b, s, gen, dev)
+    serve(model, params, prompts, 2, device=dev, **extras)     # warm-up
+
+    # ---- the main path, with the launch counts read around it
+    mem0 = _peak_reset(dev)
+    ops.reset_launch_counts()
+    res = serve(model, params, prompts, n_gen, "bfloat16", device=dev,
+                **extras)
+    launches = dict(ops.LAUNCHES)
+    served = dict(ops.FLASH_SHAPES)
+    peak = _peak_extra(dev, mem0)
+    # MLA none; whisper its encoder's self-attention, then per decoder
+    # layer self and cross; every other layer one
+    want = (0 if arch.mla is not None else
+            arch.encoder.n_layers + 2 * arch.n_layers if audio
+            else arch.n_layers)
+    expect = {k: (want if k == "flash_attention" else 0) for k in launches}
+    log(f"  served {b} prompts x {s} tokens"
+        + (f" ({arch.encoder.n_frames} encoder frames)" if audio else "")
+        + (f" ({arch.vision.n_patches}-patch prefix, (t, h, w) M-RoPE)"
+           if arch.family == "vlm" else "")
+        + f" + {n_gen} greedy decode steps, bf16 KV: prefill "
+        f"{res.prefill_s * 1e3:.3f} ms ({b * s / res.prefill_s:.0f} prompt "
+        f"tok/s), decode {res.decode_s * 1e3 / n_gen:.3f} ms/step "
+        f"({b * n_gen / res.decode_s:.1f} tok/s); serve peak above the "
+        f"weights {_mb(peak)}")
+    log(f"  launches on the serve path: {launches} (one prefill; expected "
+        f"flash_attention {want}"
+        + (": MLA's attention is plain, its q/k and v heads differ in "
+           "width" if arch.mla is not None else "")
+        + ")")
+    if dev.type == "cuda" and launches != expect:
+        raise AssertionError(f"{arch.name} serve path launches {launches} "
+                             f"!= {expect}")
+    toks, lg = res.tokens, res.logits
+    # greedy may pick a padding id: the padded rows of the (tied)
+    # embedding are random weights, as in the reference
+    if tuple(toks.shape) != (b, n_gen + 1) or not torch.isfinite(lg).all() \
+            or int(toks.max()) >= arch.padded_vocab() or int(toks.min()) < 0:
+        raise AssertionError(f"{arch.name} serve produced bad tokens or "
+                             f"logits")
+    log(f"  sample tokens: {toks[0, :8].tolist()}")
+    del lg
+    check_flash_families(dev, fm, card, kern, arch, gen, b, s, served)
+    if dev.type == "cuda" and arch.moe is not None and arch.mla is None:
+        prefill_profile(dev, model, params, prompts, extras, res, arch, gen)
+    if dev.type == "cuda" and arch.mla is not None:
+        decode_profile(dev, model, params, prompts, toks, b, s)
+    if arch.moe is not None:
+        moe_checks(dev, fm, arch, model, params, prompts, gen)
+    else:
+        greedy_route(dev, arch, model, params, prompts, extras, res)
+    del res
+    # prefill + decode_step == forward in f32 (no token dropped)
+    c, cs = fm["check_at"], fm["check_prompt"]
+    cut = arch.replace(n_layers=min(check_depth or arch.n_layers,
+                                    arch.n_layers))
+    if cut.moe is not None:
+        cut = no_drops(cut)
+    key = "dec_layers" if audio else "layers"
+    # the f32 copy of the cut is all the check needs: the bf16 weights
+    # go first (deepseek-v2's 34 GB beside its 20 GB f32 layer)
+    p = _cast(dict(params, **{key: _first(params[key], cut.n_layers)}),
+              torch.float32)
+    del params, model
+    cp, cx = family_inputs(arch, fm["check_batch"], cs, gen, dev)
+    log(f"  consistency: {cut.name} at {cut.n_layers} of {base.n_layers} "
+        f"layers"
+        + (f", capacity factor {cut.moe.capacity_factor:.4g} (no token "
+           f"dropped)" if cut.moe else "")
+        + f", batch {fm['check_batch']} x {cs} tokens")
+    consistency(c, cut, p, cp, extras=cx)
+    return launches["flash_attention"]
+
+
+def _cast(tree, dtype):
+    if isinstance(tree, dict):
+        return {k: _cast(v, dtype) for k, v in tree.items()}
+    return tree.to(dtype)
+
+
+def no_drops(arch):
+    """``arch`` with the capacity factor E/k: each expert can keep every
+    token of its group (C = Tg), so no token is dropped at any batch.
+    (tests/test_decode_consistency.py's factor 8 is enough for the smoke
+    configs' 4 experts, not for deepseek-v2's 160 top-6: at a decode step
+    of 2 tokens it gives C = 1, and two rows sharing an expert drop one.)"""
+    moe = arch.moe
+    return arch.replace(moe=dataclasses.replace(
+        moe, capacity_factor=moe.num_experts / moe.top_k))
+
+
+def _first(tree, n):
+    """The first ``n`` entries of every leaf of a layer-stacked tree."""
+    if isinstance(tree, dict):
+        return {k: _first(v, n) for k, v in tree.items()}
+    return tree[:n]
+
+
+def family_inputs(arch, b, s, gen, dev):
+    """Prompts (B, S) and the family's serve inputs: whisper's frame
+    embeddings, N(0, 0.1^2) as the reference's launcher draws them;
+    qwen2-vl's patch embeddings for the first n_patches positions, N(0,
+    0.02^2) as its token embeddings, and (t, h, w) M-RoPE positions, the
+    patches on a grid at t 0 and the text counting tokens on all three
+    streams (where the serve's decode steps go on)."""
+    import torch
+    prompts = torch.randint(0, arch.vocab_size, (b, s), generator=gen,
+                            device=dev)
+    extras = {}
+    if arch.family == "audio":
+        extras["enc_frames"] = torch.randn(
+            (b, arch.encoder.n_frames, arch.d_model), generator=gen,
+            device=dev) * 0.1
+    if arch.family == "vlm":
+        n = arch.vision.n_patches
+        rows = max(r for r in range(1, int(n ** 0.5) + 1) if n % r == 0)
+        pos = torch.arange(s, device=dev)[None, None].repeat(3, b, 1)
+        i = torch.arange(n, device=dev)
+        pos[0, :, :n], pos[1, :, :n], pos[2, :, :n] = 0, i // (n // rows), \
+            i % (n // rows)
+        extras["mrope_positions"] = pos
+        extras["vision_embeds"] = (torch.randn(
+            (b, n, arch.d_model), generator=gen, device=dev) * 0.02).to(
+                torch.bfloat16)
+    return prompts, extras
+
+
+def check_flash_families(dev, fm, card, kern, arch, gen, b, s, served):
+    """The flash kernel against its plain version at the model's prefill
+    shapes, on its (B,S,H,D).transpose(1, 2) views (KV heads repeated as
+    the model repeats them), then kernel (both clocks), plain, bound and
+    SDPA (same views) times. Each shape becomes a row of the kernels
+    line's flash entry, with its launches in the serve's prefill as the
+    wrapper counted them by problem (``served``: the serve's
+    ``ops.FLASH_SHAPES``); on the card each must be one per layer of its
+    role, and the rows must hold every launch of the serve."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import flash_attention_ref
+    from repro_torch.models.attention import layout_from_cfg, repeat_kv
+    if arch.mla is not None:
+        return
+    h, d, gp = arch.n_heads, arch.head_dim, layout_from_cfg(arch).gp
+    if arch.family == "audio":
+        t, n = arch.encoder.n_frames, arch.n_layers
+        cases = [("encoder self-attention", t, t, False,
+                  arch.encoder.n_layers),
+                 ("decoder self-attention", s, s, True, n),
+                 ("cross-attention", s, t, False, n)]
+    else:
+        cases = [("self-attention", s, s, True, arch.n_layers)]
+    counted = 0
+    bf = torch.bfloat16
+    fl = kern["flash_attention"]
+    it = fm["iters"]
+    for label, sq, sk, causal, per_layer in cases:
+        def view(sl, heads):
+            x = (torch.randn((b, sl, heads, d), generator=gen, device=dev)
+                 * 0.5).to(bf)
+            return repeat_kv(x, h // heads).transpose(1, 2)
+        q, k, v = view(sq, h), view(sk, h // gp), view(sk, h // gp)
+        n = served.get((*q.shape[:3], sk, d, causal), 0)
+        counted += n
+        if dev.type == "cuda" and n != per_layer:
+            raise AssertionError(f"{arch.name} {label}: {n} flash launches "
+                                 f"in the serve at {tuple(q.shape)} T {sk}, "
+                                 f"not {per_layer} ({served})")
+        want = flash_attention_ref(q.float(), k.float(), v.float(),
+                                   causal=causal)
+        out = flash_attention(q, k, v, causal=causal)
+        err, ok = _close(out, want, *FLASH_BF16_TOL)
+        same = out.transpose(1, 2).is_contiguous()
+        shape = (f"q {tuple(q.shape)} k/v {tuple(k.shape)} bf16 "
+                 f"{'causal' if causal else 'not causal'}")
+        log(f"  flash_attention {arch.name} {label}, {shape}, on (B,S,H,D) "
+            f"views: max |err| {err:.3g} (atol, rtol {FLASH_BF16_TOL[0]:.3g}"
+            f", {FLASH_BF16_TOL[1]:.3g}; mean |out| "
+            f"{float(want.abs().mean()):.3g}); output in q's layout: {same}")
+        if not ok or (dev.type == "cuda" and not same):
+            raise AssertionError(f"flash_attention {arch.name} {label}: "
+                                 f"{err}, layout {same}")
+        fl["max_abs_err"] = max(fl["max_abs_err"], err)
+        del want, out
+        t = alternating(
+            f"flash_attention {arch.name} {label} {shape}",
+            (("kernel", lambda: flash_attention(q, k, v, causal=causal)),
+             ("sdpa", lambda: F.scaled_dot_product_attention(
+                 q, k, v, is_causal=causal))), dev, it)
+        pairs = sq * (sq + 1) / 2 if causal else sq * sk
+        t_ops = 4.0 * b * h * d * pairs / card["bf16"]
+        t_mem = 2.0 * b * h * d * 2 * (sq + sk) / card["bw"]
+        row = dict(ms=t["kernel"]["ms"][0], library_ms=t["sdpa"]["ms"][0],
+                   device_ms=t["kernel"]["device_ms"][0],
+                   library_device_ms=t["sdpa"]["device_ms"][0],
+                   plain_ms=time_ms(lambda: flash_attention_ref(
+                       q, k, v, causal=causal), dev, it),
+                   bound_ms=max(t_ops, t_mem) * 1e3,
+                   bound_by="operations" if t_ops > t_mem else "bytes",
+                   launches=n, max_abs_err=err,
+                   shape=f"{shape}, (B,S,H,D).transpose(1, 2) views "
+                         f"({arch.name} {label}, {n} launches in the "
+                         f"serve's prefill)")
+        log(f"  flash_attention {arch.name} {label}: kernel {row['ms']:.4f}"
+            f" ms, plain {row['plain_ms']:.4f} ms, sdpa "
+            f"{row['library_ms']:.4f} ms (CUDA events); device time kernel "
+            f"{_ms(row['device_ms'])} ms, sdpa "
+            f"{_ms(row['library_device_ms'])} ms; bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+        fl.setdefault("other_shapes", []).append(row)
+    log(f"  {arch.name} serve's flash launches by problem (B, H, S, T, D, "
+        f"causal): {served}")
+    if dev.type == "cuda" and counted != sum(served.values()):
+        raise AssertionError(f"{arch.name}: serve flash launches {served} "
+                             f"outside the rows' shapes")
+
+
+def prefill_profile(dev, model, params, prompts, extras, res, arch, gen):
+    """The bf16 prefill's device time by kernel and idle share; then one
+    ``apply_moe`` at the prefill's tokens (the first layer's weights, the
+    prefill's width): its device time split into the GEMMs (cuBLAS: the
+    three expert products and the router's small one) and the rest
+    (routing softmax and sorts, the token gather, the combine,
+    elementwise), and its share of the prefill. CUPTI at times loses
+    device events in a long run, so the call is profiled MOE_SESSIONS
+    times, one call a session: a kernel's launches a call are the most
+    any session saw, its time the median of all its launches."""
+    import statistics
+
+    import torch
+
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import ffn
+    from repro_torch.models.transformer import _layer
+    by = device_profile(lambda: serve(model, params, prompts, 0, device=dev,
+                                      **extras),
+                        dev, res.prefill_s, "prefill profile (bf16)") or {}
+    busy = sum(us for _, us in by.values())
+    lp = _layer(params["layers"], 0)["moe"]
+    x = torch.randn((prompts.shape[0], prompts.shape[1], arch.d_model),
+                    generator=gen, device=dev).to(torch.bfloat16)
+    sessions = []
+    for _ in range(MOE_SESSIONS):
+        sessions.append({})
+        device_ms(lambda: ffn.apply_moe(lp, x, arch), dev, 1, sessions[-1])
+    per = {}                      # kernel -> (launches a call, us a launch)
+    for kname in set().union(*sessions):
+        runs = [sess.get(kname, []) for sess in sessions]
+        per[kname] = (max(map(len, runs)),
+                      statistics.median(us for r in runs for us in r))
+    gemm = ("gemm", "xmma", "nvjet", "cutlass", "sm90")
+    split = {"GEMMs": 0.0, "routing, gather, combine, elementwise": 0.0}
+    for kname, (n, us) in per.items():
+        key = ("GEMMs" if any(g in kname.lower() for g in gemm)
+               else "routing, gather, combine, elementwise")
+        split[key] += n * us
+    one = sum(split.values())
+    log(f"  one apply_moe at the prefill's {x.shape[0] * x.shape[1]} tokens "
+        f"({MOE_SESSIONS} profiled calls): device {one / 1e3:.3f} ms in "
+        f"{sum(n for n, _ in per.values())} launches; "
+        + "; ".join(f"{k} {v / 1e3:.3f} ms ({100 * v / max(one, 1e-9):.1f}%)"
+                    for k, v in split.items())
+        + (f"; x {arch.n_layers} layers = "
+           f"{100 * one * arch.n_layers / busy:.1f}% of the prefill's device "
+           f"time" if busy else ""))
+    for kname, (n, us) in sorted(per.items(),
+                                 key=lambda kv: -kv[1][0] * kv[1][1])[:8]:
+        log(f"    apply_moe kernel {n * us / 1e3:8.3f} ms {n:4d}x "
+            f"{kname[:90]}")
+
+
+def decode_profile(dev, model, params, prompts, toks, b, s):
+    """One bf16 decode step (batch b, s + 1 cached tokens), profiled."""
+    from repro_torch.launch.serve import grow_cache
+    _, cache = model.prefill(params, {"tokens": prompts})
+    cache = grow_cache(cache, 2)
+    step_in = {"tokens": toks[:, :1]}
+    _sync(dev)
+    t0 = time.perf_counter()
+    model.decode(params, cache, step_in)
+    _sync(dev)
+    device_profile(lambda: model.decode(params, cache, step_in), dev,
+                   time.perf_counter() - t0,
+                   f"decode step profile (batch {b}, {s + 1} cached tokens, "
+                   f"the absorbed MLA decode)")
+
+
+def moe_checks(dev, fm, arch, model, params, prompts, gen):
+    """(a) The first layer's ``apply_moe`` in f32 with no token dropped
+    (``no_drops``) on ``moe_tokens`` tokens equals a per-token loop
+    over each token's top-k experts in float64 on the card (MOE_LOOP_TOL).
+    (b) On the prefill's tokens, at the published capacity factor, 0.5
+    and 0.1: each expert keeps min(its routed tokens, capacity) tokens,
+    and a token every one of its experts dropped gets exactly the shared
+    experts' output (zero without them); some factor must drop a token
+    from all its experts, or that branch went unchecked. (c) Two bf16 prefills give equal
+    logits and caches (the combine sums in a fixed order)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.models import ffn
+    from repro_torch.models.common import apply_norm
+    from repro_torch.models.transformer import _layer
+    lp = _layer(params["layers"], 0)
+    emb = params["embed"]["embedding"]
+    f32 = no_drops(arch).replace(dtype="float32")
+    m = fm["moe_tokens"]
+    x = apply_norm({k: v.float() for k, v in lp["ln2"].items()},
+                   emb[prompts[0, :m]].float()[None], f32)
+    w = {k: (v.float() if torch.is_tensor(v) else
+             {kk: vv.float() for kk, vv in v.items()})
+         for k, v in lp["moe"].items()}
+    out, _ = ffn.apply_moe(w, x, f32)
+    r = ffn.route(w, x, f32, ffn.moe_capacity(m, f32))
+    # the loop, in float64
+    xd = x[0].double()
+    probs = torch.softmax(xd @ w["w_router"].double(), -1)
+    top = torch.sort(probs, dim=-1, descending=True, stable=True)
+    k = arch.moe.top_k
+    ids, wts = top.indices[:, :k], top.values[:, :k]
+    wts = wts / wts.sum(-1, keepdim=True)
+    gap = (top.values[:, k - 1] - top.values[:, k]) / top.values[:, k - 1]
+    ref = torch.zeros_like(xd)
+
+    def silu_mlp(v, g, u, dn):
+        return (F.silu(v @ g.double()) * (v @ u.double())) @ dn.double()
+
+    for e in ids.unique().tolist():
+        rows, j = (ids == e).nonzero(as_tuple=True)
+        ref[rows] += wts[rows, j, None] * silu_mlp(
+            xd[rows], w["w_gate_e"][e], w["w_up_e"][e], w["w_down_e"][e])
+    if "shared" in w:
+        sh = w["shared"]
+        ref += silu_mlp(xd, sh["w_gate"], sh["w_up"], sh["w_down"])
+    same_route = (torch.sort(r.topi[0], -1).values
+                  == torch.sort(ids, -1).values).all(-1)
+    tie = gap < MOE_ROUTER_TIE
+    err = (out[0].double() - ref).abs()
+    ok = err <= MOE_LOOP_TOL[0] + MOE_LOOP_TOL[1] * ref.abs()
+    bad = (~ok.all(-1) & ~(~same_route & tie)).nonzero()[:, 0].tolist()
+    log(f"  apply_moe (f32, capacity factor "
+        f"{f32.moe.capacity_factor:.4g}) on {m} tokens of the first "
+        f"layer vs a per-token float64 loop on the card: max |err| "
+        f"{float(err.max()):.3g} (atol, rtol {MOE_LOOP_TOL}); tokens routed "
+        f"to other experts than the loop's: "
+        f"{(~same_route).nonzero()[:, 0].tolist()} (router near-ties, gap "
+        f"below {MOE_ROUTER_TIE} relative, among the {m}: "
+        f"{tie.nonzero()[:, 0].tolist()})")
+    if bad:
+        raise AssertionError(f"{arch.name} apply_moe differs from the loop "
+                             f"at tokens {bad}")
+    del w, out, r, ref
+    # (b) capacity and drops, at the serve's dtype and token count
+    xb = apply_norm(lp["ln2"], emb[prompts], arch)
+    t = xb.shape[0] * xb.shape[1]
+    all_dropped = 0
+    for factor in (arch.moe.capacity_factor, 0.5, 0.1):
+        a = arch.replace(moe=dataclasses.replace(arch.moe,
+                                                 capacity_factor=factor))
+        cap = ffn.moe_capacity(t, a)
+        r = ffn.route(lp["moe"], xb.reshape(1, t, -1), a, cap)
+        routed = torch.zeros(a.moe.num_experts, dtype=torch.long,
+                             device=dev).scatter_add_(
+            0, r.topi.reshape(-1), torch.ones_like(r.topi.reshape(-1)))
+        kept = (r.sel_gate[0] > 0).sum(-1)
+        dropped = (r.slot[0] < 0).all(-1)
+        all_dropped += int(dropped.sum())
+        out, _ = ffn.apply_moe(lp["moe"], xb, a)
+        out = out.reshape(t, -1)[dropped]
+        want = (ffn.apply_mlp(lp["moe"]["shared"], xb.reshape(1, t, -1), a)
+                [0][dropped] if "shared" in lp["moe"]
+                else torch.zeros_like(out))
+        held = torch.equal(kept, torch.clamp(routed, max=cap)) and \
+            torch.equal(out, want)
+        log(f"  routing at capacity factor {factor} over {t} tokens "
+            f"(capacity {cap}): experts keep min(routed, capacity): "
+            f"{torch.equal(kept, torch.clamp(routed, max=cap))} (routed "
+            f"min {int(routed.min())} max {int(routed.max())}); "
+            f"{int((r.slot[0] < 0).sum())} of {r.slot[0].numel()} choices "
+            f"dropped, {int(dropped.sum())} tokens dropped by every expert, "
+            f"their output equal to "
+            f"{'the shared experts' if 'shared' in lp['moe'] else 'zero'}: "
+            f"{torch.equal(out, want)}")
+        if not held:
+            raise AssertionError(f"{arch.name} capacity routing at {factor}")
+    if not all_dropped:
+        raise AssertionError(f"{arch.name}: no factor dropped a token from "
+                             f"every expert; the dropped tokens' output "
+                             f"was not checked")
+    # (c) determinism of the bf16 prefill
+    runs = [model.prefill(params, {"tokens": prompts}) for _ in range(2)]
+    same = torch.equal(runs[0][0], runs[1][0]) and all(
+        torch.equal(a, b) for a, b in zip(_leaves(runs[0][1]),
+                                          _leaves(runs[1][1])))
+    log(f"  two bf16 prefills of {tuple(prompts.shape)}: logits and caches "
+        f"torch.equal: {same}")
+    if not same:
+        raise AssertionError(f"{arch.name} prefill is not deterministic")
+
+
+def greedy_route(dev, arch, model, params, prompts, extras, res):
+    """The served greedy tokens against a second route: ``forward`` over
+    the prompt and the served tokens (teacher forcing), its argmax at
+    each generated position. A position that differs must be a bf16
+    near-tie of forward's logits (counted and printed). (The MoE archs
+    are held by their consistency check instead: at the published
+    capacity factor a whole sequence drops other tokens than per-step
+    decode does.)"""
+    import torch
+    b, s = prompts.shape
+    seq = torch.cat([prompts, res.tokens[:, :-1]], 1)
+    batch = dict(extras, tokens=seq)
+    if "mrope_positions" in extras:
+        n = seq.shape[1]
+        pos = torch.arange(n, device=dev)[None, None].repeat(3, b, 1)
+        pos[:, :, :s] = extras["mrope_positions"]
+        batch["mrope_positions"] = pos
+    logits, _, _ = model.forward(params, batch)
+    logits = logits[:, s - 1:].float()
+    differ = logits.argmax(-1) != res.tokens
+    ties = near_ties(logits.topk(2, -1).values)
+    log(f"  served greedy tokens vs forward over prompt + served tokens "
+        f"(bf16): {int(differ.sum())} of {differ.numel()} positions differ, "
+        f"{int((differ & ties).sum())} of them at near-ties (near-ties "
+        f"among all: {int(ties.sum())})")
+    if (differ & ~ties).any():
+        raise AssertionError(f"{arch.name} greedy tokens leave forward's "
+                             f"argmax away from a near-tie: "
+                             f"{(differ & ~ties).nonzero().tolist()}")
+
+
 # ------------------------------------------------------------ phase 5 --
 def ops_path(dev, cfg, card, kern, seed):
     """The two transform kernels through the ``kernels/ops`` entry points
@@ -3249,7 +3830,8 @@ def kernels_line(kern, launches):
                                                "ingest_launches",
                                                "sharded_launches",
                                                "serving_launches",
-                                               "dense_launches")
+                                               "dense_launches",
+                                               "families_launches")
                        if key in k}})
     print(json.dumps({"kernels": out}), flush=True)
 

@@ -6,8 +6,11 @@ Each ``launch_*`` function takes tensors that already lie on the card
 ``flash_attention.py`` and ``ssd_scan.py`` validate and allocate), launches
 on ``torch.cuda.current_stream()`` without synchronizing, raises if the C
 entry point reports a CUDA error, and adds one to its kernel's count in
-``LAUNCHES`` — there and nowhere else. ``kernels/ops.py`` re-exports
-``LAUNCHES`` and ``reset_launch_counts``.
+``LAUNCHES`` — there and nowhere else. The flash launcher also counts
+its launches by problem in ``FLASH_SHAPES``, keyed (B, H, S, T, D,
+causal), so a model's attentions (encoder, decoder, cross) are told
+apart. ``kernels/ops.py`` re-exports ``LAUNCHES``, ``FLASH_SHAPES`` and
+``reset_launch_counts``.
 """
 from __future__ import annotations
 
@@ -43,11 +46,13 @@ SSD_MAX_HEADS = (2, 4)
 LAUNCHES = {"fused_pyramid_stage0": 0, "matmul": 0, "flash_attention": 0,
             "ssd_scan": 0, "fused_transform": 0,
             "fused_pyramid_transform": 0}
+FLASH_SHAPES: dict[tuple, int] = {}
 
 
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    FLASH_SHAPES.clear()
 
 
 class PS0Params(ctypes.Structure):
@@ -306,6 +311,8 @@ def launch_flash_attention(q, k, v, out, causal: bool) -> None:
               int(causal), d ** -0.5, *strides, _stream()),
            "flash_attention")
     LAUNCHES["flash_attention"] += 1
+    key = (b, h, s, k.shape[2], d, bool(causal))
+    FLASH_SHAPES[key] = FLASH_SHAPES.get(key, 0) + 1
 
 
 def _it_fn(name: str):

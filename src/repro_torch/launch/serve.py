@@ -1,19 +1,24 @@
-"""Serving launcher: prefill + batched greedy decode, ported from the
-reference's ``launch/serve.py`` for the architectures the port runs.
+"""Serving launcher: prefill + batched greedy decode for any --arch, ported
+from the reference's ``launch/serve.py``.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \\
       [--batch 8 --prompt-len 64 --gen 32 --kv-dtype bfloat16 --full] \\
       [--device cuda]
 
-``--arch`` takes every architecture the port registers: the hybrid
-zamba2-1.2b, the ssm mamba2-130m, and the dense deepseek-7b, minitron-4b,
-granite-20b and qwen2.5-32b (``--arch deepseek-7b --full`` serves its 6.9 B
-parameters at full width on one card).
+``--arch`` takes all ten of the reference's architectures: the hybrid
+zamba2-1.2b, the ssm mamba2-130m, the dense deepseek-7b, minitron-4b,
+granite-20b and qwen2.5-32b, the moe phi3.5-moe-42b-a6.6b and
+deepseek-v2-236b (MLA), the vlm qwen2-vl-72b (M-RoPE) and the audio
+whisper-tiny (encoder-decoder). ``--arch deepseek-7b --full`` serves its
+6.9 B parameters at full width on one card; the larger archs do not fit
+one card at full depth.
 
-Without ``--full`` the arch's smoke config is served. Weights and prompts
-are random, seeded with 0 as the reference seeds them. ``--device``
-defaults to ``cuda``; without a card that raises, and ``--device cpu``
-runs the plain versions of the kernels.
+Without ``--full`` the arch's smoke config is served. Weights, prompts and
+the audio family's frame embeddings are random, seeded with 0 as the
+reference seeds them; the vlm family gets the reference's M-RoPE
+positions (all three streams count tokens). ``--device`` defaults to
+``cuda``; without a card that raises, and ``--device cpu`` runs the plain
+versions of the kernels.
 """
 from __future__ import annotations
 
@@ -26,7 +31,7 @@ import torch
 
 from repro_torch.device import params_device, resolve_device
 
-_CACHE_SEQ_LEAVES = ("k", "v", "k_scale", "v_scale")
+_CACHE_SEQ_LEAVES = ("k", "v", "k_scale", "v_scale", "c_kv", "k_rope")
 
 
 @dataclass
@@ -38,11 +43,14 @@ class ServeResult:
 
 
 def grow_cache(cache, extra: int):
-    """Room for ``extra`` more tokens: the attention leaves (axis 2 is the
-    sequence) are zero-padded, as the reference's ``grow`` pads them."""
+    """Room for ``extra`` more tokens: the attention and MLA leaves (axis 2
+    is the sequence) are zero-padded, as the reference's ``grow`` pads
+    them; the audio family's cross cache (the encoder's frames) keeps its
+    length."""
     def grow(name, x):
         if isinstance(x, dict):
-            return {k: grow(k, v) for k, v in x.items()}
+            return {k: (v if k == "cross" else grow(k, v))
+                    for k, v in x.items()}
         if name in _CACHE_SEQ_LEAVES and x.dim() >= 3:
             pad = x.new_zeros(x.shape[:2] + (extra,) + x.shape[3:])
             return torch.cat([x, pad], dim=2)
@@ -56,24 +64,48 @@ def _sync(dev):
 
 
 def serve(model, params, tokens, gen: int, kv_dtype: str = "bfloat16", *,
-          device=None) -> ServeResult:
+          device=None, enc_frames=None, vision_embeds=None,
+          mrope_positions=None) -> ServeResult:
     """Prefill ``tokens`` (B, S), then ``gen`` greedy decode steps. Runs
     on the card unless ``device`` says otherwise; ``params`` must lie on
-    that device."""
+    that device. The audio family needs ``enc_frames`` (B, n_frames, d).
+    The vlm family takes ``vision_embeds`` (B, P, d) for the prompt's
+    prefix and ``mrope_positions`` (3, B, S) (default: the reference's,
+    every stream counting tokens); decode step i sits at position S + i
+    on all three streams, as in the reference."""
+    cfg = model.cfg
     pdev = params_device(params, device)
     tokens = torch.as_tensor(tokens).to(device=pdev, dtype=torch.int64)
+    b, s = tokens.shape
+    batch = {"tokens": tokens}
+    if cfg.family == "audio":
+        if enc_frames is None:
+            raise ValueError(f"{cfg.name}: the audio family serves with "
+                             f"enc_frames (B, n_frames, d_model)")
+        batch["enc_frames"] = torch.as_tensor(enc_frames).to(pdev)
+    if cfg.family == "vlm":
+        if mrope_positions is None:
+            mrope_positions = torch.arange(s, device=pdev)[None, None] \
+                .expand(3, b, s)
+        batch["mrope_positions"] = torch.as_tensor(mrope_positions).to(pdev)
+        if vision_embeds is not None:
+            batch["vision_embeds"] = torch.as_tensor(vision_embeds).to(pdev)
     _sync(pdev)
     t0 = time.perf_counter()
-    logits, cache = model.prefill(params, {"tokens": tokens},
-                                  kv_dtype=kv_dtype)
+    logits, cache = model.prefill(params, batch, kv_dtype=kv_dtype)
     cache = grow_cache(cache, gen)
     tok = torch.argmax(logits, -1)[:, None]
     _sync(pdev)
     prefill_s = time.perf_counter() - t0
     out, seen = [tok], [logits]
     t0 = time.perf_counter()
-    for _ in range(gen):
-        logits, cache = model.decode(params, cache, {"tokens": tok})
+    for i in range(gen):
+        step = {"tokens": tok}
+        if cfg.family == "vlm":
+            step["mrope_positions"] = torch.full((3, b, 1), s + i,
+                                                 dtype=torch.int64,
+                                                 device=pdev)
+        logits, cache = model.decode(params, cache, step)
         tok = torch.argmax(logits, -1)[:, None]
         out.append(tok)
         seen.append(logits)
@@ -105,9 +137,14 @@ def main(argv=None):
     print(f"arch={cfg.name} params={count_params(params):,} "
           f"kv={args.kv_dtype} device={dev}")
     b, s = args.batch, args.prompt_len
-    tokens = np.random.default_rng(0).integers(0, cfg.vocab_size,
-                                                       (b, s))
-    res = serve(model, params, tokens, args.gen, args.kv_dtype, device=dev)
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, cfg.vocab_size, (b, s))
+    frames = None
+    if cfg.family == "audio":
+        frames = torch.from_numpy(rng.standard_normal(
+            (b, cfg.encoder.n_frames, cfg.d_model)).astype(np.float32) * 0.1)
+    res = serve(model, params, tokens, args.gen, args.kv_dtype, device=dev,
+                enc_frames=frames)
     rate = (f"{args.gen * b / res.decode_s:.1f} tok/s" if res.decode_s > 0
             else "no decode steps")
     print(f"prefill {b}x{s} in {res.prefill_s * 1e3:.3f} ms | decoded "

@@ -1,13 +1,19 @@
-"""GQA/MQA attention (optional QKV bias, RoPE), ported from the
-reference's ``models/attention.py``: head padding layout, projections,
-the decode ``sdpa`` over the cache and the masked output projection, and
-``chunked_sdpa``, the reference's query-chunked attention as a plain
-function.
+"""Attention, ported from the reference's ``models/attention.py``: GQA/MQA
+(optional QKV bias, RoPE or M-RoPE angles from the caller), the head
+padding layout, projections (cross-attention through ``kv_x``), ``sdpa``
+(the decode attention over a cache, causal or not, v heads of another
+width than q/k), the masked output projection, ``chunked_sdpa`` (the
+reference's query-chunked attention as a plain function), and MLA
+(DeepSeek-V2: low-rank q, a latent KV of ``kv_lora_rank`` + a shared rope
+key, its full-sequence attention and the absorbed decode).
 
-The full-sequence causal attention of prefill/forward is not here: the
-decoder block calls the ``flash_attention`` kernel wrapper
-(``kernels/flash_attention.py``) on (B,H,S,D) q/k/v with the KV heads
-repeated (``repeat_kv``). MLA and cross-attention are not ported yet.
+The full-sequence GQA attention of prefill/forward is not here: the
+decoder block and the encoder-decoder call the ``flash_attention`` kernel
+wrapper (``kernels/flash_attention.py``) on (B,H,S,D) q/k/v with the KV
+heads repeated (``repeat_kv``). MLA's full attention stays plain
+(``mla_attention_full`` runs ``sdpa``), on the card too: its q/k heads
+are qk_nope + qk_rope wide and its v heads v_head_dim, and the kernel, as
+the reference's Pallas kernel, has one head width for q, k and v.
 
 Head padding: q heads are padded per KV group up to a multiple of
 ``cfg.head_pad_to`` and zero-masked before ``wo``, so the numerics equal
@@ -20,7 +26,8 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.models.common import apply_rope, dense_init, pdtype
+from repro_torch.models.common import (apply_rope, dense_init, pdtype,
+                                      rmsnorm_vec)
 
 
 class HeadLayout(NamedTuple):
@@ -76,17 +83,20 @@ def init_gqa(gen, cfg, *, device):
     return p
 
 
-def gqa_qkv(p, x, cfg, rope=None):
-    """Project to q (B,S,hp,dh) and k,v (B,S,khp,dh); apply rope if given
-    as (cos_q, sin_q, cos_k, sin_k)."""
+def gqa_qkv(p, x, cfg, rope=None, kv_x=None):
+    """Project to q (B,S,hp,dh) and k,v (B,T,khp,dh); apply rope if given
+    as (cos_q, sin_q, cos_k, sin_k). kv_x: the source of k/v
+    (cross-attention reads the encoder's states); by default x."""
     lo = layout_from_cfg(cfg)
     b, s, _ = x.shape
-    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+    src = x if kv_x is None else kv_x
+    t = src.shape[1]
+    q, k, v = x @ p["wq"], src @ p["wk"], src @ p["wv"]
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     q = q.reshape(b, s, lo.hp, cfg.head_dim)
-    k = k.reshape(b, s, lo.khp, cfg.head_dim)
-    v = v.reshape(b, s, lo.khp, cfg.head_dim)
+    k = k.reshape(b, t, lo.khp, cfg.head_dim)
+    v = v.reshape(b, t, lo.khp, cfg.head_dim)
     if rope is not None:
         cos_q, sin_q, cos_k, sin_k = rope
         q = apply_rope(q, cos_q, sin_q)
@@ -103,20 +113,26 @@ def repeat_kv(k, gp: int):
         b, t, kh * gp, dh)
 
 
-def sdpa(q, k, v, *, k_valid, gp: int = 1):
-    """GQA-grouped scaled-dot-product attention over the decode cache.
-    q (B,S,H,dh); k/v (B,T,KH,dh) with H = KH*gp -> (B,S,H,dh); k_valid
-    (B,T) bool marks the cache entries that exist. q is regrouped to
-    (B,S,KH,gp,dh); k/v are never repeated."""
+def sdpa(q, k, v, *, causal: bool = False, k_valid=None, gp: int = 1):
+    """GQA-grouped scaled-dot-product attention, plain.
+    q (B,S,H,dh); k (B,T,KH,dh), v (B,T,KH,dv) with H = KH*gp -> (B,S,H,dv)
+    (dv differs from dh under MLA). causal: query i sees keys 0..i, both
+    counted from 0; k_valid (B,T) bool marks the cache entries that exist.
+    q is regrouped to (B,S,KH,gp,dh); k/v are never repeated."""
     b, s, h, dh = q.shape
-    kh = k.shape[2]
+    kh, t = k.shape[2], k.shape[1]
     if h != kh * gp:
         raise ValueError(f"sdpa: {h} q heads vs {kh} kv heads x {gp}")
     qg = q.reshape(b, s, kh, gp, dh)
     scores = torch.einsum("bskgd,btkd->bkgst", qg, k).to(torch.float32) \
         * dh ** -0.5
-    scores = scores.masked_fill(~k_valid[:, None, None, None, :],
-                                torch.finfo(torch.float32).min)
+    neg = torch.finfo(torch.float32).min
+    if causal:
+        mask = (torch.arange(s, device=q.device)[:, None]
+                < torch.arange(t, device=q.device)[None, :])
+        scores = scores.masked_fill(mask[None, None, None], neg)
+    if k_valid is not None:
+        scores = scores.masked_fill(~k_valid[:, None, None, None, :], neg)
     probs = torch.softmax(scores, dim=-1)
     ctx = torch.einsum("bkgst,btkd->bskgd", probs.to(q.dtype), v)
     return ctx.reshape(b, s, h, v.shape[-1])
@@ -156,3 +172,90 @@ def gqa_out(p, ctx, cfg):
     if lo.hp != lo.n_q:
         ctx = ctx * lo.q_mask(ctx.device)[None, None, :, None].to(ctx.dtype)
     return ctx.reshape(b, s, lo.hp * cfg.head_dim) @ p["wo"]
+
+
+# ------------------------------------------------------------------ MLA ----
+def init_mla(gen, cfg, *, device):
+    m = cfg.mla
+    d, h = cfg.d_model, cfg.n_heads
+    qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    dt = pdtype(cfg)
+
+    def dense(shape):
+        return dense_init(gen, shape, 0, dt, device=device)
+
+    def ones(n):
+        return torch.ones((n,), dtype=dt, device=device)
+
+    return {"w_dq": dense((d, m.q_lora_rank)),
+            "q_norm": ones(m.q_lora_rank),
+            "w_uq": dense((m.q_lora_rank, h * qk)),
+            "w_dkv": dense((d, m.kv_lora_rank + m.qk_rope_head_dim)),
+            "kv_norm": ones(m.kv_lora_rank),
+            "w_uk": dense((m.kv_lora_rank, h * m.qk_nope_head_dim)),
+            "w_uv": dense((m.kv_lora_rank, h * m.v_head_dim)),
+            "wo": dense((h * m.v_head_dim, d))}
+
+
+def mla_q(p, x, cfg, cos, sin):
+    """-> q_nope (B,S,H,nope), q_rope (B,S,H,rope)."""
+    m, h = cfg.mla, cfg.n_heads
+    b, s, _ = x.shape
+    cq = rmsnorm_vec(x @ p["w_dq"], p["q_norm"], cfg.norm_eps)
+    q = (cq @ p["w_uq"]).reshape(b, s, h,
+                                 m.qk_nope_head_dim + m.qk_rope_head_dim)
+    return (q[..., :m.qk_nope_head_dim],
+            apply_rope(q[..., m.qk_nope_head_dim:], cos, sin))
+
+
+def mla_latent_kv(p, x, cfg, cos, sin):
+    """-> c_kv (B,S,r) normalized latent, k_rope (B,S,rope) (one shared
+    head, rope applied). This pair is the KV cache: r + rope numbers a
+    token instead of 2*H*head_dim."""
+    m = cfg.mla
+    ckr = x @ p["w_dkv"]
+    c_kv = rmsnorm_vec(ckr[..., :m.kv_lora_rank], p["kv_norm"], cfg.norm_eps)
+    k_rope = apply_rope(ckr[:, :, None, m.kv_lora_rank:], cos, sin)[:, :, 0]
+    return c_kv, k_rope
+
+
+def mla_attention_full(p, x, cfg, cos, sin):
+    """Prefill/forward: per-head K,V rebuilt from the latent, then plain
+    causal ``sdpa`` (q/k heads of nope + rope, v heads of v_head_dim).
+    -> (out (B,S,d), (c_kv, k_rope))."""
+    m, h = cfg.mla, cfg.n_heads
+    b, s, _ = x.shape
+    q_nope, q_rope = mla_q(p, x, cfg, cos, sin)
+    c_kv, k_rope = mla_latent_kv(p, x, cfg, cos, sin)
+    k_nope = (c_kv @ p["w_uk"]).reshape(b, s, h, m.qk_nope_head_dim)
+    v = (c_kv @ p["w_uv"]).reshape(b, s, h, m.v_head_dim)
+    q = torch.cat([q_nope, q_rope], -1)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+        b, s, h, m.qk_rope_head_dim)], -1)
+    ctx = sdpa(q, k, v, causal=True)
+    out = ctx.reshape(b, s, h * m.v_head_dim) @ p["wo"]
+    return out, (c_kv, k_rope)
+
+
+def mla_attention_decode(p, x, cfg, cos, sin, c_kv_cache, k_rope_cache,
+                         k_valid):
+    """Absorbed decode: scores and aggregation in the latent space, W_UK
+    folded into q and W_UV applied after, O(T * (r + rope)) a head instead
+    of rebuilding K/V. x (B,1,d); c_kv_cache (B,T,r), k_rope_cache
+    (B,T,rope), the current token already written; k_valid (B,T)."""
+    m, h = cfg.mla, cfg.n_heads
+    b = x.shape[0]
+    q_nope, q_rope = mla_q(p, x, cfg, cos, sin)           # (B,1,H,*)
+    w_uk = p["w_uk"].reshape(m.kv_lora_rank, h, m.qk_nope_head_dim)
+    q_lat = torch.einsum("bshn,rhn->bshr", q_nope, w_uk)  # absorb W_UK
+    scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
+    scores = (torch.einsum("bshr,btr->bhst", q_lat, c_kv_cache)
+              + torch.einsum("bshn,btn->bhst", q_rope, k_rope_cache))
+    scores = scores.to(torch.float32) * scale
+    scores = scores.masked_fill(~k_valid[:, None, None, :],
+                                torch.finfo(torch.float32).min)
+    probs = torch.softmax(scores, dim=-1).to(x.dtype)
+    ctx_lat = torch.einsum("bhst,btr->bshr", probs, c_kv_cache)
+    w_uv = p["w_uv"].reshape(m.kv_lora_rank, h, m.v_head_dim)
+    ctx = torch.einsum("bshr,rhv->bshv", ctx_lat, w_uv)   # absorb W_UV
+    return ctx.reshape(b, 1, h * m.v_head_dim) @ p["wo"]

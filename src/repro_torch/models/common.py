@@ -66,6 +66,13 @@ def apply_norm(p, x, cfg):
     return out.to(x.dtype)
 
 
+def rmsnorm_vec(x, scale, eps=1e-5):
+    """Norm over the last axis for vectors of any width (MLA latents)."""
+    xf = x.to(torch.float32)
+    xf = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    return (xf * scale.to(torch.float32)).to(x.dtype)
+
+
 # ----------------------------------------------------------------- RoPE ----
 def rope_angles(positions, dim: int, theta: float):
     """positions (...,) int -> cos/sin of shape (..., dim//2), float32."""
@@ -88,6 +95,32 @@ def rope_for_heads(positions, head_dim: int, theta: float):
     """positions (B, S) -> cos/sin (B, S, 1, head_dim//2) for (B,S,H,D) q/k."""
     cos, sin = rope_angles(positions, head_dim, theta)
     return cos[:, :, None, :], sin[:, :, None, :]
+
+
+def mrope_for_heads(positions3, head_dim: int, theta: float, sections):
+    """Qwen2-VL M-RoPE: positions3 (3, B, S) carries the (t, h, w) position
+    streams; the head_dim//2 frequency slots are split into ``sections``
+    and each section takes its angles from its stream. -> cos/sin
+    (B, S, 1, head_dim//2)."""
+    if sum(sections) != head_dim // 2:
+        raise ValueError(f"M-RoPE sections {sections} vs head_dim "
+                         f"{head_dim}")
+    cos3, sin3 = rope_angles(positions3, head_dim, theta)  # (3,B,S,hd/2)
+    bounds = np.cumsum((0,) + tuple(sections)).tolist()
+    parts = list(enumerate(zip(bounds[:-1], bounds[1:])))
+    cos = torch.cat([cos3[i, ..., lo:hi] for i, (lo, hi) in parts], -1)
+    sin = torch.cat([sin3[i, ..., lo:hi] for i, (lo, hi) in parts], -1)
+    return cos[:, :, None, :], sin[:, :, None, :]
+
+
+def sinusoidal_positions(n_pos: int, d_model: int, *, device=None):
+    """Whisper-style sinusoidal embeddings (n_pos, d_model), float32,
+    computed in float64 on the host as the reference computes them."""
+    half = d_model // 2
+    freq = np.exp(-np.log(10000.0) * np.arange(half) / max(half - 1, 1))
+    t = np.arange(n_pos)[:, None] * freq[None, :]
+    return torch.from_numpy(np.concatenate([np.sin(t), np.cos(t)], axis=1)
+                            .astype(np.float32)).to(device)
 
 
 # ----------------------------------------------------------- embeddings ----

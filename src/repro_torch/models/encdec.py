@@ -1,0 +1,187 @@
+"""Whisper-style encoder-decoder (the audio family), ported from the
+reference's ``models/encdec.py``.
+
+The conv/mel frontend is a stub, as in the reference: the caller passes
+precomputed frame embeddings ``enc_frames`` (B, n_frames, d_model). The
+encoder is bidirectional; the decoder is causal, with per-layer
+cross-attention whose K/V come once from the encoder's output and are
+cached for decode. Positions: sinusoidal (encoder), learned (decoder); no
+RoPE.
+
+On the full-sequence path (``forward``, ``prefill``) the encoder's
+self-attention (not causal), the decoder's self-attention (causal) and
+the cross-attention (not causal, S queries against the encoder's T
+frames) go through the ``flash_attention`` kernel wrapper on the model's
+(B,S,H,D).transpose(1, 2) views (``transformer.full_attention``). Decode
+keeps the plain ``sdpa`` over the self cache and the cross cache, as the
+reference does, and writes the new token's k/v into the self cache in
+place.
+"""
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models import attention as attn
+from repro_torch.models import ffn
+from repro_torch.models.common import (
+    DTYPES, apply_norm, embed_init, embed_tokens, init_embedding, init_norm,
+    lm_logits, pdtype, sinusoidal_positions)
+from repro_torch.models.transformer import (_layer, _stack, full_attention,
+                                           init_stack)
+from repro_torch.serve import kvcache
+
+
+def _init_enc_layer(gen, cfg, *, device):
+    return {"ln1": init_norm(cfg, device=device),
+            "attn": attn.init_gqa(gen, cfg, device=device),
+            "ln2": init_norm(cfg, device=device),
+            "mlp": ffn.init_mlp(gen, cfg, device=device)}
+
+
+def _init_dec_layer(gen, cfg, *, device):
+    return {"ln1": init_norm(cfg, device=device),
+            "self_attn": attn.init_gqa(gen, cfg, device=device),
+            "ln_x": init_norm(cfg, device=device),
+            "cross_attn": attn.init_gqa(gen, cfg, device=device),
+            "ln2": init_norm(cfg, device=device),
+            "mlp": ffn.init_mlp(gen, cfg, device=device)}
+
+
+def init_encdec(gen, cfg, *, device=None):
+    """Random weights with the reference's tree, shapes and scales, drawn
+    from ``gen``. Runs on the card unless ``device`` says otherwise."""
+    dev = resolve_device(device)
+    return {
+        "embed": init_embedding(gen, cfg, device=dev),
+        "dec_pos": embed_init(gen, (cfg.max_seq_len, cfg.d_model),
+                              pdtype(cfg), device=dev),
+        "enc_layers": init_stack(
+            lambda: _init_enc_layer(gen, cfg, device=dev),
+            cfg.encoder.n_layers),
+        "enc_norm": init_norm(cfg, device=dev),
+        "dec_layers": init_stack(
+            lambda: _init_dec_layer(gen, cfg, device=dev), cfg.n_layers),
+        "final_norm": init_norm(cfg, device=dev),
+    }
+
+
+@functools.lru_cache(maxsize=8)
+def _enc_positions(n_pos: int, d_model: int, device, dtype):
+    """The encoder's sinusoidal table, built once per (shape, device,
+    dtype): a constant, as it is under the reference's jit."""
+    return sinusoidal_positions(n_pos, d_model, device=device).to(dtype)
+
+
+def encode(params, enc_frames, cfg):
+    h = enc_frames.to(pdtype(cfg))
+    h = h + _enc_positions(h.shape[1], cfg.d_model, h.device, h.dtype)
+    lo = attn.layout_from_cfg(cfg)
+    for i in range(cfg.encoder.n_layers):
+        lp = _layer(params["enc_layers"], i)
+        q, k, v = attn.gqa_qkv(lp["attn"], apply_norm(lp["ln1"], h, cfg),
+                               cfg)
+        h = h + attn.gqa_out(lp["attn"],
+                             full_attention(q, k, v, lo.gp, causal=False),
+                             cfg)
+        h = h + ffn.apply_mlp(lp["mlp"], apply_norm(lp["ln2"], h, cfg), cfg)
+    return apply_norm(params["enc_norm"], h, cfg)
+
+
+def _dec_block(lp, h, enc_out, cfg, *, self_cache=None, cross_kv=None,
+               pos=None, collect=False):
+    """One decoder block. self_cache given => decode (S==1), with the
+    cross-attention's cached (k, v) in ``cross_kv``. Returns (h, collected
+    self k/v, collected cross k/v, updated self cache slice)."""
+    lo = attn.layout_from_cfg(cfg)
+    ain = apply_norm(lp["ln1"], h, cfg)
+    q, k, v = attn.gqa_qkv(lp["self_attn"], ain, cfg)
+    new_self = collected = None
+    if self_cache is not None:
+        new_self = kvcache.write_kv_layer(self_cache, k, v, pos)
+        kf, vf = kvcache.read_kv_layer(new_self, h.dtype)
+        k_valid = (torch.arange(kf.shape[1], device=h.device)[None]
+                   <= pos[:, None])
+        ctx = attn.sdpa(q, kf, vf, causal=False, k_valid=k_valid, gp=lo.gp)
+    else:
+        ctx = full_attention(q, k, v, lo.gp, causal=True)
+        if collect:
+            collected = {"k": k, "v": v}
+    h = h + attn.gqa_out(lp["self_attn"], ctx, cfg)
+
+    xin = apply_norm(lp["ln_x"], h, cfg)
+    if cross_kv is not None:
+        kx, vx = cross_kv
+        qx = xin @ lp["cross_attn"]["wq"]
+        if "bq" in lp["cross_attn"]:
+            qx = qx + lp["cross_attn"]["bq"]
+        qx = qx.reshape(*xin.shape[:2], lo.hp, cfg.head_dim)
+        ctx_x = attn.sdpa(qx, kx, vx, causal=False, gp=lo.gp)
+    else:
+        qx, kx, vx = attn.gqa_qkv(lp["cross_attn"], xin, cfg, kv_x=enc_out)
+        ctx_x = full_attention(qx, kx, vx, lo.gp, causal=False)
+    h = h + attn.gqa_out(lp["cross_attn"], ctx_x, cfg)
+
+    h = h + ffn.apply_mlp(lp["mlp"], apply_norm(lp["ln2"], h, cfg), cfg)
+    cross_coll = ({"k": kx, "v": vx} if collect and cross_kv is None
+                  else None)
+    return h, collected, cross_coll, new_self
+
+
+def forward(params, batch, cfg, *, collect_cache=False,
+            logits_last_only=False, **_):
+    """batch: "tokens" (B,S), "enc_frames" (B,T,d). Returns (logits, aux
+    (0), {"self": k/v, "cross": k/v} stacked over layers | None)."""
+    enc_out = encode(params, batch["enc_frames"], cfg)
+    tokens = batch["tokens"]
+    h = embed_tokens(params["embed"], tokens, cfg).to(pdtype(cfg))
+    h = h + params["dec_pos"][None, :tokens.shape[1]]
+    selfs, crosses = [], []
+    for i in range(cfg.n_layers):
+        h, coll, cross, _ = _dec_block(_layer(params["dec_layers"], i), h,
+                                       enc_out, cfg, collect=collect_cache)
+        selfs.append(coll)
+        crosses.append(cross)
+    if logits_last_only:
+        h = h[:, -1:]
+    h = apply_norm(params["final_norm"], h, cfg)
+    logits = lm_logits(params, params["embed"], h, cfg)
+    pieces = ({"self": _stack(selfs), "cross": _stack(crosses)}
+              if collect_cache else None)
+    return logits, torch.zeros((), device=h.device), pieces
+
+
+def prefill(params, batch, cfg, *, kv_dtype="bfloat16", last_only=False,
+            **_):
+    """Returns (last-token logits (B,Vp), decode-ready cache): the self
+    and cross k/v in ``kv_dtype`` (bf16 when it is int8, as in the
+    reference)."""
+    logits, _, pieces = forward(params, batch, cfg, collect_cache=True,
+                                logits_last_only=last_only)
+    b, s = batch["tokens"].shape
+    cache_dt = torch.bfloat16 if kv_dtype == "int8" else DTYPES[kv_dtype]
+    cache = {"pos": torch.full((b,), s, dtype=torch.int32,
+                               device=logits.device)}
+    for name in ("self", "cross"):
+        cache[name] = {k: v.to(cache_dt) for k, v in pieces[name].items()}
+    return logits[:, -1], cache
+
+
+def decode_step(params, cache, batch, cfg, **_):
+    """One token: batch["tokens"] (B,1). Returns (logits (B,Vp), cache);
+    the self cache is updated in place."""
+    tokens = batch["tokens"]
+    pos = cache["pos"]
+    h = embed_tokens(params["embed"], tokens, cfg).to(pdtype(cfg))
+    h = h + params["dec_pos"][pos.long()][:, None]
+    for i in range(cfg.n_layers):
+        cross = kvcache.read_kv_layer(_layer(cache["cross"], i), h.dtype)
+        h, _, _, _ = _dec_block(_layer(params["dec_layers"], i), h, None,
+                                cfg, self_cache=_layer(cache["self"], i),
+                                cross_kv=cross, pos=pos)
+    h = apply_norm(params["final_norm"], h, cfg)
+    logits = lm_logits(params, params["embed"], h, cfg)
+    cache["pos"] = pos + 1
+    return logits[:, -1], cache

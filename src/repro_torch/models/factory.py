@@ -1,12 +1,13 @@
-"""config -> Model: uniform init/forward/prefill/decode, ported from the
-reference's ``models/factory.py`` for the families the port runs
-(``dense``, ``ssm`` and ``hybrid``)."""
+"""config -> Model: uniform init/forward/prefill/decode across families,
+ported from the reference's ``models/factory.py``: the audio family
+through ``models/encdec``, every other family through
+``models/transformer``."""
 from __future__ import annotations
 
 from typing import Any, Callable, NamedTuple
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 from repro_torch.serve import kvcache
 
 
@@ -20,14 +21,17 @@ class Model(NamedTuple):
 
 
 def build_model(cfg: ArchConfig) -> Model:
-    transformer.check_family(cfg)
+    if cfg.family == "audio":
+        mod, init = encdec, encdec.init_encdec
+    else:
+        transformer.check_family(cfg)
+        mod, init = transformer, transformer.init_decoder
     return Model(
         cfg=cfg,
-        init=lambda gen, device=None: transformer.init_decoder(
-            gen, cfg, device=device),
-        forward=lambda p, b, **kw: transformer.forward(p, b, cfg, **kw),
-        prefill=lambda p, b, **kw: transformer.prefill(p, b, cfg, **kw),
-        decode=lambda p, c, b: transformer.decode_step(p, c, b, cfg),
+        init=lambda gen, device=None: init(gen, cfg, device=device),
+        forward=lambda p, b, **kw: mod.forward(p, b, cfg, **kw),
+        prefill=lambda p, b, **kw: mod.prefill(p, b, cfg, **kw),
+        decode=lambda p, c, b: mod.decode_step(p, c, b, cfg),
         init_cache=lambda batch, seq, kv_dtype="bfloat16", device=None:
             kvcache.init_cache(cfg, batch, seq, kv_dtype, device=device),
     )

@@ -1,6 +1,9 @@
 """Decoder-only model assembly for the ``dense`` (GQA/MQA attention +
-MLP), ``ssm`` and ``hybrid`` (zamba2) families, ported from the
-reference's ``models/transformer.py``.
+MLP), ``moe`` (attention or MLA + Mixture-of-Experts), ``vlm`` (qwen2-vl's
+backbone: GQA with M-RoPE, patch embeddings replacing the prompt's
+prefix), ``ssm`` and ``hybrid`` (zamba2) families, ported from the
+reference's ``models/transformer.py``. The audio family (whisper) is
+``models/encdec``.
 
 Parameters are plain dicts of tensors with the reference's tree and leaf
 names, the per-layer leaves stacked on a leading ``(L, ...)`` axis; the
@@ -11,13 +14,18 @@ Three entry points, shared by serving and the tests:
   forward(params, batch)          -> (logits (B,S,Vp), aux, cache pieces)
   prefill(params, batch)          -> (last logits (B,Vp), cache)
   decode_step(params, cache, tok) -> (logits (B,Vp), cache)
+``batch`` holds "tokens" (B,S), and for the vlm family optionally
+"vision_embeds" (B,P,d) and "mrope_positions" (3,B,S) (at decode (3,B,1)).
+``aux`` is the MoE layers' summed load-balance loss (0 without MoE).
 
 On the full-sequence path the SSD runs through the ``ssd_scan`` kernel
-wrapper and every attention block's causal attention (the dense family's
-layers, the hybrid's shared block) through the ``flash_attention`` kernel
-wrapper; decode keeps the plain recurrences (``ssd_decode``, ``sdpa`` over
-the cache), as the reference does. ``decode_step`` writes the new token's
-state into ``cache`` in place.
+wrapper and every GQA attention block's causal attention (the dense, moe
+and vlm families' layers, the hybrid's shared block) through the
+``flash_attention`` kernel wrapper; decode keeps the plain recurrences
+(``ssd_decode``, ``sdpa`` over the cache), as the reference does. MLA's
+attention stays plain on both paths (``attention.mla_attention_full``
+says why). ``decode_step`` writes the new token's state into ``cache`` in
+place.
 
 The reference's ``attn_chunk`` (query chunks of ``chunked_sdpa`` for long
 prefill) has no counterpart here: on the card the flash kernel tiles the
@@ -40,19 +48,19 @@ from repro_torch.models import ffn
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (
     DTYPES, apply_norm, embed_tokens, init_embedding, init_lm_head,
-    init_norm, lm_logits, pdtype, rope_for_heads)
+    init_norm, lm_logits, mrope_for_heads, pdtype, rope_for_heads)
 from repro_torch.serve import kvcache
 
-FAMILIES = ("dense", "ssm", "hybrid")
+ATTN_FAMILIES = ("dense", "moe", "vlm")
+FAMILIES = ATTN_FAMILIES + ("ssm", "hybrid")
 
 
 def check_family(cfg) -> None:
-    if cfg.family not in FAMILIES or cfg.moe is not None \
-            or cfg.mla is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: only the dense, ssm and hybrid families (GQA "
-            f"attention, dense MLP) are ported (ROADMAP Queue 1: the rest "
-            f"of the LM substrate, moe/MLA/vlm/audio)")
+    """A decoder family, or ValueError (as the reference's
+    ``init_decoder`` raises for a family it does not know)."""
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"{cfg.name}: family {cfg.family!r} is not a "
+                         f"decoder family {FAMILIES}")
 
 
 # ------------------------------------------------------------------ trees --
@@ -75,12 +83,42 @@ def _layer(tree, i):
     return _tree_map(lambda x: x[i], tree)
 
 
+def _put(stack, i, tree):
+    """Leaf-wise ``stack[i] = tree``."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            _put(stack[k], i, v)
+    else:
+        stack[i].copy_(tree)
+
+
+def init_stack(init_one, n: int):
+    """``n`` layers from ``init_one()``, drawn one after another (the draw
+    order of a list of layers) into preallocated (n, ...) leaves: the peak
+    holds the stack and one layer, where stacking a list of layers would
+    hold every layer twice (phi3.5-moe's 16 layers are 42 GB in bf16)."""
+    out = None
+    for i in range(n):
+        layer = init_one()
+        if out is None:
+            out = _tree_map(lambda x: x.new_empty((n,) + tuple(x.shape)),
+                            layer)
+        _put(out, i, layer)
+        del layer          # freed before the next layer's draw
+    return out
+
+
 # ------------------------------------------------------------------- init --
 def _init_dense_layer(gen, cfg, *, device):
-    return {"ln1": init_norm(cfg, device=device),
-            "ln2": init_norm(cfg, device=device),
-            "attn": attn.init_gqa(gen, cfg, device=device),
-            "mlp": ffn.init_mlp(gen, cfg, device=device)}
+    p = {"ln1": init_norm(cfg, device=device),
+         "ln2": init_norm(cfg, device=device)}
+    p["attn"] = (attn.init_mla(gen, cfg, device=device) if cfg.mla is not None
+                 else attn.init_gqa(gen, cfg, device=device))
+    if cfg.moe is not None:
+        p["moe"] = ffn.init_moe(gen, cfg, device=device)
+    else:
+        p["mlp"] = ffn.init_mlp(gen, cfg, device=device)
+    return p
 
 
 def _init_ssm_layer(gen, cfg, *, device):
@@ -96,10 +134,10 @@ def init_decoder(gen: torch.Generator, cfg, *, device=None):
     p: dict[str, Any] = {"embed": init_embedding(gen, cfg, device=dev),
                          "final_norm": init_norm(cfg, device=dev)}
     p.update(init_lm_head(gen, cfg, device=dev))
-    init_layer = (_init_dense_layer if cfg.family == "dense"
+    init_layer = (_init_dense_layer if cfg.family in ATTN_FAMILIES
                   else _init_ssm_layer)
-    p["layers"] = _stack([init_layer(gen, cfg, device=dev)
-                          for _ in range(cfg.n_layers)])
+    p["layers"] = init_stack(lambda: init_layer(gen, cfg, device=dev),
+                             cfg.n_layers)
     if cfg.family == "hybrid":
         p["shared"] = _init_dense_layer(gen, cfg, device=dev)  # ONE block
     return p
@@ -126,41 +164,92 @@ def params_from_jax(params_np, device=None):
 
 
 # ------------------------------------------------------------------ block --
-def _make_rope(cfg, positions):
-    """-> (cos, sin) shaped (B, S, 1, head_dim/2), or None."""
-    if not cfg.uses_attention:
+def _make_rope(cfg, positions, mrope_positions=None):
+    """-> (cos, sin) shaped (B, S, 1, rot/2), or None (no attention, or
+    absolute positions). rot is MLA's rope width or the head width; the
+    vlm family takes M-RoPE angles when ``mrope_positions`` is given."""
+    if not cfg.uses_attention or cfg.rope_theta == 0.0:
         return None
-    return rope_for_heads(positions, cfg.head_dim, cfg.rope_theta)
+    rot = (cfg.mla.qk_rope_head_dim if cfg.mla is not None
+           else cfg.head_dim)
+    if cfg.vision is not None and mrope_positions is not None:
+        return mrope_for_heads(mrope_positions, rot, cfg.rope_theta,
+                               cfg.vision.mrope_sections)
+    return rope_for_heads(positions, rot, cfg.rope_theta)
+
+
+def full_attention(q, k, v, gp: int, *, causal: bool):
+    """GQA attention over a full sequence through the ``flash_attention``
+    kernel wrapper. q (B,S,H,D), k/v (B,T,KH,D), H = KH*gp -> (B,S,H,D).
+    The kernel takes (B,H,S,D) with the KV heads repeated, at any strides
+    with a contiguous last dimension: the transposed views of the model's
+    (B,S,H,D) tensors go in as they are, and the output comes back in q's
+    layout, so transposing it back is a contiguous (B,S,H,D) tensor. No
+    copy either way."""
+    return flash_attention(
+        q.transpose(1, 2), attn.repeat_kv(k, gp).transpose(1, 2),
+        attn.repeat_kv(v, gp).transpose(1, 2), causal=causal
+    ).transpose(1, 2)
 
 
 def _dense_block(lp, h, cfg, rope, *, cache_slice=None, pos=None):
-    """One attention+MLP block (GQA). cache_slice given => decode (S==1).
-    Returns (h, collected k/v of a full pass, updated cache slice)."""
+    """One attention (GQA or MLA) + MLP (dense or MoE) block.
+    cache_slice given => decode (S==1). Returns (h, aux, collected cache
+    pieces of a full pass, updated cache slice); aux is the MoE's
+    load-balance loss, None for a dense MLP (so a dense block launches
+    nothing for it).
+
+    GQA's full-sequence attention goes through the flash kernel
+    (``full_attention``), its decode through ``sdpa`` over the cache. MLA
+    runs plain on both paths, on the card too: its q/k heads are 192 wide
+    at deepseek-v2 (128 nope + 64 rope) and its v heads 128, and the
+    kernel, as the reference's Pallas kernel, takes one head width for q,
+    k and v; the reference computes MLA's attention with plain ``sdpa``
+    as well. Decode is the absorbed form over the latent cache."""
+    cos, sin = rope if rope is not None else (None, None)
     ain = apply_norm(lp["ln1"], h, cfg)
-    lo = attn.layout_from_cfg(cfg)
-    rope4 = None if rope is None else (rope[0], rope[1], rope[0], rope[1])
-    q, k, v = attn.gqa_qkv(lp["attn"], ain, cfg, rope=rope4)
     collected = new_cache = None
-    if cache_slice is not None:
-        new_cache = kvcache.write_kv_layer(cache_slice, k, v, pos)
-        kf, vf = kvcache.read_kv_layer(new_cache, h.dtype)
-        k_valid = (torch.arange(kf.shape[1], device=h.device)[None]
-                   <= pos[:, None])
-        ctx = attn.sdpa(q, kf, vf, k_valid=k_valid, gp=lo.gp)
+    if cfg.mla is not None:
+        if cache_slice is not None:
+            c_kv_new, k_rope_new = attn.mla_latent_kv(lp["attn"], ain, cfg,
+                                                      cos, sin)
+            bidx = torch.arange(h.shape[0], device=h.device)
+            at = pos.long()
+            c_kv, k_rope = cache_slice["c_kv"], cache_slice["k_rope"]
+            c_kv[bidx, at] = c_kv_new[:, 0].to(c_kv.dtype)
+            k_rope[bidx, at] = k_rope_new[:, 0].to(k_rope.dtype)
+            k_valid = (torch.arange(c_kv.shape[1], device=h.device)[None]
+                       <= pos[:, None])
+            aout = attn.mla_attention_decode(
+                lp["attn"], ain, cfg, cos, sin, c_kv.to(h.dtype),
+                k_rope.to(h.dtype), k_valid)
+            new_cache = cache_slice
+        else:
+            aout, (c_kv, k_rope) = attn.mla_attention_full(
+                lp["attn"], ain, cfg, cos, sin)
+            collected = {"c_kv": c_kv, "k_rope": k_rope}
     else:
-        # the kernel takes (B,H,S,D) with the KV heads repeated, at any
-        # strides with a contiguous last dimension: the transposed views
-        # of the model's (B,S,H,D) tensors go in as they are, and the
-        # output comes back in q's layout, so transposing it back is a
-        # contiguous (B,S,H,D) tensor. No copy either way.
-        ctx = flash_attention(
-            q.transpose(1, 2), attn.repeat_kv(k, lo.gp).transpose(1, 2),
-            attn.repeat_kv(v, lo.gp).transpose(1, 2), causal=True
-        ).transpose(1, 2)
-        collected = {"k": k, "v": v}
-    h = h + attn.gqa_out(lp["attn"], ctx, cfg)
-    h = h + ffn.apply_mlp(lp["mlp"], apply_norm(lp["ln2"], h, cfg), cfg)
-    return h, collected, new_cache
+        lo = attn.layout_from_cfg(cfg)
+        rope4 = None if cos is None else (cos, sin, cos, sin)
+        q, k, v = attn.gqa_qkv(lp["attn"], ain, cfg, rope=rope4)
+        if cache_slice is not None:
+            new_cache = kvcache.write_kv_layer(cache_slice, k, v, pos)
+            kf, vf = kvcache.read_kv_layer(new_cache, h.dtype)
+            k_valid = (torch.arange(kf.shape[1], device=h.device)[None]
+                       <= pos[:, None])
+            ctx = attn.sdpa(q, kf, vf, causal=False, k_valid=k_valid,
+                            gp=lo.gp)
+        else:
+            ctx = full_attention(q, k, v, lo.gp, causal=True)
+            collected = {"k": k, "v": v}
+        aout = attn.gqa_out(lp["attn"], ctx, cfg)
+    h = h + aout
+    fin = apply_norm(lp["ln2"], h, cfg)
+    if cfg.moe is not None:
+        mout, aux = ffn.apply_moe(lp["moe"], fin, cfg)
+    else:
+        mout, aux = ffn.apply_mlp(lp["mlp"], fin, cfg), None
+    return h + mout, aux, collected, new_cache
 
 
 def _ssm_layer(params, i, h, cfg, **kw):
@@ -184,8 +273,11 @@ def hybrid_segments(cfg):
 
 # ---------------------------------------------------------------- forward --
 def _embed_input(params, batch, cfg):
-    return embed_tokens(params["embed"], batch["tokens"], cfg).to(
-        pdtype(cfg))
+    h = embed_tokens(params["embed"], batch["tokens"], cfg).to(pdtype(cfg))
+    ve = batch.get("vision_embeds")
+    if ve is not None:   # the VLM stub: patch embeddings replace the prefix
+        h = torch.cat([ve.to(h.dtype), h[:, ve.shape[1]:]], dim=1)
+    return h
 
 
 def forward(params, batch, cfg, *, collect_cache=False,
@@ -196,15 +288,18 @@ def forward(params, batch, cfg, *, collect_cache=False,
     h = _embed_input(params, batch, cfg)
     b, s, _ = h.shape
     positions = torch.arange(s, device=h.device)[None].expand(b, s)
-    rope = _make_rope(cfg, positions)
-    if cfg.family == "dense":
-        kv = []
+    rope = _make_rope(cfg, positions, batch.get("mrope_positions"))
+    aux = torch.zeros((), device=h.device)
+    if cfg.family in ATTN_FAMILIES:
+        pieces = []
         for i in range(cfg.n_layers):
-            h, coll, _ = _dense_block(_layer(params["layers"], i), h, cfg,
-                                      rope)
+            h, a, coll, _ = _dense_block(_layer(params["layers"], i), h, cfg,
+                                         rope)
+            if a is not None:
+                aux = aux + a
             if collect_cache:
-                kv.append(coll)
-        cache_pieces = _stack(kv) if collect_cache else None
+                pieces.append(coll)
+        cache_pieces = _stack(pieces) if collect_cache else None
     elif cfg.family == "ssm":
         states = []
         for i in range(cfg.n_layers):
@@ -218,7 +313,7 @@ def forward(params, batch, cfg, *, collect_cache=False,
         h = h[:, -1:]
     h = apply_norm(params["final_norm"], h, cfg)
     logits = lm_logits(params, params["embed"], h, cfg)
-    return logits, torch.zeros((), device=h.device), cache_pieces
+    return logits, aux, cache_pieces
 
 
 def _hybrid_forward(params, h, cfg, rope, *, collect_cache):
@@ -230,7 +325,7 @@ def _hybrid_forward(params, h, cfg, rope, *, collect_cache):
             ssm_states.append(st)
         lo_i += n
         if has_attn:
-            h, coll, _ = _dense_block(params["shared"], h, cfg, rope)
+            h, _, coll, _ = _dense_block(params["shared"], h, cfg, rope)
             shared_kv.append(coll)
     if not collect_cache:
         return h, None
@@ -240,19 +335,23 @@ def _hybrid_forward(params, h, cfg, rope, *, collect_cache):
 
 # ---------------------------------------------------------------- prefill --
 def prefill(params, batch, cfg, *, kv_dtype="bfloat16", last_only=False):
-    """Returns (last-token logits (B,Vp), decode-ready cache). The dense
-    family's k/v go to the cache in ``kv_dtype`` (int8 with per-(token,
-    head) scales); as in the reference, the hybrid's shared-attention k/v
-    go in bf16 when ``kv_dtype`` is int8 (int8 caches come from
-    ``init_cache``). last_only: the LM head on the final position only."""
+    """Returns (last-token logits (B,Vp), decode-ready cache). The dense,
+    moe and vlm families' k/v go to the cache in ``kv_dtype`` (int8 with
+    per-(token, head) scales); as in the reference, MLA's latent cache and
+    the hybrid's shared-attention k/v go in bf16 when ``kv_dtype`` is int8
+    (int8 caches come from ``init_cache``). last_only: the LM head on the
+    final position only."""
     logits, _, pieces = forward(params, batch, cfg, collect_cache=True,
                                 logits_last_only=last_only)
     b, s = batch["tokens"].shape
     cache: dict = {"pos": torch.full((b,), s, dtype=torch.int32,
                                      device=logits.device)}
     cache_dt = torch.bfloat16 if kv_dtype == "int8" else DTYPES[kv_dtype]
-    if cfg.family == "dense":
-        if kv_dtype == "int8":
+    if cfg.family in ATTN_FAMILIES:
+        if cfg.mla is not None:
+            cache["mla"] = {"c_kv": pieces["c_kv"].to(cache_dt),
+                            "k_rope": pieces["k_rope"].to(cache_dt)}
+        elif kv_dtype == "int8":
             kq, ks = kvcache._q8(pieces["k"])
             vq, vs = kvcache._q8(pieces["v"])
             cache["kv"] = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
@@ -271,17 +370,20 @@ def prefill(params, batch, cfg, *, kv_dtype="bfloat16", last_only=False):
 
 # ----------------------------------------------------------------- decode --
 def decode_step(params, cache, batch, cfg):
-    """One token: batch["tokens"] (B,1). Returns (logits (B,Vp), cache);
-    the cache is updated in place."""
+    """One token: batch["tokens"] (B,1) (and the vlm family's
+    "mrope_positions" (3,B,1)). Returns (logits (B,Vp), cache); the cache
+    is updated in place."""
     check_family(cfg)
     h = _embed_input(params, batch, cfg)
     pos = cache["pos"]                                  # (B,) write index
-    rope = _make_rope(cfg, pos[:, None])
-    if cfg.family == "dense":
+    rope = _make_rope(cfg, pos[:, None], batch.get("mrope_positions"))
+    if cfg.family in ATTN_FAMILIES:
+        name = "mla" if cfg.mla is not None else "kv"
         for i in range(cfg.n_layers):
-            h, _, _ = _dense_block(_layer(params["layers"], i), h, cfg, rope,
-                                   cache_slice=_layer(cache["kv"], i),
-                                   pos=pos)
+            h, _, _, _ = _dense_block(_layer(params["layers"], i), h, cfg,
+                                      rope,
+                                      cache_slice=_layer(cache[name], i),
+                                      pos=pos)
     else:
         h = _ssm_decode(params, h, cache, cfg, rope, pos)
     h = apply_norm(params["final_norm"], h, cfg)
@@ -306,6 +408,6 @@ def _ssm_decode(params, h, cache, cfg, rope, pos):
         if has_attn:
             lc = _layer(cache["shared_attn"], inv)
             inv += 1
-            h, _, _ = _dense_block(params["shared"], h, cfg, rope,
-                                   cache_slice=lc, pos=pos)
+            h, _, _, _ = _dense_block(params["shared"], h, cfg, rope,
+                                      cache_slice=lc, pos=pos)
     return h

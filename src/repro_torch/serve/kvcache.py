@@ -1,15 +1,20 @@
 """KV / state cache layouts and physical representations, ported from the
-reference's ``serve/kvcache.py`` for the ``dense``, ``ssm`` and ``hybrid``
-families.
+reference's ``serve/kvcache.py``.
 
 The cache dtype is a physical representation choice: bfloat16 or float32,
-or int8 with per-(token, head) f32 scales.
+or int8 with per-(token, head) f32 scales (MLA's latent cache and the
+audio family's cross cache stay bf16 when int8 is asked, as in the
+reference).
 
 Layouts (stacked over layers):
   attention: k/v (L, B, T, KHp, Dh) [+ k_scale/v_scale (L,B,T,KHp) if int8]
-             (the dense family's cache["kv"])
+             (cache["kv"] of the dense, moe and vlm families)
+  MLA:       c_kv (L, B, T, r), k_rope (L, B, T, rope)   (cache["mla"])
   SSM:       conv_x/b/c (L, B, ch, K-1), state (L, B, H, P, N) fp32
   hybrid:    SSM stack + shared-attn k/v (J, B, T, KHp, Dh), J = invocations
+  audio:     decoder self-attention k/v as attention ("self"), and the
+             cross-attention k/v of the encoder's frames (L, B, n_frames,
+             KHp, Dh) ("cross"), written once by prefill
   pos:       (B,) int32 -- number of valid tokens (same for all layers)
 
 Unlike the reference, ``write_kv_layer`` writes the new token into the
@@ -80,27 +85,38 @@ def read_kv_layer(layer_cache, dtype=torch.bfloat16):
     return layer_cache["k"].to(dtype), layer_cache["v"].to(dtype)
 
 
+def init_mla_kv(cfg, batch: int, seq: int, kv_dtype: str = "bfloat16", *,
+                device):
+    m = cfg.mla
+    dt = torch.bfloat16 if kv_dtype == "int8" else DTYPES[kv_dtype]
+    return {"c_kv": torch.zeros((cfg.n_layers, batch, seq, m.kv_lora_rank),
+                                dtype=dt, device=device),
+            "k_rope": torch.zeros((cfg.n_layers, batch, seq,
+                                   m.qk_rope_head_dim), dtype=dt,
+                                  device=device)}
+
+
 def init_cache(cfg, batch: int, seq: int, kv_dtype: str = "bfloat16", *,
                device=None):
-    """Full decode cache of a ``dense``, ``ssm`` or ``hybrid`` model. 'pos'
-    counts valid tokens. Runs on the card unless ``device`` says
-    otherwise."""
+    """Full decode cache for any family. 'pos' counts valid tokens. Runs on
+    the card unless ``device`` says otherwise."""
     dev = resolve_device(device)
-    if cfg.family not in ("dense", "ssm", "hybrid") or cfg.mla is not None:
-        raise NotImplementedError(
-            f"family {cfg.family!r}: only the dense, ssm and hybrid caches "
-            f"are ported (ROADMAP Queue 1: the rest of the LM substrate, "
-            f"moe/MLA/vlm/audio)")
     cache: dict = {"pos": torch.zeros((batch,), dtype=torch.int32,
                                       device=dev)}
-    if cfg.family == "dense":
+    if cfg.family in ("ssm", "hybrid"):
+        one = init_ssm_cache(cfg, batch, device=dev)
+        cache["ssm"] = {k: v[None].repeat((cfg.n_layers,) + (1,) * v.dim())
+                        for k, v in one.items()}
+        if cfg.family == "hybrid":
+            n_inv = cfg.n_layers // cfg.hybrid_attn_every
+            cache["shared_attn"] = init_attn_kv(cfg, batch, seq, kv_dtype,
+                                                n_layers=n_inv, device=dev)
+    elif cfg.mla is not None:
+        cache["mla"] = init_mla_kv(cfg, batch, seq, kv_dtype, device=dev)
+    elif cfg.family == "audio":
+        cache["self"] = init_attn_kv(cfg, batch, seq, kv_dtype, device=dev)
+        cache["cross"] = init_attn_kv(cfg, batch, cfg.encoder.n_frames,
+                                      "bfloat16", device=dev)
+    else:
         cache["kv"] = init_attn_kv(cfg, batch, seq, kv_dtype, device=dev)
-        return cache
-    one = init_ssm_cache(cfg, batch, device=dev)
-    cache["ssm"] = {k: v[None].repeat((cfg.n_layers,) + (1,) * v.dim())
-                    for k, v in one.items()}
-    if cfg.family == "hybrid":
-        n_inv = cfg.n_layers // cfg.hybrid_attn_every
-        cache["shared_attn"] = init_attn_kv(cfg, batch, seq, kv_dtype,
-                                            n_layers=n_inv, device=dev)
     return cache

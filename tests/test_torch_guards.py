@@ -75,6 +75,19 @@ def test_the_walk_covers_the_serving_modules():
         "examples/serve_cascade_torch.py")
 
 
+def test_the_walk_covers_the_lm_family_modules():
+    """The moe, MLA, vlm and audio families' modules and configs are
+    among the walked (and imported) files."""
+    walked = {str(p.relative_to(ROOT)) for p in
+              (ROOT / "src" / "repro_torch").rglob("*.py")}
+    for name in ("models/encdec", "models/ffn", "models/attention",
+                 "models/transformer", "models/factory", "serve/kvcache",
+                 "launch/serve", "configs/phi3_5_moe",
+                 "configs/deepseek_v2_236b", "configs/qwen2_vl_72b",
+                 "configs/whisper_tiny", "configs/registry"):
+        assert f"src/repro_torch/{name}.py" in walked, name
+
+
 def _no_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default is usable")
@@ -312,6 +325,8 @@ def test_chip_smoke_rehearsal_runs_every_phase_on_the_cpu():
         out.stdout and "labels equal the unfaulted run's: True" in out.stdout
     assert "== dense LM path" in out.stdout and "labels and levels equal " \
         "the host oracle's: True" in out.stdout
+    assert "== moe, MLA, vlm and audio LM paths" in out.stdout
+    assert out.stdout.count("prefill + decode_step == forward") >= 7
 
 
 def _c_struct_fields(source: str, struct: str) -> list[str]:

@@ -300,13 +300,21 @@ def test_lm_token_batches_equal_the_reference(vocab, batch, seq, steps,
 
 
 def test_moe_and_mla_archs_still_raise():
+    """The moe and MLA archs build now; a family neither package knows
+    raises ValueError, as the reference's ``init_decoder`` does."""
+    from repro.configs import base as j_base
+    from repro.models import transformer as j_tr
     from repro_torch.configs import base as t_base
-    moe = t_base.ArchConfig("m", "moe", 1, 8, 2, 2, 16, 32,
-                            moe=t_base.MoEConfig(4, 2, 8))
-    mla = t_base.ArchConfig("a", "dense", 1, 8, 2, 2, 16, 32,
-                            mla=t_base.MLAConfig(8, 8, 8, 4, 8))
-    for cfg in (moe, mla):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_model(cfg)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            kvcache.init_cache(cfg, 1, 4, device="cpu")
+    for name in ("phi3.5-moe-42b-a6.6b", "deepseek-v2-236b"):
+        cfg = t_registry.smoke_config(name)
+        build_model(cfg)
+        assert sorted(kvcache.init_cache(cfg, 1, 4, device="cpu")) == \
+            sorted(j_build(j_registry.smoke_config(name)).init_cache(1, 4))
+    args = ("x", "convolutional", 1, 8, 2, 2, 16, 32)
+    with pytest.raises(ValueError, match="convolutional"):
+        j_tr.init_decoder(jax.random.PRNGKey(0), j_base.ArchConfig(*args))
+    with pytest.raises(ValueError, match="convolutional"):
+        build_model(t_base.ArchConfig(*args))
+    with pytest.raises(ValueError, match="convolutional"):
+        t_tr.init_decoder(torch.Generator(), t_base.ArchConfig(*args),
+                          device="cpu")

@@ -101,17 +101,17 @@ def test_arch_and_smoke_configs_equal_the_reference(arch):
 
 
 def test_other_archs_wait_for_their_slice():
-    assert (set(t_registry.ARCHS) | set(t_registry.WAITING)
-            == set(j_registry.ARCHS))
-    for name in t_registry.WAITING:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            t_registry.get_arch(name)
-    with pytest.raises(KeyError):
-        t_registry.get_arch("no-such-arch")
-    moe = t_base.ArchConfig("m", "moe", 1, 8, 2, 2, 16, 32,
-                            moe=t_base.MoEConfig(4, 2, 8))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(moe)
+    """No arch waits any more: the port registers the reference's ten,
+    name for name and config for config, and an unknown arch still raises
+    KeyError in both."""
+    assert list(t_registry.ARCHS) == list(j_registry.ARCHS)
+    for name, cfg in j_registry.ARCHS.items():
+        assert dataclasses.asdict(t_registry.get_arch(name)) == \
+            dataclasses.asdict(cfg), name
+        build_model(t_registry.smoke_config(name))
+    for reg in (t_registry, j_registry):
+        with pytest.raises(KeyError):
+            reg.get_arch("no-such-arch")
 
 
 # ------------------------------------------------------------- elementwise --
@@ -228,8 +228,8 @@ def test_shared_attention_block_full_and_decode_match():
     jh, _, jcoll, _ = jax.jit(lambda p, h, r: j_tr._dense_block(
         p, h, jcfg, r, chunk=0, moe_groups=1))(jp["shared"], jnp.asarray(h),
                                                j_rope)
-    th, tcoll, _ = t_tr._dense_block(tp["shared"], torch.from_numpy(h), tcfg,
-                                     t_rope)
+    th, _, tcoll, _ = t_tr._dense_block(tp["shared"], torch.from_numpy(h),
+                                        tcfg, t_rope)
     np.testing.assert_allclose(th.numpy(), np.asarray(jh), **TOL)
     _close_trees(tcoll, jcoll)
     # decode one token at position s against a cache holding the first s
@@ -244,9 +244,9 @@ def test_shared_attention_block_full_and_decode_match():
         jo, _, _, jnc = jax.jit(lambda p, x, r, c, q: j_tr._dense_block(
             p, x, jcfg, r, chunk=0, moe_groups=1, cache_slice=c, pos=q))(
             jp["shared"], jnp.asarray(x1), jr1, jc, jnp.asarray(p1))
-        to, _, tnc = t_tr._dense_block(tp["shared"], torch.from_numpy(x1),
-                                       tcfg, tr1, cache_slice=tc,
-                                       pos=torch.from_numpy(p1))
+        to, _, _, tnc = t_tr._dense_block(tp["shared"], torch.from_numpy(x1),
+                                          tcfg, tr1, cache_slice=tc,
+                                          pos=torch.from_numpy(p1))
         np.testing.assert_allclose(to.numpy(), np.asarray(jo), **TOL)
         if kv == "int8":   # same int8 codes, scales to f32 rounding
             assert np.abs(tnc["k"].numpy().astype(int)

@@ -199,6 +199,46 @@
    ``forward`` (CONSIST_TOL) for phi3.5 at 2 layers, deepseek-v2 at 1
    (the absorbed decode against the full path), qwen2-vl at 2 (patches
    and M-RoPE) and whisper whole, batch 2 x 512 tokens.
+   LM training: zamba2-1.2b at full width and depth (random bf16 weights
+   from a generator seeded with 0) trains 20 steps of 8 x 512 tokens of
+   ``lm_token_batches`` (lr 3e-4, cosine schedule, AdamW, remat "full",
+   8 micro-batches) through ``launch.train`` (``setup`` and the runtime's
+   loop, as ``main`` runs them) on a mesh of one rank, with one final
+   checkpoint. Launch counts are reset just before step COUNTED_STEP and
+   read just after it: ``ssd_scan`` 8 x 38 x 2 (the checkpoint recomputes
+   each SSD layer's forward) and ``flash_attention`` 8 x 6 (the shared
+   block is not checkpointed, as in the reference; both backwards
+   recompute the plain versions); the kernels line's launches add them
+   (``training_launches``). Every loss must be finite, and step 0's
+   first sequence, through the trained model, ``loss_drop`` below its
+   loss before training (fresh batches of uniform tokens teach little in
+   20 steps: their losses are printed), and no step may fail and be
+   replayed by the runtime; it prints steps/s, tokens/s, ms per step,
+   model TFLOP/s (6 N tokens over the step), peak memory, the final
+   checkpoint's bytes and seconds, one more step profiled whole (device
+   time by kernel, idle share against the run's median step), and the
+   gradient norms of the SSD-only leaves, which must be nonzero. Then
+   ``ssd_scan`` under autograd (``_SSD``) at the training shape in bf16
+   and f32: outputs within SSD_TOL of ``ssd_scan_ref``, its
+   gradients of all five operands equal; an f32 zamba2 cut to 6 layers
+   (one shared-block pass) at 1 x 256 tokens: gradients through the
+   kernels on the card against its CPU copy's (plain versions), leaf by
+   leaf within TRAIN_GRAD_TOL. The recovery drill (zamba2 at full width cut
+   to 6 layers, 10 steps of 1 x 512, a checkpoint every 3 steps) runs
+   uninterrupted and with failures injected at steps 4 and 7 (checkpoints
+   through ``AsyncSaver``) under ``torch.use_deterministic_algorithms``
+   (CUBLAS_WORKSPACE_CONFIG set at start): 2 recoveries, and params and
+   optimizer state ``torch.equal`` to the uninterrupted run's, and the
+   checkpoint ``AsyncSaver`` wrote at step 9 byte for byte the
+   uninterrupted run's; a leaf changed in place right after
+   ``AsyncSaver.save`` returns restores as it was. One step each with
+   ``--compress topk`` and ``int8``: error feedback holds on the step's
+   gradients, and each step is timed. Last, the training step's
+   kernel shapes as rows of the kernels line (flash q/k/v (1,32,512,64)
+   bf16 causal beside SDPA; ``ssd_scan`` x (1,512,64,64) bf16, N 64), each
+   held against its plain version, with kernel, device, plain and bound
+   times and its launches in the counted step. The phase's checkpoints
+   go under ``build/ckpt`` and are removed at its end.
 5. Kernel entry points (``kernels/ops``), the twin of the reference's
    ``bench_transform_kernel`` at the query path's width: a chunk of 256
    dyadic 224 px frames through ``pyramid_transform_op`` with all 20
@@ -228,6 +268,8 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
+import os
 import subprocess
 import sys
 import time
@@ -301,6 +343,14 @@ TRANSFORM_TOL = 1e-5
 FLASH_TEST_SHAPES = ((1, 2, 64, 32), (2, 3, 128, 64), (1, 1, 256, 16))
 SSD_TEST_SHAPES = ((1, 64, 2, 8, 16), (2, 128, 3, 16, 32))
 PROFILER_SESSIONS = 3   # device_ms: sessions tried before it gives up
+# the LM training phase: the runtime's step whose launches are counted
+# (0-based; the first steps warm the allocator up), and the gradients of
+# an f32 zamba2 through the kernels against its CPU copy: max |diff| over
+# the leaf's largest |g|. The two forwards sum in other orders (the SSD
+# and flash kernels, cuBLAS against the CPU's GEMMs), ~1e-6 relative a
+# layer; an indexing or layout fault moves a leaf's gradient by O(1).
+COUNTED_STEP = 2
+TRAIN_GRAD_TOL = 1e-3
 
 # the moe/MLA/vlm/audio phase: (arch, depth served, depth of the f32
 # consistency check); None: the published depth. phi3.5-moe's 16 layers
@@ -333,7 +383,17 @@ FULL = dict(base=224, chunk=256, out_res=(112, 56, 28), split=512,
             families=dict(full=True, models=FAMILY_MODELS, batch=8,
                           prompt=512, audio_prompt=128, gen=32,
                           check_batch=2, check_prompt=512, check_at=256,
-                          moe_tokens=64, iters=10))
+                          moe_tokens=64, iters=10),
+            # zamba2-1.2b training: 20 steps of 8 x 512 tokens at full
+            # width and depth (step 0's first sequence, measured again
+            # after training, must have lost loss_drop nats: on an
+            # NVIDIA H100 80GB HBM3 at 700 W it went 10.94 -> 5.19); the
+            # drill at 6 layers, batch 1, 10 steps, a checkpoint every 3,
+            # failures at steps 4 and 7
+            lm_train=dict(full=True, steps=20, batch=8, seq=512, lr=3e-4,
+                          loss_drop=1.0, drill_layers=6, drill_batch=1,
+                          drill_steps=10, every=3, fail_at=(4, 7),
+                          grad_seq=256))
 # the rehearsal's few steps teach its toy models little: no learning floor
 REHEARSE = dict(base=32, chunk=32, out_res=(16, 8, 4), split=48, train=48,
                 steps=3, floors=(0.0, 0.0), pinned=False, corpus=96,
@@ -356,7 +416,11 @@ REHEARSE = dict(base=32, chunk=32, out_res=(16, 8, 4), split=48, train=48,
                 families=dict(full=False, models=FAMILY_MODELS, batch=2,
                               prompt=32, audio_prompt=16, gen=4,
                               check_batch=2, check_prompt=32, check_at=16,
-                              moe_tokens=16, iters=1))
+                              moe_tokens=16, iters=1),
+                lm_train=dict(full=False, steps=4, batch=4, seq=32,
+                              lr=3e-3, loss_drop=0.0, drill_layers=None,
+                              drill_batch=2, drill_steps=6, every=2,
+                              fail_at=(2, 4), grad_seq=32))
 
 
 def log(msg: str) -> None:
@@ -369,6 +433,13 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
+    # cuBLAS reads this once, at its first handle: with it, the training
+    # drill's GEMMs are deterministic (torch.use_deterministic_algorithms).
+    # The first handle comes phases before the drill, so it is set for the
+    # whole run; on sm_90 it names the workspace PyTorch gives cuBLAS
+    # there anyway (8 buffers of 4096 KiB), so the earlier phases' timed
+    # cuBLAS comparisons run as they would without it
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke.py must run from a checkout of the repo "
@@ -382,23 +453,36 @@ def main(argv=None) -> int:
     cfg = REHEARSE if args.rehearse else FULL
     dev = torch.device("cpu" if args.rehearse else "cuda")
 
-    card = setup(dev)
-    kern = check_kernels(dev, cfg, card, args.seed)
-    launches, query = query_path(dev, cfg, card, kern, args.seed)
-    ingest, before = ingest_algebra_path(dev, cfg, kern, args.seed, query)
-    sharded = sharded_path(dev, cfg, kern, query, before)
-    serving = serving_path(dev, cfg, card, kern, query, before)
+    t_run = time.perf_counter()
+
+    def phase(fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        log(f"  ({fn.__name__}: {time.perf_counter() - t0:.1f} s)")
+        return out
+    card = phase(setup, dev)
+    kern = phase(check_kernels, dev, cfg, card, args.seed)
+    launches, query = phase(query_path, dev, cfg, card, kern, args.seed)
+    ingest, before = phase(ingest_algebra_path, dev, cfg, kern, args.seed,
+                           query)
+    sharded = phase(sharded_path, dev, cfg, kern, query, before)
+    serving = phase(serving_path, dev, cfg, card, kern, query, before)
     del query, before
     launches["fused_pyramid_stage0"] += ingest + sharded + serving
-    launches.update(lm_path(dev, cfg, card, kern, args.seed))
-    kern["flash_attention"]["dense_launches"] = dense_lm_path(
-        dev, cfg, card, kern, args.seed)
+    launches.update(phase(lm_path, dev, cfg, card, kern, args.seed))
+    kern["flash_attention"]["dense_launches"] = phase(
+        dense_lm_path, dev, cfg, card, kern, args.seed)
     launches["flash_attention"] += kern["flash_attention"]["dense_launches"]
-    kern["flash_attention"]["families_launches"] = families_lm_path(
-        dev, cfg, card, kern, args.seed)
+    kern["flash_attention"]["families_launches"] = phase(
+        families_lm_path, dev, cfg, card, kern, args.seed)
     launches["flash_attention"] += \
         kern["flash_attention"]["families_launches"]
-    launches.update(ops_path(dev, cfg, card, kern, args.seed))
+    for name, n in phase(lm_training_path, dev, cfg, card, kern,
+                         args.seed).items():
+        kern[name]["training_launches"] = n
+        launches[name] += n
+    launches.update(phase(ops_path, dev, cfg, card, kern, args.seed))
+    log(f"all phases: {time.perf_counter() - t_run:.1f} s")
     if "smi" in card:    # again near the end: the card beside the numbers
         log(card["smi"])
     kernels_line(kern, launches)
@@ -1260,21 +1344,28 @@ def query_path(dev, cfg, card, kern, seed):
                           naive=naive_rows[False])
 
 
-def device_profile(run, dev, wall_s, label, top=12):
+def device_profile(run, dev, wall_s, label, top=12, cpu_ops=True):
     """Where ``run()``'s device time goes: torch.profiler over it, device
     time summed by kernel name, and the device's idle share against the
     unprofiled run's wall time ``wall_s`` (the profiler slows the host, not
     the kernels). Returns {kernel name: [launches, us]}, or None when the
-    profiler saw no device events."""
+    profiler saw no device events. ``cpu_ops=False`` records the device's
+    activity alone: a training step's ~10^5 operators otherwise take the
+    profiler minutes to record. The device events are read from the
+    profiler's raw results, not ``prof.events()``, whose tree of
+    FunctionEvents is slow to build for a training step's ~10^5
+    kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     _sync(dev)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu_ops
+                                      else [])
+    with profile(activities=acts) as prof:
         run()
         _sync(dev)
-    spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    spans = sorted((e.start_ns() / 1e3, e.end_ns() / 1e3, e.name())
+                   for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == DeviceType.CUDA)
     if not spans:
         log(f"  {label}: the profiler saw no device events; the breakdown "
             f"and idle share are not measured")
@@ -3373,12 +3464,12 @@ def prefill_profile(dev, model, params, prompts, extras, res, arch, gen):
 
     from repro_torch.launch.serve import serve
     from repro_torch.models import ffn
-    from repro_torch.models.transformer import _layer
+    from repro_torch.models.transformer import _layers
     by = device_profile(lambda: serve(model, params, prompts, 0, device=dev,
                                       **extras),
                         dev, res.prefill_s, "prefill profile (bf16)") or {}
     busy = sum(us for _, us in by.values())
-    lp = _layer(params["layers"], 0)["moe"]
+    lp = _layers(params["layers"], 1)[0]["moe"]
     x = torch.randn((prompts.shape[0], prompts.shape[1], arch.d_model),
                     generator=gen, device=dev).to(torch.bfloat16)
     sessions = []
@@ -3442,8 +3533,8 @@ def moe_checks(dev, fm, arch, model, params, prompts, gen):
 
     from repro_torch.models import ffn
     from repro_torch.models.common import apply_norm
-    from repro_torch.models.transformer import _layer
-    lp = _layer(params["layers"], 0)
+    from repro_torch.models.transformer import _layers
+    lp = _layers(params["layers"], 1)[0]
     emb = params["embed"]["embedding"]
     f32 = no_drops(arch).replace(dtype="float32")
     m = fm["moe_tokens"]
@@ -3569,6 +3660,504 @@ def greedy_route(dev, arch, model, params, prompts, extras, res):
         raise AssertionError(f"{arch.name} greedy tokens leave forward's "
                              f"argmax away from a near-tie: "
                              f"{(differ & ~ties).nonzero().tolist()}")
+
+
+# ----------------------------------------------------------- phase 4d --
+def lm_training_path(dev, cfg, card, kern, seed):
+    """zamba2-1.2b training through ``launch.train`` (full width and
+    depth), the kernels' autograd route, the recovery drill, compressed
+    steps and the training shapes' kernel rows. Returns the launch counts
+    of the counted step."""
+    import shutil
+
+    import torch
+
+    from repro_torch.configs.registry import get_arch, smoke_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as lt
+    from repro_torch.launch.steps import lm_loss
+    from repro_torch.models.factory import count_params
+    from repro_torch.models.transformer import hybrid_segments
+    from repro_torch.train.optimizer import tree_map
+    tr = cfg["lm_train"]
+    log("== LM training")
+    root = ROOT / "build" / "ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    args = lt.parse_args(
+        ["--arch", "zamba2-1.2b", "--steps", str(tr["steps"]),
+         "--batch", str(tr["batch"]), "--seq", str(tr["seq"]),
+         "--lr", str(tr["lr"]), "--ckpt-dir", str(root / "full"),
+         "--ckpt-every", str(tr["steps"] + 1), "--device", dev.type]
+        + (["--full"] if tr["full"] else []))
+    mem0 = _peak_reset(dev)
+    t0 = time.perf_counter()
+    st = lt.setup(args, log=lambda m: log(f"  {m}"))
+    arch, info, rt = st.cfg, st.info, st.runtime
+    n_params = count_params(st.params)
+    log(f"  {arch.name}: {n_params:,} parameters ({arch.dtype}), "
+        f"{arch.n_layers} Mamba-2 layers, remat {st.shape.remat_policy}, "
+        f"n_micro {info['n_micro']}; set up in "
+        f"{time.perf_counter() - t0:.3f} s")
+
+    # step 0's first sequence (its first micro-batch), before training
+    first = {k: torch.as_tensor(v[:1]).to(dev)
+             for k, v in st.batches(0).items()}
+    with torch.no_grad():
+        before = float(lm_loss(st.model.forward(
+            tree_map(_whole, st.params), first)[0], first["labels"],
+            arch.vocab_size))
+
+    # ---- the main path: the runtime's loop; step COUNTED_STEP's launches
+    step_fn, calls, counted = rt.step_fn, [0], {}
+
+    def step(p, o, batch):
+        calls[0] += 1
+        if calls[0] != COUNTED_STEP + 1:
+            return step_fn(p, o, batch)
+        ops.reset_launch_counts()
+        out = step_fn(p, o, batch)
+        counted.update(ops.LAUNCHES, shapes=dict(ops.FLASH_SHAPES))
+        return out
+    rt.step_fn = step
+    params, opt_state, hist = rt.run(st.params, st.opt_state, st.batches,
+                                     num_steps=args.steps)
+    rt.step_fn = step_fn
+    peak = _peak_extra(dev, mem0)
+    # the runtime replays a step that raised: on the main path that is a
+    # fault (the drill below injects its failures on purpose)
+    if rt.recoveries or len(hist) != args.steps:
+        raise AssertionError(f"a step of the main run failed: "
+                             f"{rt.recoveries} recoveries, {len(hist)} "
+                             f"steps logged for {args.steps}")
+    passes = sum(1 for _, shared in hybrid_segments(arch) if shared)
+    remat = 2 if st.shape.remat_policy != "none" else 1
+    expect = {"ssd_scan": info["n_micro"] * arch.n_layers * remat,
+              "flash_attention": info["n_micro"] * passes}
+    got = {k: counted[k] for k in expect}
+    log(f"  launches in step {COUNTED_STEP}: {got} (expected {expect}: "
+        f"{info['n_micro']} micro-batches x {arch.n_layers} SSD layers x "
+        f"{remat} (the checkpoint's recompute), and {passes} shared-block "
+        f"passes, not checkpointed, as in the reference; the backwards "
+        f"recompute the plain versions)")
+    if dev.type == "cuda" and got != expect:
+        raise AssertionError(f"training step launches {got} != {expect}")
+    losses = [h["loss"] for h in hist]
+    dts = [h["dt"] for h in hist[1:]] or [hist[0]["dt"]]
+    mean, median = sum(dts) / len(dts), sorted(dts)[len(dts) // 2]
+    tokens = args.batch * args.seq
+    log(f"  losses: {', '.join(f'{x:.4f}' for x in losses)}")
+    log(f"  {len(hist)} steps of {args.batch} x {args.seq} tokens: "
+        f"{1 / mean:.3f} steps/s, {tokens / mean:.1f} tokens/s, "
+        f"{mean * 1e3:.3f} ms/step (median "
+        f"{median * 1e3:.3f}; steps 1-{len(hist) - 1}, "
+        f"the first {hist[0]['dt'] * 1e3:.3f} ms); model "
+        f"{6 * n_params * tokens / mean / 1e12:.2f} TFLOP/s (6 N tokens); "
+        f"peak memory {_mb(peak)} above the {_mb(mem0)} held before")
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"training losses {losses}: not finite")
+    final = root / "full" / f"step_{args.steps}"
+    nbytes = sum(f.stat().st_size for f in final.iterdir())
+    log(f"  final checkpoint (params, m, v): {nbytes / 1e9:.3f} GB in "
+        f"{rt.saves[-1][1]:.3f} s ({nbytes / 1e9 / rt.saves[-1][1]:.3f} "
+        f"GB/s, host copy and write)")
+    # one more step of the runtime's step function on the next batch,
+    # profiled whole (its micro-batches, gradient reduction and AdamW
+    # update), its idle share against the run's median step
+    if dev.type == "cuda":
+        nxt = st.batches(args.steps)
+        t1 = time.perf_counter()
+        device_profile(lambda: step_fn(params, opt_state, nxt), dev, median,
+                       f"training step profile (one whole step: "
+                       f"{info['n_micro']} micro-batches and the AdamW "
+                       f"update)", cpu_ops=False)
+        log(f"  (the profiled step and its reading took "
+            f"{time.perf_counter() - t1:.1f} s)")
+    # step 0's first micro-batch again, through the trained model: each
+    # step is a fresh batch of uniform random tokens, and in 20 steps a
+    # token id recurs ~1.3 times, so the per-step losses stay near their
+    # start (they are printed, not held); a sequence the model was
+    # trained on must have become likelier
+    after, grads = micro_grads(st, params, first)
+    log(f"  loss of step 0's first sequence: {before:.4f} before "
+        f"training, {float(after):.4f} after (must fall by "
+        f"{tr['loss_drop']}); the per-step losses on fresh batches moved "
+        f"{losses[-1] - losses[0]:+.4f}")
+    if not float(after) < before - tr["loss_drop"]:
+        raise AssertionError(f"step 0's first sequence: loss {before} -> "
+                             f"{float(after)}, not {tr['loss_drop']} lower")
+    norms = {k: float(_whole(grads["layers"]["ssm"][k]).float().norm())
+             for k in ("a_log", "dt_bias", "w_b", "w_c", "conv_b",
+                       "conv_c")}
+    log(f"  gradient norms of the SSD-only leaves: "
+        f"{', '.join(f'{k} {v:.3g}' for k, v in norms.items())}")
+    if not all(v > 0 and math.isfinite(v) for v in norms.values()):
+        raise AssertionError(f"an SSD-only leaf has no gradient: {norms}")
+    del params, opt_state, grads, st, rt, step_fn
+    shutil.rmtree(root / "full")
+
+    small = (get_arch("zamba2-1.2b").replace(n_layers=tr["drill_layers"])
+             if tr["full"] else smoke_config("zamba2-1.2b"))
+    spent = {"full-depth training": time.perf_counter() - t0}
+    for name, part in (
+            ("gradient checks", lambda: check_training_grads(
+                dev, tr, small, seed)),
+            ("recovery drill", lambda: recovery_drill(dev, tr, small, root)),
+            ("compressed steps", lambda: compressed_steps(dev, tr, small,
+                                                          root)),
+            ("kernel rows", lambda: training_kernel_rows(
+                dev, cfg, card, kern, arch, counted, seed))):
+        t1 = time.perf_counter()
+        part()
+        spent[name] = time.perf_counter() - t1
+    shutil.rmtree(root, ignore_errors=True)
+    log(f"  the phase's seconds: "
+        f"{', '.join(f'{k} {v:.1f}' for k, v in spent.items())}")
+    return {k: counted[k] for k in ("flash_attention", "ssd_scan")}
+
+
+def _whole(x):
+    return x.full_tensor() if hasattr(x, "full_tensor") else x
+
+
+def micro_grads(st, params, batch):
+    """(loss, gradients) of one micro-batch through ``st``'s model at its
+    remat policy, as the train step computes each."""
+    import torch
+
+    from repro_torch.launch.steps import lm_loss
+    from repro_torch.train.optimizer import tree_leaves, tree_unflatten
+    leaves = [_whole(x).detach().requires_grad_()
+              for x in tree_leaves(params)]
+    logits, _, _ = st.model.forward(tree_unflatten(params, leaves), batch,
+                                    remat_policy=st.shape.remat_policy)
+    loss = lm_loss(logits, batch["labels"], st.cfg.vocab_size)
+    return loss.detach(), tree_unflatten(
+        params, list(torch.autograd.grad(loss, leaves)))
+
+
+def check_training_grads(dev, tr, small, seed):
+    """The kernels' autograd route: ``ssd_scan`` under grad (``_SSD``)
+    against ``ssd_scan_ref`` at the training shape, bf16 and f32 (outputs
+    within SSD_TOL, gradients equal: the backward is the plain version's);
+    then an f32 zamba2 of ``small``'s depth at batch 1 through the kernel
+    route on this device against its CPU copy (plain route), leaf by leaf
+    within TRAIN_GRAD_TOL of the leaf's largest gradient."""
+    import torch
+
+    from repro_torch.data.synthetic import lm_token_batches
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import ssd_scan_ref
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.launch.steps import lm_loss
+    from repro_torch.models.factory import build_model
+    from repro_torch.train.optimizer import (tree_leaves,
+                                             tree_leaves_with_path,
+                                             tree_unflatten)
+    gen = torch.Generator(device=dev).manual_seed(seed + 11)
+    h, p, n = small.ssm_heads, small.ssm.head_dim, small.ssm.d_state
+    s = tr["seq"]
+    for dt in (torch.bfloat16, torch.float32):
+        def leaf(*shape, scale=1.0, kind=torch.randn, dtype=dt):
+            x = kind(shape, generator=gen, device=dev) * scale
+            return x.to(dtype).requires_grad_()
+        x = leaf(1, s, h, p, scale=0.5)
+        dtv = leaf(1, s, h, scale=0.1, kind=torch.rand, dtype=torch.float32)
+        a = (-torch.rand((h,), generator=gen, device=dev) * 2
+             ).requires_grad_()
+        bm, cm = leaf(1, s, n, scale=0.3), leaf(1, s, n, scale=0.3)
+        args = (x, dtv, a, bm, cm)
+        wy = torch.randn((1, s, h, p), generator=gen, device=dev)
+        wf = torch.randn((1, h, p, n), generator=gen, device=dev)
+        ops.reset_launch_counts()
+        y, fin = ssd_scan(*args, chunk=small.ssm.chunk_size)
+        launched = ops.LAUNCHES["ssd_scan"]
+        got = torch.autograd.grad((y * wy).sum() + (fin * wf).sum(), args)
+        yr, fr = ssd_scan_ref(*args, chunk=small.ssm.chunk_size)
+        want = torch.autograd.grad((yr * wy).sum() + (fr * wf).sum(), args)
+        ey, oky = _close(y.detach(), yr.detach(), *SSD_TOL)
+        ef, okf = _close(fin.detach(), fr.detach(), *SSD_TOL)
+        same = all(torch.equal(g, w) for g, w in zip(got, want))
+        route = type(y.grad_fn).__name__
+        log(f"  ssd_scan under autograd, x (1,{s},{h},{p}) {dt}, N {n}: "
+            f"{route}, {launched} launch; max |err| y {ey:.3g}, final "
+            f"state {ef:.3g} (tol {SSD_TOL}); gradients of x, dt, a, B, C "
+            f"equal the plain version's: {same}")
+        if not (oky and okf and same) or (dev.type == "cuda" and (
+                launched != 1 or "SSD" not in route)):
+            raise AssertionError(f"ssd_scan's autograd route ({dt})")
+
+    f32 = small.replace(dtype="float32")
+    model = build_model(f32)
+    params = model.init(torch.Generator(device=dev).manual_seed(seed + 12),
+                        device=dev)
+    batch = next(lm_token_batches(f32.vocab_size, 1, tr["grad_seq"], 1,
+                                  seed=seed))
+
+    def grads(device, ps):
+        leaves = [t.detach().to(device).requires_grad_()
+                  for t in tree_leaves(ps)]
+        p = tree_unflatten(ps, leaves)
+        bt = {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+        logits, _, _ = model.forward(p, bt, remat_policy="full")
+        return torch.autograd.grad(lm_loss(logits, bt["labels"],
+                                           f32.vocab_size), leaves)
+    t0 = time.perf_counter()
+    on_dev = grads(dev, params)
+    _sync(dev)
+    t1 = time.perf_counter()
+    on_cpu = grads(torch.device("cpu"), params)
+    t2 = time.perf_counter()
+    names = ["/" + "/".join(p) for p, _ in tree_leaves_with_path(params)]
+    worst = (0.0, "")
+    for name, g, w in zip(names, on_dev, on_cpu):
+        scale = float(w.abs().max())
+        rel = float((g.cpu() - w).abs().max()) / max(scale, 1e-30)
+        if rel > worst[0]:
+            worst = (rel, name)
+        if not math.isfinite(rel) or rel > TRAIN_GRAD_TOL:
+            raise AssertionError(f"gradient of {name}: {rel:.3g} of its "
+                                 f"largest entry")
+    log(f"  zamba2 f32 at {f32.n_layers} layers, 1 x {tr['grad_seq']} "
+        f"tokens, remat full: gradients on {dev.type} (kernels) vs its "
+        f"CPU copy (plain versions), {len(names)} leaves: worst "
+        f"{worst[0]:.3g} of the leaf's largest |g| ({worst[1]}; tol "
+        f"{TRAIN_GRAD_TOL}); {t1 - t0:.3f} s on {dev.type}, {t2 - t1:.3f} s "
+        f"on the CPU ({torch.get_num_threads()} threads)")
+
+
+def recovery_drill(dev, tr, small, root):
+    """``small`` (zamba2 at full width, depth cut) trained twice through
+    ``launch.train``: uninterrupted, then with failures injected and its
+    checkpoints written by ``AsyncSaver``; under deterministic algorithms
+    the two end ``torch.equal``, and the checkpoint ``AsyncSaver`` wrote
+    before the last equals run a's byte for byte. Then a leaf changed in
+    place right after ``AsyncSaver.save`` returns restores as it was."""
+    import torch
+
+    from repro_torch.launch import train as lt
+    from repro_torch.train import checkpoint as ck
+    from repro_torch.train.optimizer import tree_leaves
+    from repro_torch.train.runtime import RuntimeConfig, TrainRuntime
+
+    def run(name, fail, async_save):
+        args = lt.parse_args(
+            ["--arch", "zamba2-1.2b", "--steps", str(tr["drill_steps"]),
+             "--batch", str(tr["drill_batch"]), "--seq", str(tr["seq"]),
+             "--lr", str(tr["lr"]), "--ckpt-dir", str(root / name),
+             "--ckpt-every", str(tr["every"]), "--device", dev.type])
+        st = lt.setup(args, cfg=small, log=lambda _: None)
+        rt = TrainRuntime(st.runtime.step_fn, RuntimeConfig(
+            str(root / name), ckpt_every=tr["every"], async_save=async_save),
+            mesh=st.mesh, log=lambda m: log(f"    {m}"))
+        rt.inject_failure_at = set(fail)
+        t0 = time.perf_counter()
+        p, o, hist = rt.run(st.params, st.opt_state, st.batches,
+                            num_steps=args.steps)
+        wall = time.perf_counter() - t0
+        if not fail and (rt.recoveries or len(hist) != args.steps):
+            raise AssertionError(f"drill {name}, with no failure injected, "
+                                 f"recovered {rt.recoveries} times")
+        save_s = sum(s for _, s in rt.saves)
+        log(f"  drill {name}: {len(hist)} steps run for {args.steps}, "
+            f"failures at {sorted(fail)}, recoveries {rt.recoveries}, "
+            f"{len(rt.saves)} saves "
+            f"({'AsyncSaver' if async_save else 'save'}; {save_s:.3f} s on "
+            f"the caller), {wall:.3f} s; last loss {hist[-1]['loss']:.4f}")
+        return p, o, rt, st.mesh
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        pa, oa, _, _ = run("a", (), False)
+        pb, ob, rtb, mesh = run("b", tr["fail_at"], True)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    same = all(torch.equal(_whole(x), _whole(y)) for x, y in zip(
+        tree_leaves((pa, oa)), tree_leaves((pb, ob))))
+    step = ck.latest_step(root / "b")
+    nbytes = sum(f.stat().st_size for f in (root / "b" / f"step_{step}")
+                 .iterdir())
+    log(f"  {small.name} at {small.n_layers} layers, deterministic "
+        f"algorithms: recoveries {rtb.recoveries}; params and optimizer "
+        f"state torch.equal to the uninterrupted run's: {same} "
+        f"(a checkpoint {nbytes / 1e9:.3f} GB)")
+    if rtb.recoveries != len(tr["fail_at"]) or not same:
+        raise AssertionError("the recovery drill did not replay exactly")
+    del pa, oa
+    # run b's checkpoint before its last was written behind the loop by
+    # AsyncSaver: the same bytes as run a's synchronous one
+    import filecmp
+    steps = sorted(int(d.name.split("_")[1]) for d in (root / "b").glob(
+        "step_*"))[-2:-1]
+    same = bool(steps) and all(
+        (root / "a" / f"step_{k}" / "manifest.json").read_text()
+        == (root / "b" / f"step_{k}" / "manifest.json").read_text()
+        and all(filecmp.cmp(f, root / "a" / f"step_{k}" / f.name,
+                            shallow=False)
+                for f in (root / "b" / f"step_{k}").glob("*.npy"))
+        for k in steps)
+    log(f"  AsyncSaver's checkpoint of step {steps} (run b) byte for byte "
+        f"the synchronous one of run a: {same}")
+    # the host copy is made before save returns: a leaf changed in place
+    # right after it is saved as it was
+    saver = ck.AsyncSaver()
+    probe = _whole(tree_leaves(pb)[0]).detach().clone()
+    before = probe.clone()
+    saver.save(root / "async", 1, {"probe": probe}, mesh=mesh)
+    probe.add_(1.0)
+    saver.wait()
+    back = ck.restore(root / "async", 1, {"probe": before}, device=dev)
+    kept = torch.equal(back["probe"], before)
+    log(f"  AsyncSaver: a leaf changed in place right after save returned "
+        f"restores as it was at save: {kept}")
+    if not (same and kept):
+        raise AssertionError("AsyncSaver's checkpoints")
+
+
+def compressed_steps(dev, tr, small, root):
+    """One step each with ``topk_compressor(0.05)`` and ``int8_compressor``
+    through ``launch.train --compress``: error feedback holds on the
+    step's reduced gradients (decompressed + new residual == gradient +
+    old residual, within two f32 roundings of the leaf's largest entry),
+    and each step's time."""
+    import torch
+
+    from repro_torch.launch import train as lt
+    from repro_torch.train.compression import (int8_compressor,
+                                               topk_compressor)
+    from repro_torch.train.optimizer import tree_leaves, tree_map
+    from repro_torch.train.runtime import block_until_ready
+    for name, comp in (("topk", topk_compressor(0.05)),
+                       ("int8", int8_compressor())):
+        args = lt.parse_args(
+            ["--arch", "zamba2-1.2b", "--steps", "1", "--batch",
+             str(tr["drill_batch"]), "--seq", str(tr["seq"]), "--compress",
+             name, "--ckpt-dir", str(root / f"c_{name}"), "--device",
+             dev.type])
+        st = lt.setup(args, cfg=small, log=lambda _: None)
+        batch = st.batches(0)
+        _, g = st.info["grads"](st.params, batch)
+        g = tree_map(_whole, g)
+        r0 = tree_map(lambda x: torch.randn_like(x) * 1e-4, g)
+        dec, res, stats = comp.apply(g, r0)
+        worst = 0.0
+        for d, r, gg, rr in zip(*(tree_leaves(t) for t in (dec, res, g,
+                                                            r0))):
+            want = gg.float() + rr
+            err = float((d + r - want).abs().max())
+            lim = 2 * torch.finfo(torch.float32).eps * float(
+                want.abs().max())
+            worst = max(worst, err / max(lim, 1e-30))
+            if err > lim:
+                raise AssertionError(f"{name}: error feedback lost {err}")
+        step_fn = st.runtime.step_fn
+        out = step_fn(st.params, st.opt_state, batch)     # warm
+        block_until_ready(out[2])
+        t0 = time.perf_counter()
+        out = step_fn(st.params, st.opt_state, batch)
+        block_until_ready(out[2])
+        dt = time.perf_counter() - t0
+        if not math.isfinite(float(out[2]["loss"])):
+            raise AssertionError(f"{name}: compressed step loss")
+        log(f"  compressed step ({name}, ratio {stats['ratio']}): "
+            f"{dt * 1e3:.3f} ms, loss {float(out[2]['loss']):.4f}; error "
+            f"feedback within {worst:.3g} of two f32 roundings")
+
+
+def training_kernel_rows(dev, cfg, card, kern, arch, counted, seed):
+    """The training step's kernel shapes as rows of the kernels line:
+    flash (1, H, S, D) bf16 causal on the model's views beside SDPA, and
+    ssd_scan x (1, S, H, P) bf16; each against its plain version, with its
+    launches in the counted step."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.bindings import ssd_heads_per_block
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import flash_attention_ref, ssd_scan_ref
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    tr, it = cfg["lm_train"], cfg["iters"]
+    gen = torch.Generator(device=dev).manual_seed(seed + 13)
+    s, h, d = tr["seq"], arch.n_heads, arch.head_dim
+    path = (1, h, s, d)
+    q, k, v = ((torch.randn((1, s, h, d), generator=gen, device=dev) * 0.5
+                ).to(torch.bfloat16).transpose(1, 2) for _ in range(3))
+    want = flash_attention_ref(q.float(), k.float(), v.float())
+    err, ok = _close(flash_attention(q, k, v), want, *FLASH_BF16_TOL)
+    if not ok:
+        raise AssertionError(f"flash_attention {path}: {err}")
+    t = alternating(
+        f"flash_attention {path} bf16 causal on (B,S,H,D) views",
+        (("kernel", lambda: flash_attention(q, k, v)),
+         ("sdpa", lambda: F.scaled_dot_product_attention(q, k, v,
+                                                          is_causal=True))),
+        dev, it)
+    t_ops = 4.0 * h * d * s * (s + 1) / 2 / card["bf16"]
+    t_mem = 4.0 * h * s * d * 2 / card["bw"]
+    n = counted["shapes"].get((1, h, s, s, d, True), 0)
+    fl = dict(ms=t["kernel"]["ms"][0], library_ms=t["sdpa"]["ms"][0],
+              device_ms=t["kernel"]["device_ms"][0],
+              library_device_ms=t["sdpa"]["device_ms"][0],
+              plain_ms=time_ms(lambda: flash_attention_ref(q, k, v), dev,
+                               it),
+              bound_ms=max(t_ops, t_mem) * 1e3,
+              bound_by="operations" if t_ops > t_mem else "bytes",
+              launches=n, max_abs_err=err,
+              shape=f"q,k,v {path} bf16 causal, (B,S,H,D).transpose(1, 2) "
+                    f"views (zamba2-1.2b training micro-batch, {n} launches "
+                    f"in a step)")
+    log(f"  flash_attention {path} bf16 causal (training): max |err| "
+        f"{err:.3g}; kernel {fl['ms']:.4f} ms, plain {fl['plain_ms']:.4f} "
+        f"ms, sdpa {fl['library_ms']:.4f} ms (CUDA events); device time "
+        f"kernel {_ms(fl['device_ms'])} ms, sdpa "
+        f"{_ms(fl['library_device_ms'])} ms; bound {fl['bound_ms']:.4f} ms "
+        f"({fl['bound_by']}); {n} launches in the counted step")
+    if dev.type == "cuda" and n != counted["flash_attention"]:
+        raise AssertionError(f"training flash launches at {path}: {n} of "
+                             f"{counted['flash_attention']}")
+    kern["flash_attention"]["max_abs_err"] = max(
+        kern["flash_attention"]["max_abs_err"], err)
+    kern["flash_attention"].setdefault("other_shapes", []).append(fl)
+
+    hh, p, nn = arch.ssm_heads, arch.ssm.head_dim, arch.ssm.d_state
+    chunk = arch.ssm.chunk_size
+    args = ((torch.randn((1, s, hh, p), generator=gen, device=dev) * 0.5
+             ).to(torch.bfloat16),
+            torch.rand((1, s, hh), generator=gen, device=dev) * 0.1,
+            -torch.rand((hh,), generator=gen, device=dev) * 2,
+            (torch.randn((1, s, nn), generator=gen, device=dev) * 0.3
+             ).to(torch.bfloat16),
+            (torch.randn((1, s, nn), generator=gen, device=dev) * 0.3
+             ).to(torch.bfloat16))
+    (y, fin), (yr, fr) = (ssd_scan(*args, chunk=chunk),
+                          ssd_scan_ref(*args, chunk=chunk))
+    ey, oky = _close(y, yr, *SSD_TOL)
+    ef, okf = _close(fin, fr, *SSD_TOL)
+    if not (oky and okf):
+        raise AssertionError(f"ssd_scan training shape: {ey}, {ef}")
+    t_ops = 4.0 * s * hh * p * nn / card["bf16"]
+    nbytes = (s * hh * p * 2 + s * hh * 4 + hh * 4 + 2 * s * nn * 2
+              + s * hh * p * 4 + hh * p * nn * 4)
+    t_mem = nbytes / card["bw"]
+    row = dict(ms=time_ms(lambda: ssd_scan(*args, chunk=chunk), dev, it),
+               device_ms=device_ms(lambda: ssd_scan(*args, chunk=chunk),
+                                   dev, it),
+               plain_ms=time_ms(lambda: ssd_scan_ref(*args, chunk=chunk),
+                                dev, it),
+               bound_ms=max(t_ops, t_mem) * 1e3,
+               bound_by="operations" if t_ops > t_mem else "bytes",
+               library_ms=None, launches=counted["ssd_scan"],
+               max_abs_err=max(ey, ef),
+               shape=f"x (1,{s},{hh},{p}) bf16, N {nn}, chunk {chunk}, "
+                     f"{ssd_heads_per_block(1, hh, p, nn)} heads a block "
+                     f"(zamba2-1.2b training micro-batch, "
+                     f"{counted['ssd_scan']} launches in a step)")
+    log(f"  ssd_scan {row['shape']}: max |err| y {ey:.3g}, final {ef:.3g}; "
+        f"kernel {row['ms']:.4f} ms (device {_ms(row['device_ms'])}), plain "
+        f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+        f"({row['bound_by']}); no single PyTorch call computes it")
+    kern["ssd_scan"]["max_abs_err"] = max(kern["ssd_scan"]["max_abs_err"],
+                                          ey, ef)
+    kern["ssd_scan"].setdefault("other_shapes", []).append(row)
 
 
 # ------------------------------------------------------------ phase 5 --
@@ -3831,7 +4420,8 @@ def kernels_line(kern, launches):
                                                "sharded_launches",
                                                "serving_launches",
                                                "dense_launches",
-                                               "families_launches")
+                                               "families_launches",
+                                               "training_launches")
                        if key in k}})
     print(json.dumps({"kernels": out}), flush=True)
 

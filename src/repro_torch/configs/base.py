@@ -1,7 +1,7 @@
 """Config dataclasses: copies of the reference's ``configs/base.py``
-(``TahomaCNNConfig`` and the LM architecture configs with their derived
-properties). Pure Python; a test pins every field and default to the
-reference's."""
+(``TahomaCNNConfig``, the LM architecture configs with their derived
+properties, and the input-shape cell ``ShapeConfig``). Pure Python; a
+test pins every field and default to the reference's."""
 from __future__ import annotations
 
 import dataclasses
@@ -140,6 +140,26 @@ class ArchConfig:
     def conv_dim_padded(self) -> int:
         assert self.ssm is not None
         return self.d_inner_padded + 2 * self.ssm.n_groups * self.ssm.d_state
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One input-shape cell. kind determines which step fn is built:
+    train -> train_step, prefill -> prefill_step, decode -> decode_step."""
+    name: str
+    kind: str                      # train | prefill | decode
+    seq_len: int
+    global_batch: int
+    # training controls
+    microbatch_seqs_per_shard: int = 1   # grad-accum granularity
+    remat_policy: str = "full"           # full | dots | none
+    train_attn_chunk: int = 0            # >0: chunked (flash) train attention
+    grad_accum_dtype: str = "float32"    # fp32 | bfloat16 accumulation
+    # serving controls
+    kv_dtype: str = "bfloat16"           # physical representation of cache
+    attn_chunk: int = 1024               # jnp-flash chunk for long prefill
+    params_tp_only: bool = False         # serve: drop ZeRO/FSDP weight axes
+    prefill_last_only: bool = False      # prefill: head on last token only
 
 
 @dataclass(frozen=True)

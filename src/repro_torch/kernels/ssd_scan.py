@@ -15,6 +15,13 @@ to the tensor-core kernel (P <= 64, N <= 128, several heads a block:
 f32 FFMA kernel; a head width and state size whose tiles exceed a block's
 shared memory there (above 128 x 128) fail at launch, and the wrapper
 raises.
+
+Under autograd (grad enabled and an operand that requires grad) the
+kernel still computes the forward; the backward differentiates the plain
+version, recomputed from the saved inputs, for both outputs (``_SSD``),
+so a model trains on the card through the kernel. The reference has no
+backward kernel to port: its Pallas kernel has none, and its models
+differentiate the plain ``ssd_chunked``.
 """
 from __future__ import annotations
 
@@ -50,6 +57,14 @@ def ssd_scan(x, dt, a, bmat, cmat, *, chunk: int = 128):
             or a.dtype != torch.float32):
         raise ValueError(f"ssd_scan: dtypes x {x.dtype}, b {bmat.dtype}, "
                          f"c {cmat.dtype}, dt {dt.dtype}, a {a.dtype}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return _SSD.apply(x, dt, a, bmat, cmat, chunk)
+    return _launch(x, dt, a, bmat, cmat)
+
+
+def _launch(x, dt, a, bmat, cmat):
+    b, s, h, p = x.shape
+    n = bmat.shape[-1]
     y = torch.empty((b, s, h, p), dtype=torch.float32, device=x.device)
     final = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
     if not y.numel():
@@ -57,3 +72,28 @@ def ssd_scan(x, dt, a, bmat, cmat, *, chunk: int = 128):
     bindings.launch_ssd_scan(x.contiguous(), dt.contiguous(), a.contiguous(),
                         bmat.contiguous(), cmat.contiguous(), y, final)
     return y, final
+
+
+class _SSD(torch.autograd.Function):
+    """The kernel's forward under autograd. The backward differentiates
+    the plain version (``ssd_scan_ref``), recomputed from the saved
+    inputs, for y and the final state: the reference's Pallas kernel has
+    no backward to port, and its models differentiate ``ssd_chunked``."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, bmat, cmat, chunk):
+        ctx.save_for_backward(x, dt, a, bmat, cmat)
+        ctx.chunk = chunk
+        return _launch(x, dt, a, bmat, cmat)
+
+    @staticmethod
+    def backward(ctx, grad_y, grad_final):
+        want = ctx.needs_input_grad[:5]
+        with torch.enable_grad():
+            args = [t.detach().requires_grad_(w)
+                    for t, w in zip(ctx.saved_tensors, want)]
+            y, final = ssd_scan_ref(*args, chunk=ctx.chunk)
+        wrt = [t for t, w in zip(args, want) if w]
+        grads = iter(torch.autograd.grad((y, final), wrt,
+                                         (grad_y, grad_final)))
+        return (*(next(grads) if w else None for w in want), None)

@@ -1,0 +1,420 @@
+"""Step builders: train_step / prefill_step / decode_step over a device
+mesh, microbatched gradient accumulation, and meta-tensor input specs for
+the dry-run (no allocation); the port of the reference's
+``launch/steps.py``.
+
+The reference's train step is one SPMD program: XLA shards it over the
+mesh. The port runs its all-gather-weights form, one process a rank:
+
+* parameters and optimizer state live as DTensors under the sharding
+  policy's placements (``sharding.policy.place``); each step gathers the
+  parameters whole, runs forward and backward on plain tensors, and
+  reduce-scatters the gradients into the parameters' placements (a sum
+  over the data-parallel ranks; ranks that differ only in the 'model'
+  axis compute the same rows). On one card the mesh is (1, 1), every
+  placement is ``Replicate()`` and nothing is communicated.
+* the global batch (``global_batch`` rows, the whole of it on every
+  rank, as a host batch) is cut into ``n_micro`` contiguous
+  micro-batches, and each micro-batch into the data-parallel ranks'
+  slices (``data.pipeline.rank_rows``): rank r in micro-step i computes
+  the reference's routing group r of micro-batch i, so ``apply_moe``
+  with one group a rank drops the tokens the reference drops.
+* each micro-batch's loss is the masked mean over its tokens on all
+  ranks: every rank divides its sum by the whole micro-batch's valid
+  label count (read from the host batch), and the ranks' gradients add
+  up. The MoE aux term's token fractions are averaged over the ranks in
+  the forward (``ffn.apply_moe(dp_mean=)``).
+
+``train_attn_chunk`` (and the reference's ``attn_chunk`` fallback for
+long sequences) has no counterpart: the flash kernel tiles the queries
+itself on the card, and its plain version computes the same attention
+unchunked (``models/transformer`` says so for ``attn_chunk``).
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ArchConfig, ShapeConfig
+from repro_torch.data.pipeline import shard_batch
+from repro_torch.device import resolve_device
+from repro_torch.models.common import DTYPES
+from repro_torch.models.factory import Model
+from repro_torch.sharding import policy
+from repro_torch.train.optimizer import (adamw, tree_leaves, tree_map,
+                                         tree_unflatten)
+
+MOE_AUX_COEF = 0.01
+_BATCH_AXES = {"mrope_positions": 1}
+
+
+# ------------------------------------------------------------------ loss ---
+def lm_loss_parts(logits, labels, vocab_size: int):
+    """(sum of the masked next-token CE, count of valid labels), f32.
+    Labels already aligned (labels[t] = target at t); label < 0 masks.
+    Handles vocab padding by masking padded columns."""
+    vp = logits.shape[-1]
+    lg = logits.to(torch.float32)
+    if vp > vocab_size:
+        col = torch.arange(vp, device=lg.device)
+        lg = lg + torch.where(col < vocab_size, 0.0, -1e9)[None, None, :]
+    logz = torch.logsumexp(lg, dim=-1)
+    lab = labels.long().clamp(0, vocab_size - 1)
+    gold = lg.gather(-1, lab[..., None])[..., 0]
+    valid = (labels >= 0).to(torch.float32)
+    return torch.sum((logz - gold) * valid), torch.sum(valid)
+
+
+def lm_loss(logits, labels, vocab_size: int):
+    """The reference's ``lm_loss``: the masked mean of ``lm_loss_parts``."""
+    total, count = lm_loss_parts(logits, labels, vocab_size)
+    return total / torch.clamp(count, min=1.0)
+
+
+# ------------------------------------------------------------ input specs --
+class TensorSpec(NamedTuple):
+    """A meta tensor (shape and dtype, no storage) and its spec."""
+    meta: torch.Tensor
+    spec: policy.PSpec
+
+
+def _meta(shape, dtype, spec) -> TensorSpec:
+    return TensorSpec(torch.empty(shape, dtype=dtype, device="meta"),
+                      policy.PSpec(spec))
+
+
+def _abstract(fn):
+    """The tree ``fn()`` builds, as meta tensors: run under
+    ``FakeTensorMode``, so nothing is allocated or drawn."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode():
+        tree = fn()
+    return tree_map(lambda x: torch.empty(x.shape, dtype=x.dtype,
+                                          device="meta"), tree)
+
+
+def _dp(mesh):
+    dp = policy.dp_axes(mesh)
+    return dp if len(dp) > 1 else (dp[0] if dp else None)
+
+
+def dp_size(mesh) -> int:
+    sizes = policy.mesh_axes(mesh)
+    return math.prod(sizes[a] for a in policy.dp_axes(mesh))
+
+
+def batch_shardable(shape_cfg: ShapeConfig, mesh) -> bool:
+    return shape_cfg.global_batch % dp_size(mesh) == 0
+
+
+def input_specs(arch: ArchConfig, shape_cfg: ShapeConfig, mesh) -> dict:
+    """Meta-tensor stand-ins, with their specs, for every model input of
+    this cell (no allocation)."""
+    b, s = shape_cfg.global_batch, shape_cfg.seq_len
+    dp = _dp(mesh) if batch_shardable(shape_cfg, mesh) else None
+    dt = DTYPES[arch.dtype]
+    batch: dict[str, Any] = {}
+    if shape_cfg.kind == "decode":
+        batch["tokens"] = _meta((b, 1), torch.int32, (dp, None))
+    else:
+        batch["tokens"] = _meta((b, s), torch.int32, (dp, None))
+        if shape_cfg.kind == "train":
+            batch["labels"] = _meta((b, s), torch.int32, (dp, None))
+    if arch.family == "audio":
+        batch["enc_frames"] = _meta((b, arch.encoder.n_frames, arch.d_model),
+                                    dt, (dp, None, None))
+    if arch.family == "vlm":
+        sl = 1 if shape_cfg.kind == "decode" else s
+        batch["mrope_positions"] = _meta((3, b, sl), torch.int32,
+                                         (None, dp, None))
+        if shape_cfg.kind != "decode":
+            batch["vision_embeds"] = _meta(
+                (b, arch.vision.n_patches, arch.d_model), dt,
+                (dp, None, None))
+    return batch
+
+
+# ------------------------------------------------------------ cache specs --
+def cache_pspecs(cache_shapes, shape_cfg: ShapeConfig, mesh):
+    """Decode-cache specs. batch-shardable cells: batch over dp, cache
+    sequence over 'model'. long-context (batch=1): sequence over 'data',
+    heads/channels over 'model'."""
+    P = policy.PSpec
+    shardable = batch_shardable(shape_cfg, mesh)
+    sizes = policy.mesh_axes(mesh)
+    dp = _dp(mesh)
+
+    def div(axis, dim: int):
+        """axis (or axis tuple) only if it divides dim, else None."""
+        if axis is None:
+            return None
+        axes = (axis,) if isinstance(axis, str) else tuple(axis)
+        prod = 1
+        for a in axes:
+            prod *= sizes.get(a, 1)
+        return axis if prod > 1 and dim % prod == 0 else None
+
+    def leaf_spec(path, x):
+        name = policy.leaf_name(path)
+        shape = tuple(x.shape)
+        nd = len(shape)
+        if name == "pos":
+            return P((div(dp, shape[0]),) if shardable else ())
+        b_ax = div(dp, shape[1]) if (shardable and nd > 1) else None
+        if name in ("k", "v"):            # (L,B,T,KH,Dh)
+            seq_ax = div("model" if shardable else "data", shape[2])
+            kh_ax = None
+            if not shardable:
+                kh_ax = div("model", shape[3])
+            return P((None, b_ax, seq_ax, kh_ax, None))
+        if name in ("k_scale", "v_scale"):
+            seq_ax = div("model" if shardable else "data", shape[2])
+            return P((None, b_ax, seq_ax, None))
+        if name in ("c_kv", "k_rope"):    # (L,B,T,r)
+            seq_ax = div("model" if shardable else "data", shape[2])
+            return P((None, b_ax, seq_ax, None))
+        if name in ("conv_x", "conv_b", "conv_c"):  # (L,B,ch,K-1)
+            return P((None, b_ax, div("model", shape[2]), None))
+        if name == "state":               # (L,B,H,P,N)
+            return P((None, b_ax, div("model", shape[2]), None, None))
+        return P((None,) * nd)
+
+    return policy.tree_map_with_path(leaf_spec, cache_shapes)
+
+
+def cache_specs_sds(model: Model, shape_cfg: ShapeConfig, mesh):
+    shapes = _abstract(lambda: model.init_cache(
+        shape_cfg.global_batch, shape_cfg.seq_len, shape_cfg.kv_dtype,
+        device="cpu"))
+    specs = cache_pspecs(shapes, shape_cfg, mesh)
+    return _paired(shapes, specs)
+
+
+# ------------------------------------------------------------ train step ---
+def _whole(x):
+    """A parameter leaf whole on this rank (a DTensor gathered)."""
+    from torch.distributed.tensor import DTensor
+    return x.full_tensor() if isinstance(x, DTensor) else x
+
+
+def _dp_placements(mesh):
+    """Placements of a tensor each rank computed from its own rows:
+    partial sums over the data-parallel axes (those of size > 1), the
+    same value along the others."""
+    from torch.distributed.tensor import Partial, Replicate
+    sizes = policy.mesh_axes(mesh)
+    dp = policy.dp_axes(mesh)
+    return [Partial() if a in dp and n > 1 else Replicate()
+            for a, n in sizes.items()]
+
+
+def _dp_sum(x, mesh):
+    """``x`` summed over the data-parallel ranks (every rank gets it)."""
+    if dp_size(mesh) == 1:
+        return x
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(x, mesh, _dp_placements(mesh),
+                              run_check=False).full_tensor()
+
+
+def make_train_step(model: Model, mesh, shape_cfg: ShapeConfig,
+                    optimizer=None, aux_coef: float = MOE_AUX_COEF,
+                    compressor=None, *, device=None):
+    """compressor: optional train.compression.Compressor — when given, the
+    opt_state becomes {"opt": ..., "residual": ...} and the reduced
+    gradients go through an error-feedback compress->decompress round
+    trip ahead of the optimizer. ``mesh`` None: ``make_host_mesh`` on
+    ``device`` (default: the card).
+
+    Returns (train_step, info): train_step(params, opt_state, batch) ->
+    (params, opt_state, metrics) with params and opt_state as placed by
+    ``sharding.policy.place`` and batch a host batch; it writes none of
+    its inputs. info holds ``n_micro``, ``moe_groups`` (the reference's:
+    the data-parallel size) and ``grads``, the function the step takes
+    its (loss, gradients) from."""
+    from torch.distributed.tensor import distribute_tensor
+    if mesh is None:
+        from repro_torch.launch.mesh import make_host_mesh
+        mesh = make_host_mesh(device=device)
+    resolve_device(mesh.device_type)
+    cfg = model.cfg
+    optimizer = optimizer or adamw(1e-4)
+    dpn = dp_size(mesh)
+    gb = shape_cfg.global_batch
+    per_shard = max(1, gb // dpn)
+    n_micro = max(1, per_shard // max(shape_cfg.microbatch_seqs_per_shard, 1))
+    while gb % n_micro:
+        n_micro -= 1
+    moe_groups = dpn if gb % dpn == 0 else 1
+    local_groups = max(1, moe_groups // dpn)
+    acc_dtype = DTYPES[shape_cfg.grad_accum_dtype]
+    mb = gb // n_micro
+    dp_mean = None if dpn == 1 else (lambda x: _dp_sum(x, mesh) / dpn)
+
+    def grads(params, batch):
+        """(mean LM loss of the global batch, gradients as DTensors under
+        the parameters' placements, averaged over the micro-batches)."""
+        local = shard_batch(batch, mesh, n_micro=n_micro,
+                            batch_axes=_BATCH_AXES)
+        labels = np.asarray(batch["labels"])
+        counts = [max(float((labels[i * mb:(i + 1) * mb] >= 0).sum()), 1.0)
+                  for i in range(n_micro)]
+        leaves = [_whole(x).detach().requires_grad_()
+                  for x in tree_leaves(params)]
+        p = tree_unflatten(params, leaves)
+        acc = [torch.zeros(x.shape, dtype=acc_dtype, device=x.device)
+               for x in leaves]
+        loss_sum = torch.zeros((), device=leaves[0].device)
+        rows = local["tokens"].shape[0] // n_micro
+        for i in range(n_micro):
+            micro = {k: v.narrow(_BATCH_AXES.get(k, 0), i * rows, rows)
+                     for k, v in local.items()}
+            logits, aux, _ = model.forward(
+                p, micro, remat_policy=shape_cfg.remat_policy,
+                moe_groups=local_groups, dp_mean=dp_mean)
+            ce, _ = lm_loss_parts(logits, micro["labels"], cfg.vocab_size)
+            loss = ce / counts[i]
+            g = torch.autograd.grad(loss + aux_coef * aux / dpn, leaves,
+                                    allow_unused=True,
+                                    materialize_grads=True)
+            torch._foreach_add_(acc, [x.to(acc_dtype) for x in g])
+            loss_sum = loss_sum + loss.detach()
+        torch._foreach_div_(acc, n_micro)
+        place = _dp_placements(mesh)
+        out = []
+        for a, x in zip(acc, tree_leaves(params)):
+            out.append(_reduce_into(a, x, mesh, place))
+        return _dp_sum(loss_sum, mesh) / n_micro, tree_unflatten(params, out)
+
+    @torch.no_grad()
+    def compress(g, residual):
+        """The compressor on the reduced gradients, whole on every rank
+        (top-k and the int8 scale are over the whole tensor), put back
+        under their placements."""
+        dec, res, _ = compressor.apply(tree_map(_whole, g),
+                                       tree_map(_whole, residual))
+
+        def back(new, like):
+            return distribute_tensor(new, mesh, like.placements,
+                                     src_data_rank=None)
+        return (tree_unflatten(g, [back(n, x) for n, x in zip(
+                    tree_leaves(dec), tree_leaves(g))]),
+                tree_unflatten(residual, [back(n, x) for n, x in zip(
+                    tree_leaves(res), tree_leaves(residual))]))
+
+    def train_step(params, opt_state, batch):
+        loss, g = grads(params, batch)
+        if compressor is not None:
+            g, resid = compress(g, opt_state["residual"])
+            params2, opt2, om = optimizer.update(g, opt_state["opt"], params)
+            opt2 = {"opt": opt2, "residual": resid}
+        else:
+            params2, opt2, om = optimizer.update(g, opt_state, params)
+        om = {k: _whole(v) for k, v in om.items()}
+        return params2, opt2, {"loss": loss, **om}
+
+    return train_step, {"n_micro": n_micro, "moe_groups": moe_groups,
+                        "grads": grads}
+
+
+def _reduce_into(acc, like, mesh, place):
+    """This rank's gradient ``acc`` summed over the data-parallel ranks,
+    as a DTensor under ``like``'s placements."""
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(acc, mesh, place, run_check=False
+                              ).redistribute(mesh, like.placements)
+
+
+# ------------------------------------------------------ serve step fns -----
+def make_prefill_step(model: Model, mesh, shape_cfg: ShapeConfig):
+    """prefill_step(params, batch) -> (logits, cache) of this rank's rows
+    (its block under ``policy.batch_spec``), each rank's rows one of the
+    reference's ``moe_groups`` routing groups."""
+    dpn = dp_size(mesh)
+    moe_groups = dpn if shape_cfg.global_batch % dpn == 0 else 1
+
+    @torch.no_grad()
+    def prefill_step(params, batch):
+        local = shard_batch(batch, mesh, batch_axes=_BATCH_AXES)
+        return model.prefill(tree_map(_whole, params), local,
+                             kv_dtype=shape_cfg.kv_dtype,
+                             moe_groups=max(1, moe_groups // dpn),
+                             last_only=shape_cfg.prefill_last_only)
+    return prefill_step
+
+
+def make_decode_step(model: Model, mesh, shape_cfg: ShapeConfig):
+    """decode_step(params, cache, batch) -> (logits, cache) of this rank's
+    rows; ``cache`` is this rank's (``make_prefill_step``'s), updated in
+    place."""
+    @torch.no_grad()
+    def decode_step(params, cache, batch):
+        local = shard_batch(batch, mesh, batch_axes=_BATCH_AXES)
+        return model.decode(tree_map(_whole, params), cache, local)
+    return decode_step
+
+
+# --------------------------------------------------------- param helpers ---
+def abstract_params(model: Model):
+    """The model's parameter tree as meta tensors (a meta-device init: no
+    allocation, no random draw)."""
+    return _abstract(lambda: model.init(torch.Generator(), device="cpu"))
+
+
+def _drop_fsdp(spec: tuple) -> policy.PSpec:
+    """Serving-mode param sharding: keep TP ('model'), drop ZeRO axes —
+    weights stay resident instead of being all-gathered every step."""
+    def clean(part):
+        if part is None:
+            return None
+        axes = (part,) if isinstance(part, str) else tuple(part)
+        keep = tuple(a for a in axes if a == "model")
+        return keep[0] if len(keep) == 1 else (keep if keep else None)
+    return policy.PSpec(clean(p) for p in spec)
+
+
+def _paired(shapes, specs):
+    """Each meta tensor of ``shapes`` beside its spec in ``specs``."""
+    return policy.tree_map_with_path(
+        lambda path, x: TensorSpec(x, policy.at_path(specs, path)), shapes)
+
+
+def params_sds(model: Model, mesh, tp_only: bool = False):
+    """(tree of ``TensorSpec``, tree of specs) of the model's parameters
+    on ``mesh`` (a ``DeviceMesh`` or a ``policy.MeshShape``)."""
+    shapes = abstract_params(model)
+    specs = policy.param_pspecs(shapes, mesh)
+    if tp_only:
+        specs = policy.tree_map_with_path(lambda _, s: _drop_fsdp(s), specs)
+    return _paired(shapes, specs), specs
+
+
+def opt_state_sds(optimizer, params_shapes, mesh):
+    shapes = _abstract(lambda: optimizer.init(params_shapes))
+    specs = policy.param_pspecs(shapes, mesh)
+    return _paired(shapes, specs), specs
+
+
+def count_params_from_shapes(shapes) -> int:
+    return sum(math.prod(x.shape) if x.shape else 1
+               for x in tree_leaves(shapes))
+
+
+def count_active_params(shapes, arch: ArchConfig) -> int:
+    """MoE: non-routed params + top_k/E of routed expert params."""
+    if arch.moe is None:
+        return count_params_from_shapes(shapes)
+    total = routed = 0
+
+    def visit(path, x):
+        nonlocal total, routed
+        n = math.prod(x.shape) if x.shape else 1
+        total += n
+        if policy.leaf_name(path) in ("w_gate_e", "w_up_e", "w_down_e"):
+            routed += n
+    policy.tree_map_with_path(visit, shapes)
+    frac = arch.moe.top_k / arch.moe.num_experts
+    return int(total - routed + routed * frac)

@@ -15,7 +15,10 @@ frames) go through the ``flash_attention`` kernel wrapper on the model's
 (B,S,H,D).transpose(1, 2) views (``transformer.full_attention``). Decode
 keeps the plain ``sdpa`` over the self cache and the cross cache, as the
 reference does, and writes the new token's k/v into the self cache in
-place.
+place. ``forward(remat_policy=)`` checkpoints each encoder and decoder
+layer under any policy but "none", as the reference's ``jax.checkpoint``
+around both layer scans ("dots" too is a full checkpoint there); its
+default is "none", as ``models/transformer``'s says why.
 """
 from __future__ import annotations
 
@@ -29,8 +32,8 @@ from repro_torch.models import ffn
 from repro_torch.models.common import (
     DTYPES, apply_norm, embed_init, embed_tokens, init_embedding, init_norm,
     lm_logits, pdtype, sinusoidal_positions)
-from repro_torch.models.transformer import (_layer, _stack, full_attention,
-                                           init_stack)
+from repro_torch.models.transformer import (_layers, _remat, _stack,
+                                           full_attention, init_stack)
 from repro_torch.serve import kvcache
 
 
@@ -75,18 +78,20 @@ def _enc_positions(n_pos: int, d_model: int, device, dtype):
     return sinusoidal_positions(n_pos, d_model, device=device).to(dtype)
 
 
-def encode(params, enc_frames, cfg):
+def _enc_layer(lp, h, cfg):
+    lo = attn.layout_from_cfg(cfg)
+    q, k, v = attn.gqa_qkv(lp["attn"], apply_norm(lp["ln1"], h, cfg), cfg)
+    h = h + attn.gqa_out(lp["attn"],
+                         full_attention(q, k, v, lo.gp, causal=False), cfg)
+    return h + ffn.apply_mlp(lp["mlp"], apply_norm(lp["ln2"], h, cfg), cfg)
+
+
+def encode(params, enc_frames, cfg, remat_policy="none"):
     h = enc_frames.to(pdtype(cfg))
     h = h + _enc_positions(h.shape[1], cfg.d_model, h.device, h.dtype)
-    lo = attn.layout_from_cfg(cfg)
-    for i in range(cfg.encoder.n_layers):
-        lp = _layer(params["enc_layers"], i)
-        q, k, v = attn.gqa_qkv(lp["attn"], apply_norm(lp["ln1"], h, cfg),
-                               cfg)
-        h = h + attn.gqa_out(lp["attn"],
-                             full_attention(q, k, v, lo.gp, causal=False),
-                             cfg)
-        h = h + ffn.apply_mlp(lp["mlp"], apply_norm(lp["ln2"], h, cfg), cfg)
+    layer = _remat(_enc_layer, "none" if remat_policy == "none" else "full")
+    for lp in _layers(params["enc_layers"], cfg.encoder.n_layers):
+        h = layer(lp, h, cfg)
     return apply_norm(params["enc_norm"], h, cfg)
 
 
@@ -130,18 +135,18 @@ def _dec_block(lp, h, enc_out, cfg, *, self_cache=None, cross_kv=None,
     return h, collected, cross_coll, new_self
 
 
-def forward(params, batch, cfg, *, collect_cache=False,
+def forward(params, batch, cfg, *, remat_policy="none", collect_cache=False,
             logits_last_only=False, **_):
     """batch: "tokens" (B,S), "enc_frames" (B,T,d). Returns (logits, aux
     (0), {"self": k/v, "cross": k/v} stacked over layers | None)."""
-    enc_out = encode(params, batch["enc_frames"], cfg)
+    enc_out = encode(params, batch["enc_frames"], cfg, remat_policy)
     tokens = batch["tokens"]
     h = embed_tokens(params["embed"], tokens, cfg).to(pdtype(cfg))
     h = h + params["dec_pos"][None, :tokens.shape[1]]
+    block = _remat(_dec_block, "none" if remat_policy == "none" else "full")
     selfs, crosses = [], []
-    for i in range(cfg.n_layers):
-        h, coll, cross, _ = _dec_block(_layer(params["dec_layers"], i), h,
-                                       enc_out, cfg, collect=collect_cache)
+    for lp in _layers(params["dec_layers"], cfg.n_layers):
+        h, coll, cross, _ = block(lp, h, enc_out, cfg, collect=collect_cache)
         selfs.append(coll)
         crosses.append(cross)
     if logits_last_only:
@@ -176,10 +181,10 @@ def decode_step(params, cache, batch, cfg, **_):
     pos = cache["pos"]
     h = embed_tokens(params["embed"], tokens, cfg).to(pdtype(cfg))
     h = h + params["dec_pos"][pos.long()][:, None]
-    for i in range(cfg.n_layers):
-        cross = kvcache.read_kv_layer(_layer(cache["cross"], i), h.dtype)
-        h, _, _, _ = _dec_block(_layer(params["dec_layers"], i), h, None,
-                                cfg, self_cache=_layer(cache["self"], i),
+    for lp, sc, cc in zip(*(_layers(t, cfg.n_layers) for t in (
+            params["dec_layers"], cache["self"], cache["cross"]))):
+        cross = kvcache.read_kv_layer(cc, h.dtype)
+        h, _, _, _ = _dec_block(lp, h, None, cfg, self_cache=sc,
                                 cross_kv=cross, pos=pos)
     h = apply_norm(params["final_norm"], h, cfg)
     logits = lm_logits(params, params["embed"], h, cfg)

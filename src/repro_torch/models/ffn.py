@@ -152,8 +152,15 @@ def route(p, xg, cfg, cap: int) -> Routing:
     return Routing(probs, topi, sel_gate, sel_idx, slot)
 
 
-def apply_moe(p, x, cfg, n_groups: int = 1):
-    """x (B, S, d) -> (out (B,S,d), aux_loss scalar f32)."""
+def apply_moe(p, x, cfg, n_groups: int = 1, dp_mean=None):
+    """x (B, S, d) -> (out (B,S,d), aux_loss scalar f32).
+
+    dp_mean: None, or a function that averages a tensor over the
+    data-parallel ranks of a step (``launch/steps.make_train_step``),
+    where each rank holds one routing group of the reference's batch:
+    the aux loss's token fractions are then the whole batch's, so the
+    ranks' aux losses average to the reference's (its gradient flows
+    through the router probabilities only)."""
     moe = cfg.moe
     b, s, d = x.shape
     t = b * s
@@ -186,6 +193,8 @@ def apply_moe(p, x, cfg, n_groups: int = 1):
     # Switch-style load-balance aux loss
     counts = torch.zeros_like(r.probs).scatter_(-1, r.topi, 1.0)
     token_frac = counts.mean(dim=(0, 1))                       # (E,)
+    if dp_mean is not None:
+        token_frac = dp_mean(token_frac)
     prob_frac = r.probs.mean(dim=(0, 1))
     aux = moe.num_experts * torch.sum(token_frac * prob_frac) / moe.top_k
     return out.reshape(b, s, d), aux

@@ -64,9 +64,15 @@ def _causal_conv(x, w, b, state=None):
     is given (decode), x is (B,1,ch) and the updated state is returned."""
     k = w.shape[1]
     if state is None:
+        # tap i reads x shifted right by k-1-i: a slice of one padded copy
+        # (the reference pads once per tap; the products and the order of
+        # the sums are the same, and the backward has k-1 fewer pads)
         s = x.shape[1]
-        pads = [F.pad(x, (0, 0, k - 1 - i, 0))[:, :s] for i in range(k)]
-        out = sum(p * w[None, None, :, i] for i, p in enumerate(pads))
+        xp = F.pad(x, (0, 0, k - 1, 0))
+        wt = w.t()
+        out = xp[:, :s] * wt[0]
+        for i in range(1, k):
+            out = out + xp[:, i:i + s] * wt[i]
         return out + b, None
     window = torch.cat([state, x.transpose(1, 2)], dim=2)      # (B,ch,K)
     out = torch.sum(window * w[None], dim=2)[:, None, :] + b
@@ -100,7 +106,16 @@ def ssd_chunked(x, dtv, a, bmat, cmat, chunk, initial_state=None):
     cf = cmat.to(f32).reshape(b, nc, l, n)
 
     da = dtf * a.to(f32)[None, None, None, :]              # (b,nc,l,h) <= 0
-    da_cum = torch.cumsum(da, dim=2)
+    # the running sum over each chunk as a product with a triangle of
+    # ones, not torch.cumsum: PyTorch has no deterministic CUDA cumsum of
+    # floats (it raises under torch.use_deterministic_algorithms), and
+    # the training drill replays under that mode through this function
+    # (the ssd_scan kernel's backward). This function is also
+    # ``ssd_scan_ref``, the plain version the kernel is held against: the
+    # product adds the same terms as the reference's cumsum, in another
+    # order, so the two agree within f32 rounding
+    upto = torch.ones((l, l), dtype=f32, device=x.device).triu()
+    da_cum = torch.einsum("bcjh,jl->bclh", da, upto)
     xdt = xf * dtf[..., None]
 
     # intra-chunk (the "attention-like" quadratic-in-l term)

@@ -27,6 +27,20 @@ attention stays plain on both paths (``attention.mla_attention_full``
 says why). ``decode_step`` writes the new token's state into ``cache`` in
 place.
 
+Training options, as the reference's ``forward`` takes them:
+``remat_policy`` ("none", "full" or "dots"; ``_remat``) checkpoints each
+layer's body, as the reference's ``jax.checkpoint`` around its layer scan
+(the hybrid's shared block is not checkpointed, there as here), and
+``moe_groups`` reaches ``ffn.apply_moe(n_groups=)`` (the reference's step
+builders set it to the data-parallel size; the port's give each
+data-parallel rank its one group of those). The port's default is
+"none", where the reference's is "full": serving and the tests call
+``forward`` with no option, and a checkpoint there would only cost time
+(under autograd, each kernel of a checkpointed layer launches twice: once
+in the forward and once when the backward recomputes it). There is no
+``ctx_constrain``: the reference's sharding hints steer XLA's SPMD
+partitioner, and eager PyTorch has none to steer.
+
 The reference's ``attn_chunk`` (query chunks of ``chunked_sdpa`` for long
 prefill) has no counterpart here: on the card the flash kernel tiles the
 queries itself (64 rows a block) whatever chunk the reference would use,
@@ -40,6 +54,8 @@ from typing import Any
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attention import flash_attention
@@ -78,9 +94,15 @@ def _stack(trees):
     return torch.stack(trees)
 
 
-def _layer(tree, i):
-    """Leaf-wise ``x[i]`` (views: writes reach the stacked tensors)."""
-    return _tree_map(lambda x: x[i], tree)
+def _layers(tree, n: int) -> list:
+    """The ``n`` layers of a stacked tree, each a tree of views (writes
+    reach the stacked tensors), from one ``torch.unbind`` a leaf. Under
+    autograd the stacked leaf's gradient is then one stack of the layers'
+    gradients, where ``x[i]`` a layer would add each layer's into a zero
+    tensor of the whole stack (n stack-sized fills and adds a
+    backward)."""
+    per_leaf = _tree_map(lambda x: torch.unbind(x, 0), tree)
+    return [_tree_map(lambda xs: xs[i], per_leaf) for i in range(n)]
 
 
 def _put(stack, i, tree):
@@ -192,7 +214,8 @@ def full_attention(q, k, v, gp: int, *, causal: bool):
     ).transpose(1, 2)
 
 
-def _dense_block(lp, h, cfg, rope, *, cache_slice=None, pos=None):
+def _dense_block(lp, h, cfg, rope, *, moe_groups=1, dp_mean=None,
+                 cache_slice=None, pos=None):
     """One attention (GQA or MLA) + MLP (dense or MoE) block.
     cache_slice given => decode (S==1). Returns (h, aux, collected cache
     pieces of a full pass, updated cache slice); aux is the MoE's
@@ -246,14 +269,13 @@ def _dense_block(lp, h, cfg, rope, *, cache_slice=None, pos=None):
     h = h + aout
     fin = apply_norm(lp["ln2"], h, cfg)
     if cfg.moe is not None:
-        mout, aux = ffn.apply_moe(lp["moe"], fin, cfg)
+        mout, aux = ffn.apply_moe(lp["moe"], fin, cfg, moe_groups, dp_mean)
     else:
         mout, aux = ffn.apply_mlp(lp["mlp"], fin, cfg), None
     return h + mout, aux, collected, new_cache
 
 
-def _ssm_layer(params, i, h, cfg, **kw):
-    lp = _layer(params["layers"], i)
+def _ssm_layer(lp, h, cfg, **kw):
     out, st = ssm_mod.apply_ssm(lp["ssm"], apply_norm(lp["ln1"], h, cfg),
                                 cfg, **kw)
     return h + out, st
@@ -271,6 +293,44 @@ def hybrid_segments(cfg):
     return segs
 
 
+# ------------------------------------------------------------------ remat --
+_SAVED_BY_DOTS = tuple(
+    op for op in (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+                  torch.ops.aten.addmm.default,
+                  *(getattr(torch.ops.aten, name).default for name in (
+                      "_scaled_dot_product_flash_attention",
+                      "_scaled_dot_product_efficient_attention",
+                      "_scaled_dot_product_cudnn_attention",
+                      "_scaled_dot_product_flash_attention_for_cpu")
+                    if hasattr(torch.ops.aten, name))))
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Save the matrix products' outputs, recompute the rest: the
+    counterpart of ``jax.checkpoint_policies.dots_with_no_batch_dims_
+    saveable``."""
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_BY_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _dots_context():
+    return create_selective_checkpoint_contexts(_dots_policy)
+
+
+def _remat(fn, policy: str):
+    """``fn`` checkpointed as ``policy`` says: "none" as it is, "full"
+    recomputed whole in the backward, "dots" recomputed but for its
+    matrix products' outputs."""
+    if policy == "none":
+        return fn
+    if policy not in ("full", "dots"):
+        raise ValueError(f"remat_policy {policy!r} is not none, full or "
+                         f"dots")
+    extra = {"context_fn": _dots_context} if policy == "dots" else {}
+    return lambda *a, **kw: checkpoint(fn, *a, use_reentrant=False,
+                                       **extra, **kw)
+
+
 # ---------------------------------------------------------------- forward --
 def _embed_input(params, batch, cfg):
     h = embed_tokens(params["embed"], batch["tokens"], cfg).to(pdtype(cfg))
@@ -280,9 +340,11 @@ def _embed_input(params, batch, cfg):
     return h
 
 
-def forward(params, batch, cfg, *, collect_cache=False,
-            logits_last_only=False):
+def forward(params, batch, cfg, *, remat_policy="none", moe_groups=1,
+            dp_mean=None, collect_cache=False, logits_last_only=False):
     """Full-sequence pass. Returns (logits, aux, cache_pieces|None).
+    remat_policy / moe_groups: the training options (module docstring);
+    dp_mean: ``ffn.apply_moe``'s, for a data-parallel step.
     logits_last_only: the LM head on the final position only."""
     check_family(cfg)
     h = _embed_input(params, batch, cfg)
@@ -292,9 +354,10 @@ def forward(params, batch, cfg, *, collect_cache=False,
     aux = torch.zeros((), device=h.device)
     if cfg.family in ATTN_FAMILIES:
         pieces = []
-        for i in range(cfg.n_layers):
-            h, a, coll, _ = _dense_block(_layer(params["layers"], i), h, cfg,
-                                         rope)
+        block = _remat(_dense_block, remat_policy)
+        for lp in _layers(params["layers"], cfg.n_layers):
+            h, a, coll, _ = block(lp, h, cfg, rope, moe_groups=moe_groups,
+                                  dp_mean=dp_mean)
             if a is not None:
                 aux = aux + a
             if collect_cache:
@@ -302,12 +365,14 @@ def forward(params, batch, cfg, *, collect_cache=False,
         cache_pieces = _stack(pieces) if collect_cache else None
     elif cfg.family == "ssm":
         states = []
-        for i in range(cfg.n_layers):
-            h, st = _ssm_layer(params, i, h, cfg, collect_state=collect_cache)
+        layer = _remat(_ssm_layer, remat_policy)
+        for lp in _layers(params["layers"], cfg.n_layers):
+            h, st = layer(lp, h, cfg, collect_state=collect_cache)
             states.append(st)
         cache_pieces = _stack(states) if collect_cache else None
     else:
         h, cache_pieces = _hybrid_forward(params, h, cfg, rope,
+                                          remat_policy=remat_policy,
                                           collect_cache=collect_cache)
     if logits_last_only:
         h = h[:, -1:]
@@ -316,12 +381,14 @@ def forward(params, batch, cfg, *, collect_cache=False,
     return logits, aux, cache_pieces
 
 
-def _hybrid_forward(params, h, cfg, rope, *, collect_cache):
+def _hybrid_forward(params, h, cfg, rope, *, remat_policy, collect_cache):
     ssm_states, shared_kv = [], []
+    layer = _remat(_ssm_layer, remat_policy)
+    layers = _layers(params["layers"], cfg.n_layers)
     lo_i = 0
     for n, has_attn in hybrid_segments(cfg):
         for i in range(lo_i, lo_i + n):
-            h, st = _ssm_layer(params, i, h, cfg, collect_state=collect_cache)
+            h, st = layer(layers[i], h, cfg, collect_state=collect_cache)
             ssm_states.append(st)
         lo_i += n
         if has_attn:
@@ -334,14 +401,16 @@ def _hybrid_forward(params, h, cfg, rope, *, collect_cache):
 
 
 # ---------------------------------------------------------------- prefill --
-def prefill(params, batch, cfg, *, kv_dtype="bfloat16", last_only=False):
+def prefill(params, batch, cfg, *, kv_dtype="bfloat16", moe_groups=1,
+            last_only=False):
     """Returns (last-token logits (B,Vp), decode-ready cache). The dense,
     moe and vlm families' k/v go to the cache in ``kv_dtype`` (int8 with
     per-(token, head) scales); as in the reference, MLA's latent cache and
     the hybrid's shared-attention k/v go in bf16 when ``kv_dtype`` is int8
-    (int8 caches come from ``init_cache``). last_only: the LM head on the
-    final position only."""
-    logits, _, pieces = forward(params, batch, cfg, collect_cache=True,
+    (int8 caches come from ``init_cache``). moe_groups: ``forward``'s.
+    last_only: the LM head on the final position only."""
+    logits, _, pieces = forward(params, batch, cfg, moe_groups=moe_groups,
+                                collect_cache=True,
                                 logits_last_only=last_only)
     b, s = batch["tokens"].shape
     cache: dict = {"pos": torch.full((b,), s, dtype=torch.int32,
@@ -379,10 +448,9 @@ def decode_step(params, cache, batch, cfg):
     rope = _make_rope(cfg, pos[:, None], batch.get("mrope_positions"))
     if cfg.family in ATTN_FAMILIES:
         name = "mla" if cfg.mla is not None else "kv"
-        for i in range(cfg.n_layers):
-            h, _, _, _ = _dense_block(_layer(params["layers"], i), h, cfg,
-                                      rope,
-                                      cache_slice=_layer(cache[name], i),
+        for lp, lc in zip(_layers(params["layers"], cfg.n_layers),
+                          _layers(cache[name], cfg.n_layers)):
+            h, _, _, _ = _dense_block(lp, h, cfg, rope, cache_slice=lc,
                                       pos=pos)
     else:
         h = _ssm_decode(params, h, cache, cfg, rope, pos)
@@ -395,19 +463,20 @@ def decode_step(params, cache, batch, cfg):
 def _ssm_decode(params, h, cache, cfg, rope, pos):
     """The SSM stack's step (and the hybrid's shared block between its
     segments), writing each layer's state into ``cache`` in place."""
-    lo_i = inv = 0
+    lo_i = 0
     segs = (hybrid_segments(cfg) if cfg.family == "hybrid"
             else [(cfg.n_layers, False)])
+    layers = _layers(params["layers"], cfg.n_layers)
+    states = _layers(cache["ssm"], cfg.n_layers)
+    passes = iter(_layers(cache["shared_attn"], sum(a for _, a in segs))
+                  if cfg.family == "hybrid" else [])
     for n, has_attn in segs:
         for i in range(lo_i, lo_i + n):
-            h, nc = _ssm_layer(params, i, h, cfg,
-                               cache=_layer(cache["ssm"], i))
+            h, nc = _ssm_layer(layers[i], h, cfg, cache=states[i])
             for name, val in nc.items():
                 cache["ssm"][name][i] = val
         lo_i += n
         if has_attn:
-            lc = _layer(cache["shared_attn"], inv)
-            inv += 1
             h, _, _, _ = _dense_block(params["shared"], h, cfg, rope,
-                                      cache_slice=lc, pos=pos)
+                                      cache_slice=next(passes), pos=pos)
     return h

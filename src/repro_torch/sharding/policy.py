@@ -1,23 +1,252 @@
-"""Corpus row sharding (scan engine, DESIGN.md §9), numpy only.
+"""Sharding policy: how this system's state is split across devices, the
+port of the reference's ``sharding/policy.py``. Two independent layers:
 
-``ShardPlan`` / ``plan_shards`` partition a scan's metadata-survivor row
-set across shard executors. Range partitioning splits the (sorted) id
-list into contiguous runs balanced by a per-row weight — skew-aware when
-the caller supplies the planner's expected per-row evaluation cost — and
-hash partitioning assigns each row id a stable pseudo-random shard so a
-row keeps its shard (and its shard-side caches) across queries. Both are
-exact partitions: every row lands in exactly one shard. ``shard_route``
-routes single rows the way a hash plan does.
+1. **Param sharding** (train/serve): every param leaf name maps to
+   logical axes, logical axes map to mesh axes with divisibility checks
+   (indivisible dims replicate). Logical axes:
 
-The parameter half of the reference module (mesh axes, param specs)
-belongs to the training and launch substrate and is not here.
+     tp    -> 'model'         (heads / d_ff / experts / vocab columns)
+     fsdp  -> ('pod','data')  (ZeRO-style param+grad+opt-state sharding)
+     None  -> replicated
+
+   ``spec_for`` / ``param_pspecs`` / ``batch_spec`` return the
+   reference's per-dimension specs: a tuple with, for each tensor
+   dimension, None, one mesh axis name or a tuple of them. They read a
+   mesh's axis names and sizes only (``mesh_axes``), so a
+   ``MeshShape`` computes the production meshes' specs without 256
+   ranks. ``placements`` turns a spec into DTensor placements on a
+   ``torch.distributed.device_mesh.DeviceMesh`` (``Shard(d)`` on each
+   mesh dimension whose axis shards tensor dimension d, in mesh order,
+   the reference's major-to-minor order; ``Replicate()`` elsewhere), and
+   ``place`` puts a tree of tensors on the mesh under them.
+
+   The reference's trace-time mesh context (``use_ctx_mesh``,
+   ``ctx_constrain``, ``ctx_dp_axes``) has no counterpart: its
+   constraints are hints to XLA's SPMD partitioner, and eager PyTorch has
+   no partitioner to hint. ``constrain_batch`` places a batch under
+   ``batch_spec`` instead.
+
+2. **Corpus row sharding** (scan engine, DESIGN.md §9), numpy only:
+   ``ShardPlan`` / ``plan_shards`` partition a scan's metadata-survivor
+   row set across shard executors. Range partitioning splits the
+   (sorted) id list into contiguous runs balanced by a per-row weight —
+   skew-aware when the caller supplies the planner's expected per-row
+   evaluation cost — and hash partitioning assigns each row id a stable
+   pseudo-random shard so a row keeps its shard (and its shard-side
+   caches) across queries. Both are exact partitions: every row lands in
+   exactly one shard. ``shard_route`` routes single rows the way a hash
+   plan does.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import numpy as np
 
+# leaf name -> logical axes per dim (suffix match on the param path).
+RULES: dict[str, tuple] = {
+    # embeddings / heads
+    "embedding": ("tp", "fsdp"),
+    "lm_head": ("fsdp", "tp"),
+    "dec_pos": ("fsdp", None),
+    # attention (column-parallel in, row-parallel out)
+    "wq": ("fsdp", "tp"), "wk": ("fsdp", "tp"), "wv": ("fsdp", "tp"),
+    "wo": ("tp", "fsdp"),
+    "bq": ("tp",), "bk": (None,), "bv": (None,),
+    # MLA
+    "w_dq": ("fsdp", None), "w_uq": (None, "tp"),
+    "w_dkv": ("fsdp", None), "w_uk": (None, "tp"), "w_uv": (None, "tp"),
+    "q_norm": (None,), "kv_norm": (None,),
+    # MLP
+    "w_gate": ("fsdp", "tp"), "w_up": ("fsdp", "tp"), "w_down": ("tp", "fsdp"),
+    "w_in": ("fsdp", "tp"), "b_in": ("tp",),
+    "w_out": ("tp", "fsdp"), "b_out": (None,),
+    # MoE (stacked experts: EP over 'model', expert-width over fsdp)
+    "w_router": (None, None),
+    "w_gate_e": ("tp", None, "fsdp"), "w_up_e": ("tp", None, "fsdp"),
+    "w_down_e": ("tp", "fsdp", None),
+    # SSM
+    "w_z": ("fsdp", "tp"), "w_x": ("fsdp", "tp"), "w_dt": ("fsdp", "tp"),
+    "w_b": ("fsdp", None), "w_c": ("fsdp", None),
+    "conv_x": ("tp", None), "conv_b": (None, None), "conv_c": (None, None),
+    "conv_x_b": ("tp",), "conv_b_b": (None,), "conv_c_b": (None,),
+    "a_log": ("tp",), "dt_bias": ("tp",), "d_skip": ("tp",),
+    "norm_scale": ("tp",),
+    # norms
+    "scale": (None,), "bias": (None,),
+}
+
+LOGICAL = {"tp": ("model",), "fsdp": ("pod", "data")}
+
+
+class MeshShape(NamedTuple):
+    """A mesh's axis names and sizes without its ranks: what the policy
+    reads (the production meshes' specs, computed on one process)."""
+    axis_names: tuple
+    shape: tuple
+
+
+def mesh_axes(mesh) -> dict:
+    """{axis name: size} of a ``DeviceMesh`` or a ``MeshShape``, in mesh
+    order."""
+    names = getattr(mesh, "mesh_dim_names", None)
+    if names is None:
+        names = mesh.axis_names
+    return dict(zip(names, tuple(mesh.shape)))
+
+
+def dp_axes(mesh) -> tuple:
+    return tuple(a for a in ("pod", "data") if a in mesh_axes(mesh))
+
+
+def _resolve_dim(logical, dim_size: int, sizes: dict):
+    """logical axis name -> concrete mesh axes (or None), honoring
+    divisibility. fsdp degrades ('pod','data') -> ('data',) -> ('pod',)."""
+    if logical is None:
+        return None
+    # candidates: the full combo first, then single axes largest-first
+    singles = sorted(LOGICAL[logical], key=lambda a: -sizes.get(a, 0))
+    for axes in (LOGICAL[logical],) + tuple((a,) for a in singles):
+        axes = tuple(a for a in axes if a in sizes)
+        if not axes:
+            continue
+        prod = 1
+        for a in axes:
+            prod *= sizes[a]
+        if prod > 1 and dim_size % prod == 0:
+            return axes if len(axes) > 1 else axes[0]
+    return None
+
+
+def leaf_name(path) -> str:
+    """The last dict key of a tree path (a tuple of dict keys and list
+    indices)."""
+    for entry in reversed(path):
+        if isinstance(entry, str):
+            return entry
+    return ""
+
+
+def spec_for(name: str, shape, mesh) -> PSpec:
+    """The per-dimension spec of one param leaf. Stacked leaves (layer or
+    expert stacks) have one more leading dim than the rule — leading dims
+    are replicated (layer axis)."""
+    rule = RULES.get(name)
+    if rule is None or not shape:
+        return PSpec()
+    sizes = mesh_axes(mesh)
+    extra = len(shape) - len(rule)
+    if extra < 0:
+        return PSpec()
+    # 'layers' stacking: the leading scan dim stays replicated, but the
+    # expert rules already include their stack dim so only true layer
+    # stacking lands in `extra`.
+    return PSpec([None] * extra + [
+        _resolve_dim(lg, shape[extra + i], sizes)
+        for i, lg in enumerate(rule)])
+
+
+class PSpec(tuple):
+    """A per-dimension spec (the reference's ``PartitionSpec``): a tuple,
+    and a leaf of the trees it fills."""
+
+
+class Placements(tuple):
+    """DTensor placements, one per mesh dimension: a tuple, and a leaf of
+    the trees it fills."""
+
+
+def _is_leaf(x) -> bool:
+    return isinstance(x, (PSpec, Placements)) or not isinstance(
+        x, (dict, list, tuple))
+
+
+def tree_map_with_path(fn, tree, path=()):
+    """``fn(path, leaf)`` over a nested dict/list/tuple tree (dict keys and
+    sequence indices in ``path``), keeping the tree's structure; None
+    stays None."""
+    if _is_leaf(tree):
+        return None if tree is None else fn(path, tree)
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, path + (k,))
+                for k, v in tree.items()}
+    return type(tree)(tree_map_with_path(fn, v, path + (i,))
+                      for i, v in enumerate(tree))
+
+
+def param_pspecs(params_or_shapes, mesh):
+    """Tree of specs matching the params tree (tensors, meta tensors or
+    anything with a ``shape``)."""
+    return tree_map_with_path(
+        lambda path, x: spec_for(leaf_name(path), tuple(x.shape), mesh),
+        params_or_shapes)
+
+
+def placements(spec: tuple, mesh) -> Placements:
+    """DTensor placements of ``spec`` on ``mesh``: for each mesh dimension,
+    ``Shard(d)`` where its axis shards tensor dimension d, else
+    ``Replicate()``. A dimension sharded over ('pod', 'data') is
+    ``Shard(d)`` on both, in mesh order (pod major, as the reference)."""
+    from torch.distributed.tensor import Replicate, Shard
+    out = []
+    for axis in mesh_axes(mesh):
+        dims = [d for d, part in enumerate(spec) if part is not None
+                and axis in ((part,) if isinstance(part, str) else part)]
+        out.append(Shard(dims[0]) if dims else Replicate())
+    return Placements(out)
+
+
+def param_shardings(params_or_shapes, mesh):
+    """Tree of DTensor placements (``placements``) matching the params
+    tree."""
+    return tree_map_with_path(lambda _, s: placements(s, mesh),
+                              param_pspecs(params_or_shapes, mesh))
+
+
+def place(tree, mesh, shardings=None):
+    """Each leaf of ``tree`` as a DTensor on ``mesh`` under ``shardings``
+    (default: ``param_shardings``), cut from the whole tensor that every
+    rank holds (no communication). A 0-d leaf (an optimizer's step count)
+    stays where it is: the optimizer reads it on the host."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    shardings = shardings or param_shardings(tree, mesh)
+
+    def put(path, x):
+        if isinstance(x, DTensor) or x.dim() == 0:
+            return x
+        pl = at_path(shardings, path)
+        return distribute_tensor(x.to(mesh.device_type), mesh, pl,
+                                 src_data_rank=None)
+    return tree_map_with_path(put, tree)
+
+
+def at_path(tree, path):
+    """The subtree of ``tree`` at ``path`` (``tree_map_with_path``'s)."""
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def batch_spec(mesh, ndim: int, batch_axis: int = 0) -> PSpec:
+    """Shard the batch dim over all data-parallel axes."""
+    dp = dp_axes(mesh)
+    parts = [None] * ndim
+    parts[batch_axis] = dp if len(dp) > 1 else (dp[0] if dp else None)
+    return PSpec(parts)
+
+
+def constrain_batch(x, mesh):
+    """``x`` (every rank's copy of the whole batch) as a DTensor on
+    ``mesh`` under ``batch_spec``: each rank keeps its rows."""
+    from torch.distributed.tensor import distribute_tensor
+    return distribute_tensor(x, mesh, placements(batch_spec(mesh, x.dim()),
+                                                 mesh), src_data_rank=None)
+
+
+# ======================================================================
+# Corpus row sharding (scan engine, DESIGN.md §9)
+# ======================================================================
 SHARD_STRATEGIES = ("range", "hash")
 
 

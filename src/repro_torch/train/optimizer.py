@@ -25,14 +25,27 @@ class Optimizer(NamedTuple):
     update: Callable  # (grads, state, params) -> (new_params, new_state, info)
 
 
-def tree_leaves(tree) -> list:
-    """Leaves of a nested dict/list tree in the reference's order (dict
-    keys sorted, as JAX flattens them)."""
+def tree_leaves_with_path(tree, is_leaf=None, path=()) -> list:
+    """[(path, leaf)] of a nested dict/list/tuple tree in the reference's
+    order: dict keys sorted, as JAX flattens them, then sequence indices
+    (``path`` holds the keys and indices). None is an empty subtree, as in
+    JAX; ``is_leaf(x)`` true makes ``x`` a leaf whatever its type."""
+    if tree is None:
+        return []
+    if is_leaf is not None and is_leaf(tree):
+        return [(path, tree)]
     if isinstance(tree, dict):
-        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+        return [kv for k in sorted(tree)
+                for kv in tree_leaves_with_path(tree[k], is_leaf, path + (k,))]
     if isinstance(tree, (list, tuple)):
-        return [x for v in tree for x in tree_leaves(v)]
-    return [tree]
+        return [kv for i, v in enumerate(tree)
+                for kv in tree_leaves_with_path(v, is_leaf, path + (i,))]
+    return [(path, tree)]
+
+
+def tree_leaves(tree, is_leaf=None) -> list:
+    """``tree_leaves_with_path``'s leaves."""
+    return [x for _, x in tree_leaves_with_path(tree, is_leaf)]
 
 
 def tree_unflatten(like, leaves):
@@ -40,6 +53,8 @@ def tree_unflatten(like, leaves):
     it = iter(leaves)
 
     def build(t):
+        if t is None:
+            return None
         if isinstance(t, dict):
             out = {k: None for k in t}
             for k in sorted(t):

@@ -1,10 +1,13 @@
 """Boundary guards of the PyTorch/CUDA port (src/repro_torch):
 
-* the package imports neither ``jax`` nor the reference package;
+* the package imports neither ``jax``, the reference package nor
+  ``ml_dtypes``;
 * ``chip_smoke.py`` imports neither;
 * entry points (the training ones too) default to ``cuda`` and raise
   without a card instead of carrying on quietly on the CPU, and the
-  kernel wrappers never run a CUDA request on the CPU.
+  kernel wrappers never run a CUDA request on the CPU;
+* on the card, ``ssd_scan`` under grad takes its autograd route
+  (``_SSD``: the kernel's forward, the plain version's backward).
 """
 import ast
 import json
@@ -23,7 +26,7 @@ ROOT = Path(__file__).resolve().parents[1]
 
 def _is_forbidden(mod: str) -> bool:
     top = mod.split(".")[0]
-    return top in ("jax", "jaxlib", "repro")
+    return top in ("jax", "jaxlib", "repro", "ml_dtypes")
 
 
 def test_port_imports_neither_jax_nor_reference():
@@ -35,7 +38,7 @@ def test_port_imports_neither_jax_nor_reference():
         "for n in names:\n"
         "    importlib.import_module(n)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in\n"
-        "             ('jax', 'jaxlib', 'repro'))\n"
+        "             ('jax', 'jaxlib', 'repro', 'ml_dtypes'))\n"
         "assert not bad, bad\n"
         "print(len(names))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -86,6 +89,20 @@ def test_the_walk_covers_the_lm_family_modules():
                  "configs/deepseek_v2_236b", "configs/qwen2_vl_72b",
                  "configs/whisper_tiny", "configs/registry"):
         assert f"src/repro_torch/{name}.py" in walked, name
+
+
+def test_the_walk_covers_the_training_modules():
+    """The training and launch substrate's modules are among the walked
+    (and imported) files; the training example imports neither JAX nor
+    the reference."""
+    walked = {str(p.relative_to(ROOT)) for p in
+              (ROOT / "src" / "repro_torch").rglob("*.py")}
+    for name in ("configs/base", "configs/shapes", "configs/deployment",
+                 "sharding/policy", "launch/mesh", "launch/steps",
+                 "launch/train", "train/compression", "train/checkpoint",
+                 "train/runtime", "data/pipeline"):
+        assert f"src/repro_torch/{name}.py" in walked, name
+    test_no_jax_or_reference_import_statements("examples/train_lm_torch.py")
 
 
 def _no_card():
@@ -178,6 +195,132 @@ def test_training_entry_points_default_to_cuda_and_raise_without_a_card():
                                infer_s={n: 1e-6 for n in bank.names},
                                device="cpu")
     assert system.device.type == "cpu" and system.eval_scores.shape == (2, 8)
+
+
+def test_lm_training_entry_points_default_to_cuda_and_raise_without_a_card(
+        tmp_path):
+    _no_card()
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.launch import train as t_train
+    from repro_torch.launch.mesh import (make_host_mesh, make_mesh_compat,
+                                         make_production_mesh)
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.factory import build_model
+    from repro_torch.train import checkpoint as ck
+    from repro_torch.train.runtime import RuntimeConfig, TrainRuntime
+
+    model = build_model(smoke_config("mamba2-130m"))
+    shape = ShapeConfig("t", "train", 16, 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        t_train.main(["--arch", "mamba2-130m", "--steps", "1",
+                      "--ckpt-dir", str(tmp_path / "a")])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_train_step(model, None, shape)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_mesh_compat((1, 1), ("data", "model"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_host_mesh()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_production_mesh()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TrainRuntime(lambda p, o, b: (p, o, {}), RuntimeConfig(
+            str(tmp_path / "b")))
+    tree = {"w": torch.ones(3)}
+    ck.save(tmp_path / "c", 1, tree)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ck.restore(tmp_path / "c", 1, tree)
+    # asking for the CPU explicitly works; the production mesh wants its
+    # 256 ranks
+    assert torch.equal(ck.restore(tmp_path / "c", 1, tree,
+                                  device="cpu")["w"], tree["w"])
+    mesh = make_mesh_compat((1, 1), ("data", "model"), device="cpu")
+    fn, info = make_train_step(model, mesh, shape)
+    assert info["n_micro"] == 2
+    with pytest.raises(ValueError, match="256"):
+        make_production_mesh(device="cpu")
+
+
+class _OnCard(torch.Tensor):
+    """A CPU tensor that reports a CUDA device: it takes a wrapper's CUDA
+    route up to the launch, which the test stubs."""
+
+    @property
+    def device(self):
+        return torch.device("cuda", 0)
+
+
+def _ssd_args(requires_grad):
+    g = torch.Generator().manual_seed(3)
+    args = (torch.randn(1, 8, 2, 4, generator=g),
+            torch.rand(1, 8, 2, generator=g),
+            -torch.rand(2, generator=g), torch.randn(1, 8, 3, generator=g),
+            torch.randn(1, 8, 3, generator=g))
+    return [a.requires_grad_(requires_grad) for a in args]
+
+
+def test_ssd_scan_on_the_card_under_grad_goes_through_ssd_autograd(
+        monkeypatch):
+    """The wrapper's CUDA route: with grad enabled and an operand that
+    requires grad it returns y and the final state from ``_SSD`` (the
+    launch stubbed); otherwise it launches directly, with no graph."""
+    from repro_torch.kernels import ssd_scan as mod
+    from repro_torch.kernels.ref import ssd_scan_ref
+
+    launched = []
+
+    def stub(x, dt, a, bmat, cmat):
+        launched.append(True)
+        plain = [torch.Tensor(t.detach().as_subclass(torch.Tensor))
+                 for t in (x, dt, a, bmat, cmat)]
+        return ssd_scan_ref(*plain, chunk=4)
+    monkeypatch.setattr(mod, "_launch", stub)
+    on_card = [t.as_subclass(_OnCard) for t in _ssd_args(True)]
+    y, final = mod.ssd_scan(*on_card, chunk=4)
+    assert type(y.grad_fn).__name__ == "_SSDBackward"
+    assert final.grad_fn is y.grad_fn and len(launched) == 1
+    with torch.no_grad():
+        y, _ = mod.ssd_scan(*on_card, chunk=4)
+    assert y.grad_fn is None and len(launched) == 2
+    y, _ = mod.ssd_scan(*[t.detach() for t in on_card], chunk=4)
+    assert y.grad_fn is None and len(launched) == 3
+
+
+def test_ssd_autograd_forward_launches_and_backward_is_the_plain_versions(
+        monkeypatch):
+    """``_SSD`` on CPU tensors with the launch stubbed (it writes the
+    plain version's outputs and counts): one launch in the forward, none
+    in the backward, and the gradients of all five operands for both
+    outputs equal ``ssd_scan_ref``'s."""
+    from repro_torch.kernels import bindings, ops
+    from repro_torch.kernels import ssd_scan as mod
+    from repro_torch.kernels.ref import ssd_scan_ref
+
+    def stub(x, dt, a, bmat, cmat, y, final):
+        yr, fr = ssd_scan_ref(x, dt, a, bmat, cmat, chunk=4)
+        y.copy_(yr)
+        final.copy_(fr)
+        ops.LAUNCHES["ssd_scan"] += 1
+    monkeypatch.setattr(bindings, "launch_ssd_scan", stub)
+    ops.reset_launch_counts()
+    args = _ssd_args(True)
+    y, final = mod._SSD.apply(*args, 4)
+    assert ops.LAUNCHES["ssd_scan"] == 1
+    g = torch.Generator().manual_seed(4)
+    wy, wf = torch.randn(y.shape, generator=g), torch.randn(final.shape,
+                                                            generator=g)
+    got = torch.autograd.grad((y * wy).sum() + (final * wf).sum(), args)
+    assert ops.LAUNCHES["ssd_scan"] == 1
+    yr, fr = ssd_scan_ref(*args, chunk=4)
+    want = torch.autograd.grad((yr * wy).sum() + (fr * wf).sum(), args)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    # a gradient of y alone (the model's use: the final state unused)
+    got = torch.autograd.grad((mod._SSD.apply(*args, 4)[0] * wy).sum(),
+                              args)
+    want = torch.autograd.grad((ssd_scan_ref(*args, chunk=4)[0] * wy).sum(),
+                               args)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    ops.reset_launch_counts()
 
 
 def test_kernel_wrappers_never_run_a_cuda_request_on_the_cpu():
@@ -327,6 +470,14 @@ def test_chip_smoke_rehearsal_runs_every_phase_on_the_cpu():
         "the host oracle's: True" in out.stdout
     assert "== moe, MLA, vlm and audio LM paths" in out.stdout
     assert out.stdout.count("prefill + decode_step == forward") >= 7
+    assert "== LM training" in out.stdout
+    assert "gradients of x, dt, a, B, C equal the plain version's: True" \
+        in out.stdout
+    assert "params and optimizer state torch.equal to the uninterrupted " \
+        "run's: True" in out.stdout
+    assert "byte for byte the synchronous one of run a: True" in out.stdout
+    assert "restores as it was at save: True" in out.stdout
+    assert out.stdout.count("compressed step (") == 2
 
 
 def _c_struct_fields(source: str, struct: str) -> list[str]:

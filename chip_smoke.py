@@ -239,6 +239,18 @@
    held against its plain version, with kernel, device, plain and bound
    times and its launches in the counted step. The phase's checkpoints
    go under ``build/ckpt`` and are removed at its end.
+   Fleet tooling (no kernel): ``launch/hw``'s peaks for this card beside
+   nvidia-smi's line; ``launch/costing``'s FLOPs of the training step
+   above, counted on CPU fake tensors (one micro-batch's forward,
+   recompute and backward times the micro-batches, plus AdamW), its
+   matmul-class share beside 6 N D, ``analytic_bytes``, and against the
+   phase's median step the achieved FLOP/s, the roofline bound on ``hw``'s
+   figures and the share of it reached; the dry-run CLI for one cell
+   (zamba2-1.2b x decode_32k x single: 256 fake ranks, a process of its
+   own; a nonzero exit fails the run) with its three terms; and
+   ``pipeline_forward`` on two NCCL ranks, a card each, against the stack
+   run without a pipeline, where the machine has two cards (with one it
+   prints that the pipeline did not run and why).
 5. Kernel entry points (``kernels/ops``), the twin of the reference's
    ``bench_transform_kernel`` at the query path's width: a chunk of 256
    dyadic 224 px frames through ``pyramid_transform_op`` with all 20
@@ -281,12 +293,6 @@ SRC = ROOT / "src"
 # card by benchmarks/torch_infer_costs.py)
 COSTS = SRC / "repro_torch" / "configs" / "infer_costs_h100.json"
 
-# Per-card peaks for the bounds (NVIDIA data sheets): memory bytes/s, f32
-# FLOP/s outside the tensor cores (f32 FFMA), and dense bf16 tensor-core
-# FLOP/s (the least time attention's bf16 products could take).
-PEAKS = (("H100 PCIe", 2.0e12, 51e12, 756e12),
-         ("H100 NVL", 3.9e12, 60e12, 835e12),
-         ("H100", 3.35e12, 67e12, 989e12))
 SCORE_TOL = 1e-4   # |kernel - plain| on sigmoid scores: f32 sums in another
 #                    order (conv dot products of up to 9*48 terms, dense of up
 #                    to 6272); an indexing fault shows as O(0.1)
@@ -393,7 +399,12 @@ FULL = dict(base=224, chunk=256, out_res=(112, 56, 28), split=512,
             lm_train=dict(full=True, steps=20, batch=8, seq=512, lr=3e-4,
                           loss_drop=1.0, drill_layers=6, drill_batch=1,
                           drill_steps=10, every=3, fail_at=(4, 7),
-                          grad_seq=256))
+                          grad_seq=256),
+            # the fleet phase: one dry-run cell (256 fake ranks on the
+            # host, ~15-30 s) and the two-rank pipeline where there are two
+            # cards
+            fleet=dict(dryrun=("zamba2-1.2b", "decode_32k"), timeout=300,
+                       pipe=dict(n_micro=8, mb=256, d=4096, timeout=180)))
 # the rehearsal's few steps teach its toy models little: no learning floor
 REHEARSE = dict(base=32, chunk=32, out_res=(16, 8, 4), split=48, train=48,
                 steps=3, floors=(0.0, 0.0), pinned=False, corpus=96,
@@ -420,7 +431,9 @@ REHEARSE = dict(base=32, chunk=32, out_res=(16, 8, 4), split=48, train=48,
                 lm_train=dict(full=False, steps=4, batch=4, seq=32,
                               lr=3e-3, loss_drop=0.0, drill_layers=None,
                               drill_batch=2, drill_steps=6, every=2,
-                              fail_at=(2, 4), grad_seq=32))
+                              fail_at=(2, 4), grad_seq=32),
+                fleet=dict(dryrun=("mamba2-130m", "decode_32k"), timeout=300,
+                           pipe=dict(n_micro=3, mb=4, d=16, timeout=120)))
 
 
 def log(msg: str) -> None:
@@ -477,10 +490,12 @@ def main(argv=None) -> int:
         families_lm_path, dev, cfg, card, kern, args.seed)
     launches["flash_attention"] += \
         kern["flash_attention"]["families_launches"]
-    for name, n in phase(lm_training_path, dev, cfg, card, kern,
-                         args.seed).items():
+    counted, train = phase(lm_training_path, dev, cfg, card, kern,
+                           args.seed)
+    for name, n in counted.items():
         kern[name]["training_launches"] = n
         launches[name] += n
+    phase(fleet_tooling, dev, cfg, card, train)
     launches.update(phase(ops_path, dev, cfg, card, kern, args.seed))
     log(f"all phases: {time.perf_counter() - t_run:.1f} s")
     if "smi" in card:    # again near the end: the card beside the numbers
@@ -509,11 +524,16 @@ def setup(dev):
         check=True).stdout.strip().splitlines()[0]
     log(smi)
     name = torch.cuda.get_device_name(0)
-    bw, flops, bf16 = next((b, f, h) for key, b, f, h in PEAKS
-                           if key in name)
+    # the bounds' peaks: memory bytes/s, f32 FLOP/s outside the tensor
+    # cores (f32 FFMA), and dense bf16 tensor-core FLOP/s (the least time
+    # attention's bf16 products could take), from launch/hw's table
+    from repro_torch.launch import hw
+    row = hw.peaks(name)
+    bw, flops, bf16 = row.hbm_bw, row.f32_flops, row.bf16_flops
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; peaks used "
-        f"for bounds: {bw / 1e12:.2f} TB/s, {flops / 1e12:.0f} TFLOP/s f32, "
-        f"{bf16 / 1e12:.0f} TFLOP/s bf16 tensor cores")
+        f"for bounds (launch/hw, {row.part}): {bw / 1e12:.2f} TB/s, "
+        f"{flops / 1e12:.0f} TFLOP/s f32, {bf16 / 1e12:.0f} TFLOP/s bf16 "
+        f"tensor cores")
     from repro_torch.kernels import build
     build.build_all()
     info = build.BUILD_INFO
@@ -3667,7 +3687,8 @@ def lm_training_path(dev, cfg, card, kern, seed):
     """zamba2-1.2b training through ``launch.train`` (full width and
     depth), the kernels' autograd route, the recovery drill, compressed
     steps and the training shapes' kernel rows. Returns the launch counts
-    of the counted step."""
+    of the counted step, and the step's arch, shape config, micro-batch
+    count, parameter count and median seconds (for the fleet phase)."""
     import shutil
 
     import torch
@@ -3692,7 +3713,7 @@ def lm_training_path(dev, cfg, card, kern, seed):
     mem0 = _peak_reset(dev)
     t0 = time.perf_counter()
     st = lt.setup(args, log=lambda m: log(f"  {m}"))
-    arch, info, rt = st.cfg, st.info, st.runtime
+    arch, info, rt, shape = st.cfg, st.info, st.runtime, st.shape
     n_params = count_params(st.params)
     log(f"  {arch.name}: {n_params:,} parameters ({arch.dtype}), "
         f"{arch.n_layers} Mamba-2 layers, remat {st.shape.remat_policy}, "
@@ -3812,7 +3833,9 @@ def lm_training_path(dev, cfg, card, kern, seed):
     shutil.rmtree(root, ignore_errors=True)
     log(f"  the phase's seconds: "
         f"{', '.join(f'{k} {v:.1f}' for k, v in spent.items())}")
-    return {k: counted[k] for k in ("flash_attention", "ssd_scan")}
+    return ({k: counted[k] for k in ("flash_attention", "ssd_scan")},
+            {"cfg": arch, "shape": shape, "n_micro": info["n_micro"],
+             "n_params": n_params, "median_s": median})
 
 
 def _whole(x):
@@ -4158,6 +4181,224 @@ def training_kernel_rows(dev, cfg, card, kern, arch, counted, seed):
     kern["ssd_scan"]["max_abs_err"] = max(kern["ssd_scan"]["max_abs_err"],
                                           ey, ef)
     kern["ssd_scan"].setdefault("other_shapes", []).append(row)
+
+
+# ----------------------------------------------------------- phase 4e --
+def fleet_tooling(dev, cfg, card, train):
+    """The fleet tooling: ``launch/hw``'s peaks for this card, the
+    ``costing`` FLOPs and bytes of the training phase's step against its
+    median time, one dry-run cell through the CLI, and ``pipeline_forward``
+    on two ranks where the machine has two cards (NCCL, one card a rank;
+    gloo ranks on the CPU in the rehearsal)."""
+    from repro_torch.launch import hw
+    fl = cfg["fleet"]
+    log("== fleet tooling")
+    if dev.type == "cuda":
+        row = hw.peaks(card["name"])
+        log(f"  launch/hw peaks for {card['name']!r} (row {row.part!r}): "
+            f"HBM {row.hbm_bw / 1e12:.2f} TB/s, f32 FFMA "
+            f"{row.f32_flops / 1e12:.0f} TFLOP/s, bf16 tensor cores "
+            f"{row.bf16_flops / 1e12:.0f} TFLOP/s; NVLink 4 (SXM) "
+            f"{hw.NVLINK_BW / 1e9:.0f} GB/s a GPU; the card: {card['smi']}")
+    else:
+        row = hw.SXM
+        log(f"  launch/hw: no card in the rehearsal; the {row.part!r} row")
+    step_costs(train, row)
+    dryrun_cell(fl)
+    pipeline_check(dev, fl["pipe"])
+
+
+def step_costs(train, row):
+    """``costing``'s FLOPs of the training phase's step, counted on CPU
+    fake tensors (the kernels' plain versions: no mesh, no card): one
+    micro-batch's forward, recompute and backward, as ``make_train_step``'s
+    ``grads`` runs each, times the micro-batches, plus AdamW's update;
+    ``analytic_bytes`` of the step; both against its median time."""
+    import torch
+    from torch._subclasses.fake_tensor import (FakeTensorMode,
+                                               unset_fake_temporarily)
+
+    from repro_torch.launch import costing, steps
+    from repro_torch.models.factory import build_model
+    from repro_torch.train.optimizer import (adamw, tree_leaves, tree_map,
+                                             tree_unflatten)
+    arch, shape, n_micro = train["cfg"], train["shape"], train["n_micro"]
+    rows = shape.global_batch // n_micro
+    model = build_model(arch)
+    t0 = time.perf_counter()
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        params = tree_map(lambda m: torch.zeros(m.shape, dtype=m.dtype),
+                          steps.abstract_params(model))
+        micro = {k: torch.zeros((rows, shape.seq_len), dtype=torch.int32)
+                 for k in ("tokens", "labels")}
+
+        def grads():
+            leaves = [x.requires_grad_() for x in tree_leaves(params)]
+            logits, _, _ = model.forward(tree_unflatten(params, leaves),
+                                         micro,
+                                         remat_policy=shape.remat_policy)
+            loss = steps.lm_loss(logits, micro["labels"], arch.vocab_size)
+            return list(torch.autograd.grad(loss, leaves,
+                                            materialize_grads=True))
+        g, c_micro = costing.count_ops(grads)
+        opt = adamw(1e-4)
+        state = opt.init(params)
+        with unset_fake_temporarily():
+            state["count"] = torch.zeros((), dtype=torch.int32)
+        _, c_opt = costing.count_ops(opt.update, tree_unflatten(params, g),
+                                     state, params)
+    t_count = time.perf_counter() - t0
+    total = n_micro * c_micro.flops + c_opt.flops
+    matmul = n_micro * c_micro.matmul_flops
+    tokens = shape.global_batch * shape.seq_len
+    six_nd = 6.0 * train["n_params"] * tokens
+    log(f"  costing, {arch.name} train step ({n_micro} micro-batches of "
+        f"{rows} x {shape.seq_len}, remat {shape.remat_policy!r}, "
+        f"{arch.dtype}; counted on CPU fake tensors in {t_count:.1f} s): "
+        f"a micro-batch {c_micro.flops:.4e} FLOPs (forward, recompute, "
+        f"backward), x {n_micro} + AdamW {c_opt.flops:.4e} = {total:.4e} "
+        f"FLOPs; matmul-class {matmul:.4e}, {100 * matmul / total:.1f}%; "
+        f"6 N D = {six_nd:.4e} ({total / six_nd:.3f}x of it counted)")
+    mem = costing.analytic_bytes("train", arch, shape, train["n_params"],
+                                 n_micro, 0.0, 1)
+    log(f"  analytic_bytes('train'): {mem.total:.4e} bytes ("
+        + ", ".join(f"{k} {v:.3e}" for k, v in mem.breakdown.items()) + ")")
+    med = train["median_s"]
+    t_flops, t_bytes = total / row.bf16_flops, mem.total / row.hbm_bw
+    bound = max(t_flops, t_bytes)
+    log(f"  the training phase's median step {med * 1e3:.3f} ms: achieved "
+        f"{total / med / 1e12:.3f} TFLOP/s counted ({six_nd / med / 1e12:.3f}"
+        f" by 6 N D); roofline bound max({t_flops * 1e3:.3f} ms of FLOPs at "
+        f"{row.bf16_flops / 1e12:.0f} TFLOP/s bf16, {t_bytes * 1e3:.3f} ms "
+        f"of bytes at {row.hbm_bw / 1e12:.2f} TB/s) = {bound * 1e3:.3f} ms "
+        f"({'operations' if t_flops >= t_bytes else 'bytes'}); share of the "
+        f"bound reached {bound / med:.4f}")
+    if not (total > matmul > 0 and mem.total > 0 and math.isfinite(med)):
+        raise AssertionError(f"step costs: {total} FLOPs, {matmul} matmul, "
+                             f"{mem.total} bytes, median {med}")
+
+
+def dryrun_cell(fl):
+    """One cell of the dry-run CLI, a process of its own (256 fake ranks
+    on the CPU); a nonzero exit fails the run."""
+    arch, shape = fl["dryrun"]
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--mesh", "single", "--timeout",
+         str(fl["timeout"])], capture_output=True, text=True, env=env,
+        cwd=ROOT, timeout=fl["timeout"])
+    if out.returncode != 0:
+        raise AssertionError(f"dryrun {arch} x {shape}: exit "
+                             f"{out.returncode}\n{out.stderr[-3000:]}")
+    path = Path(out.stdout.strip().splitlines()[-1].split("artifact: ")[1])
+    res = json.loads(path.read_text())
+    terms = res["roofline_terms_s"]
+    log(f"  dryrun {arch} x {shape} x single ({res['chips']} fake ranks) "
+        f"in {time.perf_counter() - t0:.1f} s (set-up "
+        f"{res['seconds']['setup']} s, counted run "
+        f"{res['seconds']['count']} s): "
+        + ", ".join(f"{k} {v:.4e}" for k, v in terms.items())
+        + f"; dominant {res['dominant']}; useful_flops_ratio "
+        f"{res['useful_flops_ratio']:.4f}; a roofline on launch/hw's "
+        f"{res['hardware']['part']} figures, not a measurement; JSON "
+        f"{path.relative_to(ROOT)}")
+    if res["status"] != "ok" or not all(
+            math.isfinite(v) and v > 0 for v in terms.values()):
+        raise AssertionError(f"dryrun cell: {res}")
+
+
+def _pipeline_stage(w, h):
+    import torch
+    return torch.tanh(h @ w)
+
+
+def _pipeline_rank(rank, port, backend, pipe, out_dir):
+    """One rank of ``pipeline_check``'s two (its stage on card ``rank``
+    under NCCL, or on the CPU under gloo)."""
+    sys.path.insert(0, str(SRC))
+    os.environ["LOCAL_RANK"] = str(rank)
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh_compat
+    from repro_torch.train.pipeline_parallel import pipeline_forward
+    dev = "cuda" if backend == "nccl" else "cpu"
+    if dev == "cuda":
+        torch.cuda.set_device(rank)
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=2)
+    try:
+        mesh = make_mesh_compat((2,), ("pod",), device=dev)
+        d = torch.device(dev, rank) if dev == "cuda" else torch.device(dev)
+        g = torch.Generator().manual_seed(0)
+        w = (torch.randn(2, pipe["d"], pipe["d"], generator=g)
+             / pipe["d"] ** 0.5).to(d)
+        x = torch.randn(pipe["n_micro"], pipe["mb"], pipe["d"],
+                        generator=g).to(d)
+        pipeline_forward(_pipeline_stage, w, x, mesh=mesh)   # warm
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = pipeline_forward(_pipeline_stage, w, x, mesh=mesh)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        stack = torch.stack([_pipeline_stage(w[1], _pipeline_stage(w[0], xi))
+                             for xi in x])
+        res = {"rank": rank, "ms": ms, "equal": bool(torch.equal(out, stack)),
+               "max_abs": float((out - stack).abs().max())}
+        Path(out_dir, f"rank{rank}.json").write_text(json.dumps(res))
+    finally:
+        dist.destroy_process_group()
+
+
+def pipeline_check(dev, pipe):
+    """``pipeline_forward`` on two ranks against the stack run without a
+    pipeline. NCCL refuses two ranks on one card, so on a machine with
+    one card this prints that it did not run (tests/
+    test_torch_fleet_pipeline.py holds it on four gloo ranks)."""
+    import shutil
+    import socket
+
+    import torch
+    import torch.multiprocessing as mp
+    if dev.type == "cuda" and torch.cuda.device_count() < 2:
+        log(f"  pipeline_forward: not run on the card: NCCL refuses two "
+            f"ranks on one card and this machine has "
+            f"{torch.cuda.device_count()}; tests/test_torch_fleet_pipeline"
+            f".py holds it on four gloo ranks on the CPU")
+        return
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    out_dir = ROOT / "build" / "pipeline"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(_pipeline_rank,
+                             args=(port, backend, pipe, str(out_dir)),
+                             nprocs=2, join=False, start_method="spawn")
+    deadline = time.perf_counter() + pipe["timeout"]
+    while not ctx.join(timeout=1):
+        if time.perf_counter() > deadline:
+            for proc in ctx.processes:
+                proc.kill()
+            raise AssertionError(f"pipeline_forward: the two ranks did not "
+                                 f"finish in {pipe['timeout']} s")
+    res = [json.loads((out_dir / f"rank{r}.json").read_text())
+           for r in range(2)]
+    shutil.rmtree(out_dir)
+    log(f"  pipeline_forward, 2 {backend} ranks (stage a rank), "
+        f"{pipe['n_micro']} micro-batches of ({pipe['mb']}, {pipe['d']}) "
+        f"f32, tanh(h @ w) a stage, in {time.perf_counter() - t0:.1f} s: "
+        + "; ".join(f"rank {r['rank']} {r['ms']:.3f} ms, torch.equal to "
+                    f"the stack: {r['equal']} (max |diff| {r['max_abs']:.3g})"
+                    for r in res))
+    if not all(r["max_abs"] <= 1e-6 for r in res):
+        raise AssertionError(f"pipeline_forward vs the stack: {res}")
 
 
 # ------------------------------------------------------------ phase 5 --

@@ -18,6 +18,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.device import resolve_device
+from repro_torch.launch.devsim import forced_lanes
 
 
 def init_world(device=None) -> int:
@@ -83,11 +84,12 @@ def shard_devices(n_shards: int | None = None, device=None) -> list:
     device per shard, round-robin over the visible GPUs when shards
     outnumber them (on the CPU, every shard on the one CPU). Shards that
     share a device run as lanes on CUDA streams of their own
-    (engine/sharded.py)."""
+    (engine/sharded.py). ``n_shards`` None: the lane count
+    ``launch/devsim.force_host_devices`` set, else one a device."""
     dev = resolve_device(device)
     n = host_device_count(dev)
     if n_shards is None:
-        n_shards = n
+        n_shards = forced_lanes() or n
     if dev.type != "cuda":
         return [dev] * n_shards
     return [torch.device("cuda", i % n) for i in range(n_shards)]

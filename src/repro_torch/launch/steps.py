@@ -329,16 +329,27 @@ def _reduce_into(acc, like, mesh, place):
 
 
 # ------------------------------------------------------ serve step fns -----
+def _serve_rows(batch, mesh, shape_cfg: ShapeConfig) -> dict:
+    """This rank's rows of a host batch: its block under
+    ``policy.batch_spec`` when the batch splits over the data-parallel
+    ranks, else the whole batch on every rank (the reference's
+    ``input_specs`` replicate it: long_500k's one sequence)."""
+    if batch_shardable(shape_cfg, mesh):
+        return shard_batch(batch, mesh, batch_axes=_BATCH_AXES)
+    return {k: (v if torch.is_tensor(v) else torch.as_tensor(np.asarray(v)))
+            .to(mesh.device_type) for k, v in batch.items()}
+
+
 def make_prefill_step(model: Model, mesh, shape_cfg: ShapeConfig):
     """prefill_step(params, batch) -> (logits, cache) of this rank's rows
-    (its block under ``policy.batch_spec``), each rank's rows one of the
-    reference's ``moe_groups`` routing groups."""
+    (``_serve_rows``), each rank's rows one of the reference's
+    ``moe_groups`` routing groups."""
     dpn = dp_size(mesh)
     moe_groups = dpn if shape_cfg.global_batch % dpn == 0 else 1
 
     @torch.no_grad()
     def prefill_step(params, batch):
-        local = shard_batch(batch, mesh, batch_axes=_BATCH_AXES)
+        local = _serve_rows(batch, mesh, shape_cfg)
         return model.prefill(tree_map(_whole, params), local,
                              kv_dtype=shape_cfg.kv_dtype,
                              moe_groups=max(1, moe_groups // dpn),
@@ -352,7 +363,7 @@ def make_decode_step(model: Model, mesh, shape_cfg: ShapeConfig):
     place."""
     @torch.no_grad()
     def decode_step(params, cache, batch):
-        local = shard_batch(batch, mesh, batch_axes=_BATCH_AXES)
+        local = _serve_rows(batch, mesh, shape_cfg)
         return model.decode(tree_map(_whole, params), cache, local)
     return decode_step
 

@@ -105,6 +105,22 @@ def test_the_walk_covers_the_training_modules():
     test_no_jax_or_reference_import_statements("examples/train_lm_torch.py")
 
 
+def test_the_walk_covers_the_fleet_modules():
+    """The fleet tooling's modules are among the walked (and imported)
+    files, and every file of the reference has a counterpart in the
+    port."""
+    walked = {str(p.relative_to(ROOT)) for p in
+              (ROOT / "src" / "repro_torch").rglob("*.py")}
+    for name in ("launch/hw", "launch/costing", "launch/dryrun",
+                 "launch/devsim", "train/pipeline_parallel"):
+        assert f"src/repro_torch/{name}.py" in walked, name
+    ref = {str(p.relative_to(ROOT / "src" / "repro")) for p in
+           (ROOT / "src" / "repro").rglob("*.py")}
+    port = {str(p.relative_to(ROOT / "src" / "repro_torch")) for p in
+            (ROOT / "src" / "repro_torch").rglob("*.py")}
+    assert sorted(ref - port) == []
+
+
 def _no_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default is usable")
@@ -478,6 +494,13 @@ def test_chip_smoke_rehearsal_runs_every_phase_on_the_cpu():
     assert "byte for byte the synchronous one of run a: True" in out.stdout
     assert "restores as it was at save: True" in out.stdout
     assert out.stdout.count("compressed step (") == 2
+    assert "== fleet tooling" in out.stdout
+    assert "costing, zamba2-1.2b train step" in out.stdout
+    assert "analytic_bytes('train')" in out.stdout
+    assert "dryrun mamba2-130m x decode_32k x single (256 fake ranks)" \
+        in out.stdout
+    assert "pipeline_forward, 2 gloo ranks" in out.stdout and \
+        "torch.equal to the stack: True" in out.stdout
 
 
 def _c_struct_fields(source: str, struct: str) -> list[str]:

@@ -200,7 +200,7 @@
    (the absorbed decode against the full path), qwen2-vl at 2 (patches
    and M-RoPE) and whisper whole, batch 2 x 512 tokens.
    LM training: zamba2-1.2b at full width and depth (random bf16 weights
-   from a generator seeded with 0) trains 20 steps of 8 x 512 tokens of
+   from a generator seeded with 0) trains 5 steps of 8 x 512 tokens of
    ``lm_token_batches`` (lr 3e-4, cosine schedule, AdamW, remat "full",
    8 micro-batches) through ``launch.train`` (``setup`` and the runtime's
    loop, as ``main`` runs them) on a mesh of one rank, with one final
@@ -212,7 +212,7 @@
    (``training_launches``). Every loss must be finite, and step 0's
    first sequence, through the trained model, ``loss_drop`` below its
    loss before training (fresh batches of uniform tokens teach little in
-   20 steps: their losses are printed), and no step may fail and be
+   5 steps: their losses are printed), and no step may fail and be
    replayed by the runtime; it prints steps/s, tokens/s, ms per step,
    model TFLOP/s (6 N tokens over the step), peak memory, the final
    checkpoint's bytes and seconds, one more step profiled whole (device
@@ -251,6 +251,27 @@
    ``pipeline_forward`` on two NCCL ranks, a card each, against the stack
    run without a pipeline, where the machine has two cards (with one it
    prints that the pipeline did not run and why).
+   Tensor parallel: two ranks spawned on the one card (gloo: NCCL
+   refuses two ranks on one card; the collectives' CUDA tensors stage
+   through the host) on a (data 1, model 2) mesh, started before the
+   fleet phase (which runs on the host alone) and joined after it. Each
+   probes the
+   collectives of the model code on its tensors, then serves through
+   ``launch/steps`` zamba2-1.2b whole (8 prompts x 512 tokens, 32 greedy
+   steps) and deepseek-7b at 4 of its 30 layers (8 steps), random bf16
+   weights at published widths: each rank's parameter bytes against the
+   one-rank path's, its peak memory, its launches (counts reset just
+   before, read just after: flash and SSD at the per-rank shapes, a
+   layer each) and, on rank 0, the one-rank path on the same card:
+   prefill logits within TP_LOGIT_TOL of the largest, greedy tokens
+   printed; then the same weights widened to f32, logits within
+   CONSIST_TOL and greedy tokens equal but for first differences at
+   near-ties. Then one f32 zamba2-1.2b train step of 8 x 512 tokens on
+   the mesh against the one-rank step on every rank: loss within
+   TP_LOSS_TOL relative, each leaf's gradient (the ranks' shards
+   together) within TRAIN_GRAD_TOL. Each per-rank flash and SSD shape is
+   then held against its plain version and timed (rows of the kernels
+   line; ``tp_launches`` both ranks' launches).
 5. Kernel entry points (``kernels/ops``), the twin of the reference's
    ``bench_transform_kernel`` at the query path's width: a chunk of 256
    dyadic 224 px frames through ``pyramid_transform_op`` with all 20
@@ -357,6 +378,22 @@ PROFILER_SESSIONS = 3   # device_ms: sessions tried before it gives up
 # layer; an indexing or layout fault moves a leaf's gradient by O(1).
 COUNTED_STEP = 2
 TRAIN_GRAD_TOL = 1e-3
+# the tensor-parallel phase. Served in bf16, a rank's row-parallel
+# products are two bf16 partial sums added (where one card rounds one f32
+# sum once), so every block's output moves by an ulp or two (2^-8
+# relative) and the two paths drift apart through zamba2's 44 blocks:
+# prefill logits' max |diff| over the largest |logit|, within 2^-3; a
+# head, vocab or shard fault, or a reduction missed, moves logits by
+# their whole scale. The bf16 greedy tokens are printed beside the
+# one-rank path's; their first differences are held in f32, where the
+# two paths differ in the order of their sums only: the same weights
+# widened to f32, prefill logits within CONSIST_TOL of the largest, and
+# each row's greedy tokens equal but for a first difference at a
+# near-tie (NEAR_TIE_BF16). The f32 train step likewise: the loss within
+# TP_LOSS_TOL relative, each leaf's gradient within TRAIN_GRAD_TOL of its
+# largest |g|.
+TP_LOGIT_TOL = 2.0 ** -3
+TP_LOSS_TOL = 1e-5
 
 # the moe/MLA/vlm/audio phase: (arch, depth served, depth of the f32
 # consistency check); None: the published depth. phi3.5-moe's 16 layers
@@ -390,13 +427,14 @@ FULL = dict(base=224, chunk=256, out_res=(112, 56, 28), split=512,
                           prompt=512, audio_prompt=128, gen=32,
                           check_batch=2, check_prompt=512, check_at=256,
                           moe_tokens=64, iters=10),
-            # zamba2-1.2b training: 20 steps of 8 x 512 tokens at full
+            # zamba2-1.2b training: 8 steps of 8 x 512 tokens at full
             # width and depth (step 0's first sequence, measured again
             # after training, must have lost loss_drop nats: on an
-            # NVIDIA H100 80GB HBM3 at 700 W it went 10.94 -> 5.19); the
-            # drill at 6 layers, batch 1, 10 steps, a checkpoint every 3,
-            # failures at steps 4 and 7
-            lm_train=dict(full=True, steps=20, batch=8, seq=512, lr=3e-4,
+            # NVIDIA H100 80GB HBM3 at 700 W it went 10.94 -> 5.19 in 20
+            # steps, -> 4.12 in 8; 5 keep the run inside its time limit
+            # beside the tensor-parallel phase); the drill at 6 layers, batch 1, 10
+            # steps, a checkpoint every 3, failures at steps 4 and 7
+            lm_train=dict(full=True, steps=5, batch=8, seq=512, lr=3e-4,
                           loss_drop=1.0, drill_layers=6, drill_batch=1,
                           drill_steps=10, every=3, fail_at=(4, 7),
                           grad_seq=256),
@@ -404,7 +442,14 @@ FULL = dict(base=224, chunk=256, out_res=(112, 56, 28), split=512,
             # host, ~15-30 s) and the two-rank pipeline where there are two
             # cards
             fleet=dict(dryrun=("zamba2-1.2b", "decode_32k"), timeout=300,
-                       pipe=dict(n_micro=8, mb=256, d=4096, timeout=180)))
+                       pipe=dict(n_micro=8, mb=256, d=4096, timeout=180)),
+            # the tensor-parallel phase: (arch, layers served (None: its
+            # published depth), batch, prompt, greedy steps), and one f32
+            # train step, on a (data 1, model 2) mesh
+            tp=dict(full=True, model=2, timeout=420, f32_gen=8,
+                    serve=(("zamba2-1.2b", None, 8, 512, 32),
+                           ("deepseek-7b", 4, 8, 512, 8)),
+                    train=dict(arch="zamba2-1.2b", batch=8, seq=512)))
 # the rehearsal's few steps teach its toy models little: no learning floor
 REHEARSE = dict(base=32, chunk=32, out_res=(16, 8, 4), split=48, train=48,
                 steps=3, floors=(0.0, 0.0), pinned=False, corpus=96,
@@ -433,7 +478,11 @@ REHEARSE = dict(base=32, chunk=32, out_res=(16, 8, 4), split=48, train=48,
                               drill_batch=2, drill_steps=6, every=2,
                               fail_at=(2, 4), grad_seq=32),
                 fleet=dict(dryrun=("mamba2-130m", "decode_32k"), timeout=300,
-                           pipe=dict(n_micro=3, mb=4, d=16, timeout=120)))
+                           pipe=dict(n_micro=3, mb=4, d=16, timeout=120)),
+                tp=dict(full=False, model=2, timeout=300, f32_gen=2,
+                        serve=(("zamba2-1.2b", None, 2, 64, 4),
+                               ("deepseek-7b", 2, 2, 64, 4)),
+                        train=dict(arch="zamba2-1.2b", batch=4, seq=64)))
 
 
 def log(msg: str) -> None:
@@ -495,7 +544,14 @@ def main(argv=None) -> int:
     for name, n in counted.items():
         kern[name]["training_launches"] = n
         launches[name] += n
+    # the tensor-parallel ranks run on the card beside the fleet phase,
+    # which runs on the host alone
+    tp_ranks = tp_spawn(dev, cfg["tp"], "gloo", args.seed)
     phase(fleet_tooling, dev, cfg, card, train)
+    for name, n in phase(tensor_parallel_path, dev, cfg, card, kern,
+                         args.seed, tp_ranks).items():
+        kern[name]["tp_launches"] = n
+        launches[name] += n
     launches.update(phase(ops_path, dev, cfg, card, kern, args.seed))
     log(f"all phases: {time.perf_counter() - t_run:.1f} s")
     if "smi" in card:    # again near the end: the card beside the numbers
@@ -3794,8 +3850,8 @@ def lm_training_path(dev, cfg, card, kern, seed):
         log(f"  (the profiled step and its reading took "
             f"{time.perf_counter() - t1:.1f} s)")
     # step 0's first micro-batch again, through the trained model: each
-    # step is a fresh batch of uniform random tokens, and in 20 steps a
-    # token id recurs ~1.3 times, so the per-step losses stay near their
+    # step is a fresh batch of uniform random tokens, and in 5 steps a
+    # token id recurs ~0.3 times, so the per-step losses stay near their
     # start (they are printed, not held); a sequence the model was
     # trained on must have become likelier
     after, grads = micro_grads(st, params, first)
@@ -4092,17 +4148,35 @@ def training_kernel_rows(dev, cfg, card, kern, arch, counted, seed):
     ssd_scan x (1, S, H, P) bf16; each against its plain version, with its
     launches in the counted step."""
     import torch
-    import torch.nn.functional as F
-
-    from repro_torch.kernels.bindings import ssd_heads_per_block
-    from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.ref import flash_attention_ref, ssd_scan_ref
-    from repro_torch.kernels.ssd_scan import ssd_scan
     tr, it = cfg["lm_train"], cfg["iters"]
     gen = torch.Generator(device=dev).manual_seed(seed + 13)
-    s, h, d = tr["seq"], arch.n_heads, arch.head_dim
-    path = (1, h, s, d)
-    q, k, v = ((torch.randn((1, s, h, d), generator=gen, device=dev) * 0.5
+    s = tr["seq"]
+    path = (1, arch.n_heads, s, arch.head_dim)
+    n = counted["shapes"].get(path[:3] + (s,) + path[3:] + (True,), 0)
+    flash_row(dev, card, kern, it, gen, path, "training", "zamba2-1.2b "
+              "training micro-batch", n)
+    if dev.type == "cuda" and n != counted["flash_attention"]:
+        raise AssertionError(f"training flash launches at {path}: {n} of "
+                             f"{counted['flash_attention']}")
+    ssd_row(dev, card, kern, it, gen, (1, s, arch.ssm_heads,
+                                       arch.ssm.head_dim),
+            arch.ssm.d_state, arch.ssm.chunk_size, "zamba2-1.2b training "
+            "micro-batch", counted["ssd_scan"])
+
+
+def flash_row(dev, card, kern, it, gen, path, role, note, n):
+    """flash_attention at q,k,v ``path`` (B, H, S, D) bf16 causal, on the
+    (B,S,H,D).transpose(1, 2) views a model passes: held against the
+    plain version widened to f32 (FLASH_BF16_TOL), timed beside SDPA on
+    the same views and the plain version, with its bound; appended to
+    ``kern``'s flash ``other_shapes`` with ``n`` launches."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import flash_attention_ref
+    b, h, s, d = path
+    q, k, v = ((torch.randn((b, s, h, d), generator=gen, device=dev) * 0.5
                 ).to(torch.bfloat16).transpose(1, 2) for _ in range(3))
     want = flash_attention_ref(q.float(), k.float(), v.float())
     err, ok = _close(flash_attention(q, k, v), want, *FLASH_BF16_TOL)
@@ -4114,9 +4188,8 @@ def training_kernel_rows(dev, cfg, card, kern, arch, counted, seed):
          ("sdpa", lambda: F.scaled_dot_product_attention(q, k, v,
                                                           is_causal=True))),
         dev, it)
-    t_ops = 4.0 * h * d * s * (s + 1) / 2 / card["bf16"]
-    t_mem = 4.0 * h * s * d * 2 / card["bw"]
-    n = counted["shapes"].get((1, h, s, s, d, True), 0)
+    t_ops = 4.0 * b * h * d * s * (s + 1) / 2 / card["bf16"]
+    t_mem = 4.0 * b * h * s * d * 2 / card["bw"]
     fl = dict(ms=t["kernel"]["ms"][0], library_ms=t["sdpa"]["ms"][0],
               device_ms=t["kernel"]["device_ms"][0],
               library_device_ms=t["sdpa"]["device_ms"][0],
@@ -4126,40 +4199,46 @@ def training_kernel_rows(dev, cfg, card, kern, arch, counted, seed):
               bound_by="operations" if t_ops > t_mem else "bytes",
               launches=n, max_abs_err=err,
               shape=f"q,k,v {path} bf16 causal, (B,S,H,D).transpose(1, 2) "
-                    f"views (zamba2-1.2b training micro-batch, {n} launches "
-                    f"in a step)")
-    log(f"  flash_attention {path} bf16 causal (training): max |err| "
+                    f"views ({note}, {n} launches)")
+    log(f"  flash_attention {path} bf16 causal ({role}): max |err| "
         f"{err:.3g}; kernel {fl['ms']:.4f} ms, plain {fl['plain_ms']:.4f} "
         f"ms, sdpa {fl['library_ms']:.4f} ms (CUDA events); device time "
         f"kernel {_ms(fl['device_ms'])} ms, sdpa "
         f"{_ms(fl['library_device_ms'])} ms; bound {fl['bound_ms']:.4f} ms "
-        f"({fl['bound_by']}); {n} launches in the counted step")
-    if dev.type == "cuda" and n != counted["flash_attention"]:
-        raise AssertionError(f"training flash launches at {path}: {n} of "
-                             f"{counted['flash_attention']}")
+        f"({fl['bound_by']}); {n} launches ({note})")
     kern["flash_attention"]["max_abs_err"] = max(
         kern["flash_attention"]["max_abs_err"], err)
     kern["flash_attention"].setdefault("other_shapes", []).append(fl)
 
-    hh, p, nn = arch.ssm_heads, arch.ssm.head_dim, arch.ssm.d_state
-    chunk = arch.ssm.chunk_size
-    args = ((torch.randn((1, s, hh, p), generator=gen, device=dev) * 0.5
+
+def ssd_row(dev, card, kern, it, gen, xshape, nn, chunk, note, n):
+    """ssd_scan at x ``xshape`` (B, S, H, P) bf16, state width ``nn``:
+    held against the plain version (SSD_TOL), timed beside it, with its
+    bound; appended to ``kern``'s SSD ``other_shapes`` with ``n``
+    launches."""
+    import torch
+
+    from repro_torch.kernels.bindings import ssd_heads_per_block
+    from repro_torch.kernels.ref import ssd_scan_ref
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    b, s, hh, p = xshape
+    args = ((torch.randn((b, s, hh, p), generator=gen, device=dev) * 0.5
              ).to(torch.bfloat16),
-            torch.rand((1, s, hh), generator=gen, device=dev) * 0.1,
+            torch.rand((b, s, hh), generator=gen, device=dev) * 0.1,
             -torch.rand((hh,), generator=gen, device=dev) * 2,
-            (torch.randn((1, s, nn), generator=gen, device=dev) * 0.3
+            (torch.randn((b, s, nn), generator=gen, device=dev) * 0.3
              ).to(torch.bfloat16),
-            (torch.randn((1, s, nn), generator=gen, device=dev) * 0.3
+            (torch.randn((b, s, nn), generator=gen, device=dev) * 0.3
              ).to(torch.bfloat16))
     (y, fin), (yr, fr) = (ssd_scan(*args, chunk=chunk),
                           ssd_scan_ref(*args, chunk=chunk))
     ey, oky = _close(y, yr, *SSD_TOL)
     ef, okf = _close(fin, fr, *SSD_TOL)
     if not (oky and okf):
-        raise AssertionError(f"ssd_scan training shape: {ey}, {ef}")
-    t_ops = 4.0 * s * hh * p * nn / card["bf16"]
-    nbytes = (s * hh * p * 2 + s * hh * 4 + hh * 4 + 2 * s * nn * 2
-              + s * hh * p * 4 + hh * p * nn * 4)
+        raise AssertionError(f"ssd_scan {xshape}: {ey}, {ef}")
+    t_ops = 4.0 * b * s * hh * p * nn / card["bf16"]
+    nbytes = b * (s * hh * p * 2 + s * hh * 4 + 2 * s * nn * 2
+                  + s * hh * p * 4 + hh * p * nn * 4) + hh * 4
     t_mem = nbytes / card["bw"]
     row = dict(ms=time_ms(lambda: ssd_scan(*args, chunk=chunk), dev, it),
                device_ms=device_ms(lambda: ssd_scan(*args, chunk=chunk),
@@ -4168,12 +4247,10 @@ def training_kernel_rows(dev, cfg, card, kern, arch, counted, seed):
                                 dev, it),
                bound_ms=max(t_ops, t_mem) * 1e3,
                bound_by="operations" if t_ops > t_mem else "bytes",
-               library_ms=None, launches=counted["ssd_scan"],
-               max_abs_err=max(ey, ef),
-               shape=f"x (1,{s},{hh},{p}) bf16, N {nn}, chunk {chunk}, "
-                     f"{ssd_heads_per_block(1, hh, p, nn)} heads a block "
-                     f"(zamba2-1.2b training micro-batch, "
-                     f"{counted['ssd_scan']} launches in a step)")
+               library_ms=None, launches=n, max_abs_err=max(ey, ef),
+               shape=f"x ({b},{s},{hh},{p}) bf16, N {nn}, chunk {chunk}, "
+                     f"{ssd_heads_per_block(b, hh, p, nn)} heads a block "
+                     f"({note}, {n} launches)")
     log(f"  ssd_scan {row['shape']}: max |err| y {ey:.3g}, final {ef:.3g}; "
         f"kernel {row['ms']:.4f} ms (device {_ms(row['device_ms'])}), plain "
         f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
@@ -4399,6 +4476,480 @@ def pipeline_check(dev, pipe):
                     for r in res))
     if not all(r["max_abs"] <= 1e-6 for r in res):
         raise AssertionError(f"pipeline_forward vs the stack: {res}")
+
+
+# ----------------------------------------------------------- phase 4f --
+def tensor_parallel_path(dev, cfg, card, kern, seed, ranks):
+    """The steps of ``launch/steps`` on a (data 1, model 2) mesh: two
+    ranks on the one card (gloo: NCCL refuses two ranks on one card; the
+    collectives' CUDA tensors stage through the host), each computing its
+    'model' shard (``ranks``: ``tp_spawn``'s, started beside the fleet
+    phase, which runs on the host alone), then each per-rank kernel shape
+    held against its plain version and timed. Returns the kernels'
+    launches on both ranks."""
+    import torch
+
+    tp = cfg["tp"]
+    log("== tensor parallel")
+    res = tp_join(ranks)
+    counts = {k: sum(part["launches"][k] for r in res
+                     for part in r["serve"] + [r["train"]])
+              for k in ("flash_attention", "ssd_scan")}
+    # each served model's per-rank shapes (the train step's are f32: the
+    # kernels' FFMA paths, held by the earlier phases), both ranks' launches
+    gen = torch.Generator(device=dev).manual_seed(seed + 23)
+    for i, (name, *_) in enumerate(tp["serve"]):
+        parts = [r["serve"][i] for r in res]
+        note = f"{name} prefill on a rank of (1, {tp['model']})"
+        for b, h, s, t, d, causal, _ in parts[0]["expect"]["flash_shapes"]:
+            n = sum(dict((tuple(k), c) for k, c in p["flash_shapes"]).get(
+                (b, h, s, t, d, causal), 0) for p in parts)
+            flash_row(dev, card, kern, cfg["iters"], gen, (b, h, s, d),
+                      "tensor-parallel rank", note, n)
+        for b, s, h, pp, nn, _ in parts[0]["expect"]["ssd_shapes"]:
+            n = sum(dict((tuple(k), c) for k, c in p["ssd_shapes"]).get(
+                (b, s, h, pp, nn), 0) for p in parts)
+            ssd_row(dev, card, kern, cfg["iters"], gen, (b, s, h, pp), nn,
+                    parts[0]["chunk"], note, n)
+    return counts
+
+
+def tp_check(dev, tp, backend, seed):
+    """``tp_join(tp_spawn(...))``: the ranks' run, printed and held."""
+    return tp_join(tp_spawn(dev, tp, backend, seed))
+
+
+def tp_spawn(dev, tp, backend, seed):
+    """Start ``tp["model"]`` ranks on a (1, n) mesh (``_tp_rank``): gloo
+    ranks on one card (or on the CPU in the rehearsal), or NCCL ranks, one
+    card each. Returns the handle ``tp_join`` takes."""
+    import shutil
+    import socket
+
+    import torch
+    import torch.multiprocessing as mp
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()     # the earlier phases' cached blocks
+    out_dir = ROOT / "build" / "tensor_parallel"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    ctx = mp.start_processes(_tp_rank, args=(port, backend, dev.type, tp,
+                                             seed, str(out_dir)),
+                             nprocs=tp["model"], join=False,
+                             start_method="spawn")
+    return dict(ctx=ctx, dev=dev, tp=tp, backend=backend, out_dir=out_dir,
+                t0=time.perf_counter())
+
+
+def tp_join(h):
+    """Wait for ``tp_spawn``'s ranks (at most ``tp["timeout"]`` s from
+    their start), print each rank's lines and hold what they found;
+    returns their results."""
+    import shutil
+    ctx, dev, tp, backend, out_dir, t0 = (h[k] for k in (
+        "ctx", "dev", "tp", "backend", "out_dir", "t0"))
+    n = tp["model"]
+    deadline = t0 + tp["timeout"]
+    while not ctx.join(timeout=1):
+        if time.perf_counter() > deadline:
+            for proc in ctx.processes:
+                proc.kill()
+            raise AssertionError(f"tensor parallel: the {n} ranks did not "
+                                 f"finish in {tp['timeout']} s")
+    res = [json.loads((out_dir / f"rank{r}.json").read_text())
+           for r in range(n)]
+    shutil.rmtree(out_dir)
+    where = ("one card, gloo: the all-reduces' CUDA tensors stage through "
+             "the host" if backend == "gloo" and dev.type == "cuda" else
+             f"{backend}, one card a rank" if dev.type == "cuda" else
+             "gloo on the CPU (rehearsal)")
+    log(f"  {n} ranks on a (data 1, model {n}) mesh ({where}) in "
+        f"{time.perf_counter() - t0:.1f} s; correctness runs, not speed")
+    for r in res:
+        log(f"  rank {r['rank']} collectives on {r['device']} tensors: "
+            + ", ".join(f"{k} {v}" for k, v in r["probe"].items()))
+        if r["probe"]["all-reduce sum"] is not True or \
+                r["probe"]["all-reduce max"] is not True:
+            raise AssertionError(f"rank {r['rank']}: {r['probe']}")
+    for i, spec in enumerate(tp["serve"]):
+        _tp_serve_lines(dev, tp, [r["serve"][i] for r in res])
+    _tp_train_lines(dev, tp, [r["train"] for r in res])
+    return res
+
+
+def _tp_serve_lines(dev, tp, parts):
+    """Print and hold one served model's results on every rank."""
+    p0 = parts[0]
+    log(f"  {p0['name']} ({p0['cut']}): {p0['batch']} prompts x "
+        f"{p0['prompt']} tokens + {p0['gen']} greedy steps, "
+        f"tensor_parallel={p0['tensor_parallel']}")
+    for p in parts:
+        log(f"    rank {p['rank']}: parameters {_mb(p['local_bytes'])} of "
+            f"the one-rank path's {_mb(p['whole_bytes'])} "
+            f"({p['local_bytes'] / p['whole_bytes']:.3f}; {p['replicated']} "
+            f"of {p['leaves']} leaves replicated, "
+            f"{_mb(p['replicated_bytes'])}); bf16 peak {_mb(p['peak'])}; "
+            f"prefill {p['prefill_ms']:.1f} ms, decode {p['decode_ms']:.1f} "
+            f"ms/step; launches {p['launches']}, flash {p['flash_shapes']}, "
+            f"ssd {p['ssd_shapes']}")
+    for dt, c in p0["vs_one_rank"].items():
+        tol = TP_LOGIT_TOL if dt == "bfloat16" else CONSIST_TOL
+        log(f"    {dt} against the one-rank path on rank 0's card (prefill "
+            f"{c['one_prefill_ms']:.1f} ms, decode {c['one_decode_ms']:.1f} "
+            f"ms/step): prefill logits max |diff| {c['logit_diff']:.4g} of "
+            f"max |logit| {c['logit_max']:.4g} ({c['logit_rel']:.4g}, tol "
+            f"{tol:.4g}); greedy tokens equal in {c['rows_equal']} of "
+            f"{p0['batch']} rows ({c['steps']} steps), {c['tie_rows']} "
+            f"first differ at a bf16 "
+            f"near-tie, {c['other_rows']} elsewhere (row, step, the "
+            f"one-rank path's top-two gap: {c['firsts']}); "
+            f"{c['near_ties']} near-ties among its "
+            f"{p0['batch'] * (c['steps'] + 1)} tokens")
+        if c["logit_rel"] > tol or (dt == "float32" and c["other_rows"]):
+            raise AssertionError(f"tensor-parallel {p0['name']} {dt}: {c}")
+    if dev.type == "cuda":
+        for p in parts:
+            want = p["expect"]
+            if p["launches"] != want["launches"] or \
+                    [list(k) + [n] for k, n in p["flash_shapes"]] \
+                    != want["flash_shapes"] or \
+                    [list(k) + [n] for k, n in p["ssd_shapes"]] \
+                    != want["ssd_shapes"]:
+                raise AssertionError(f"rank {p['rank']} {p['name']} "
+                                     f"launches: {p} != {want}")
+
+
+def _tp_train_lines(dev, tp, parts):
+    """Print and hold the train step's results on every rank."""
+    p0 = parts[0]
+    rel = max(p["grad_rel"] for p in parts)
+    worst = max(parts, key=lambda p: p["grad_rel"])
+    log(f"  train step {p0['name']} f32, {p0['batch']} x {p0['seq']} "
+        f"tokens, {p0['n_micro']} micro-batches, remat {p0['remat']!r}, "
+        f"tensor_parallel={p0['tensor_parallel']}: loss "
+        f"{p0['loss']:.6f}, one-rank step {p0['one_loss']:.6f} (|diff| "
+        f"{abs(p0['loss'] - p0['one_loss']):.3g}, tol {TP_LOSS_TOL} "
+        f"relative); largest relative gradient error over a whole leaf "
+        f"{rel:.3g} ({worst['grad_worst']}; max |diff| over the leaf's "
+        f"max |g|, the ranks' shards together; tol {TRAIN_GRAD_TOL})")
+    for p in parts:
+        log(f"    rank {p['rank']}: step {p['step_ms']:.1f} ms, one-rank "
+            f"step {p['one_step_ms']:.1f} ms; peak {_mb(p['peak'])}; "
+            f"launches {p['launches']}")
+    if abs(p0["loss"] - p0["one_loss"]) > TP_LOSS_TOL * abs(p0["one_loss"]) \
+            or rel > TRAIN_GRAD_TOL or not p0["tensor_parallel"]:
+        raise AssertionError(f"tensor-parallel train step: {parts}")
+    if dev.type == "cuda" and any(
+            min(p["launches"].values()) == 0 for p in parts):
+        raise AssertionError(f"train step launches: {parts}")
+
+
+def _tp_rank(rank, port, backend, device, tp, seed, out_dir):
+    """One rank of ``tp_check``: the collectives probed on the rank's
+    tensors, each served model (``_tp_serve``) and the train step
+    (``_tp_train``) on the (1, n) mesh; results to ``out_dir``."""
+    sys.path.insert(0, str(SRC))
+    one_card = backend == "gloo"
+    os.environ["LOCAL_RANK"] = "0" if one_card else str(rank)
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.device import resolve_device
+    from repro_torch.launch.mesh import make_mesh_compat
+    dev = resolve_device(torch.device(device, 0 if one_card else rank)
+                         if device == "cuda" else device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=tp["model"])
+    try:
+        mesh = make_mesh_compat((1, tp["model"]), ("data", "model"),
+                                device=dev.type)
+        out = {"rank": rank, "device": dev.type,
+               "probe": _tp_probe(mesh, dev)}
+        out["serve"] = [_tp_serve(mesh, dev, rank, tp, seed + 21 + i, spec)
+                        for i, spec in enumerate(tp["serve"])]
+        out["train"] = _tp_train(mesh, dev, rank, tp, seed + 25)
+        Path(out_dir, f"rank{rank}.json").write_text(json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+
+
+def _tp_probe(mesh, dev):
+    """Each collective of the model code (``sharding.policy``) on this
+    rank's tensors: True (the right values), or why the backend refused."""
+    import torch
+
+    from repro_torch.sharding import policy
+    with policy.use_ctx_mesh(mesh):
+        tp = policy.ctx_tp()
+    n, r = tp.size, tp.rank
+    x = torch.full((4,), float(r + 1), device=dev)
+    ones = torch.ones(4 * n, device=dev)
+
+    def gather():
+        xg = x.clone().requires_grad_()
+        y = policy.gather_tp(xg, 0, tp)
+        y.backward(ones)          # reduce-scatter
+        return torch.cat([y.detach(), xg.grad])
+
+    cases = (("all-reduce sum", lambda: policy.reduce_from_tp(x, tp),
+              torch.full((4,), n * (n + 1) / 2, device=dev)),
+             ("all-reduce max", lambda: policy.max_tp(x, tp),
+              torch.full((4,), float(n), device=dev)),
+             ("all-gather + reduce-scatter", gather, torch.cat([
+                 torch.arange(1, n + 1, device=dev).float()
+                 .repeat_interleave(4), torch.full((4,), float(n),
+                                                   device=dev)])))
+    out = {}
+    for name, fn, want in cases:
+        try:
+            out[name] = bool(torch.equal(fn(), want))
+        except RuntimeError as e:
+            out[name] = f"refused: {str(e).splitlines()[0][:160]}"
+    return out
+
+
+def _tp_greedy(dev, prefill, decode, prompts, n_gen, host):
+    """Greedy decoding: (prefill logits, tokens (B, n_gen + 1), each
+    step's top-two logits, prefill ms, decode ms a step). ``host``: the
+    steps take host batches (``launch/steps``)."""
+    import torch
+
+    from repro_torch.launch.serve import grow_cache
+    _sync(dev)
+    t0 = time.perf_counter()
+    logits, cache = prefill({"tokens": prompts if host
+                             else prompts.to(dev)})
+    first = logits
+    cache = grow_cache(cache, n_gen)
+    tok = logits.argmax(-1)
+    _sync(dev)
+    t1 = time.perf_counter()
+    toks, top2 = [tok], [logits.float().topk(2, -1).values]
+    for _ in range(n_gen):
+        step = tok[:, None]
+        logits, cache = decode(cache, {"tokens": step.cpu() if host
+                                       else step})
+        tok = logits.argmax(-1)
+        toks.append(tok)
+        top2.append(logits.float().topk(2, -1).values)
+    _sync(dev)
+    return (first, torch.stack(toks, 1), torch.stack(top2, 1),
+            (t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3 / max(n_gen, 1))
+
+
+def _tp_vs_one(dev, model, params, prompts, n_gen, got):
+    """The one-rank path (the model on its whole weights, this card) on
+    the same prompts against the ranks' greedy run ``got``: prefill
+    logits' max |diff| over the largest |logit|, and each row's first
+    differing token, whether the one-rank path's top two logits there are
+    a near-tie (NEAR_TIE_BF16)."""
+    one = _tp_greedy(dev, lambda bt: model.prefill(params, bt),
+                     lambda c, bt: model.decode(params, c, bt),
+                     prompts, n_gen, False)
+    diff = float((got[0].float() - one[0].float()).abs().max())
+    top = float(one[0].float().abs().max())
+    div = [first_divergence(g, w, t2)
+           for g, w, t2 in zip(got[1], one[1], one[2])]
+    firsts = [(r, i, round(float(one[2][r, i, 0] - one[2][r, i, 1]), 4))
+              for r, (i, _) in enumerate(div) if i is not None]
+    return dict(steps=n_gen, one_prefill_ms=one[3], one_decode_ms=one[4],
+                logit_diff=diff, logit_max=top, logit_rel=diff / top,
+                rows_equal=sum(i is None for i, _ in div),
+                tie_rows=sum(i is not None and t for i, t in div),
+                other_rows=sum(i is not None and not t for i, t in div),
+                firsts=firsts, near_ties=int(near_ties(one[2]).sum()))
+
+
+def _tp_serve(mesh, dev, rank, tp, seed, spec):
+    """One model served on the (1, n) mesh through the steps, greedy, in
+    bf16, with the launch counts reset just before and read just after;
+    then the same weights widened to f32, greedy again. On rank 0 the
+    one-rank path (the model on its whole weights) runs on the same
+    prompts in both dtypes and is held against the ranks'."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_arch, smoke_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.models.factory import build_model
+    from repro_torch.sharding.policy import place
+    from repro_torch.train.optimizer import tree_leaves, tree_map
+    name, layers, b, s, n_gen = spec
+    arch = get_arch(name) if tp["full"] else smoke_config(name)
+    cut = "published widths" if tp["full"] else "smoke config"
+    cut += (f", {layers} of its {arch.n_layers} layers" if layers
+            else ", all its layers")
+    if layers is not None:
+        arch = arch.replace(n_layers=layers)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = build_model(arch).init(gen, device=dev)
+    prompts = torch.randint(0, arch.vocab_size, (b, s), generator=gen,
+                            device=dev).cpu()
+    out = dict(rank=rank, name=arch.name, cut=cut, batch=b, prompt=s,
+               gen=n_gen, vs_one_rank={})
+    for dt, n_steps in (("bfloat16", n_gen),
+                        ("float32", min(n_gen, tp["f32_gen"]))):
+        model = build_model(arch.replace(dtype=dt))
+        p = params if dt == "bfloat16" else tree_map(
+            lambda x: x.to(torch.float32), params)
+        placed = place(p, mesh)
+        pre = steps.make_prefill_step(model, mesh, ShapeConfig(
+            "tp", "prefill", s, b, kv_dtype=dt))
+        dec = steps.make_decode_step(model, mesh, ShapeConfig(
+            "tp", "decode", s + n_gen, b, kv_dtype=dt))
+
+        def run(n):
+            return _tp_greedy(dev, lambda bt: pre(placed, bt),
+                              lambda c, bt: dec(placed, c, bt), prompts, n,
+                              True)
+        if dt == "bfloat16":
+            run(2)                    # warm-up
+            mem0 = _peak_reset(dev)
+            ops.reset_launch_counts()
+        got = run(n_steps)
+        if dt == "bfloat16":         # the served run: counts and bytes
+            out["launches"] = {k: ops.LAUNCHES[k]
+                               for k in ("flash_attention", "ssd_scan")}
+            out["flash_shapes"] = sorted(ops.FLASH_SHAPES.items())
+            out["ssd_shapes"] = sorted(ops.SSD_SHAPES.items())
+            out.update(peak=_peak_extra(dev, mem0), prefill_ms=got[3],
+                       decode_ms=got[4],
+                       tensor_parallel=pre.tensor_parallel)
+            local = [x.to_local() for x in tree_leaves(placed)]
+            whole = [math.prod(x.shape) * x.element_size()
+                     for x in tree_leaves(placed)]
+            rep = [a.numel() * a.element_size() == w
+                   for a, w in zip(local, whole)]
+            out.update(local_bytes=sum(a.numel() * a.element_size()
+                                       for a in local),
+                       whole_bytes=sum(whole), leaves=len(whole),
+                       replicated=sum(rep), replicated_bytes=sum(
+                           w for w, r in zip(whole, rep) if r))
+            del local
+        if rank == 0:
+            out["vs_one_rank"][dt] = _tp_vs_one(dev, model, p, prompts,
+                                                n_steps, got)
+        del placed, p, got
+        _sync(dev)
+        dist.barrier()
+    n = tp["model"]
+    n_attn = (arch.n_layers // arch.hybrid_attn_every
+              if arch.family == "hybrid" else
+              arch.n_layers if arch.uses_attention else 0)
+    n_ssm = arch.n_layers if arch.ssm is not None else 0
+    out["chunk"] = arch.ssm.chunk_size if n_ssm else None
+    out["expect"] = {
+        "launches": {"flash_attention": n_attn, "ssd_scan": n_ssm},
+        "flash_shapes": [[b, arch.n_heads // n, s, s, arch.head_dim, True,
+                          n_attn]] if n_attn else [],
+        "ssd_shapes": [[b, s, arch.ssm_heads // n, arch.ssm.head_dim,
+                        arch.ssm.d_state, n_ssm]] if n_ssm else []}
+    del params
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def _tp_train(mesh, dev, rank, tp, seed):
+    """One train step (f32, an identity optimizer: its output is the
+    gradients) on the (1, n) mesh, and on every rank the one-rank step's
+    loss and gradients (the model on its whole weights, the same
+    micro-batches and normalization as ``make_train_step``); each rank
+    compares its gradient shards, and the ranks' worst per leaf are
+    combined (a max over the ranks: the whole leaf's error)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_arch, smoke_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.models.factory import build_model
+    from repro_torch.sharding import policy
+    from repro_torch.train.optimizer import (Optimizer, tree_leaves,
+                                             tree_leaves_with_path,
+                                             tree_unflatten)
+    tr = tp["train"]
+    arch = (get_arch(tr["arch"]) if tp["full"] else smoke_config(tr["arch"])
+            ).replace(dtype="float32")
+    model = build_model(arch)
+    params = model.init(torch.Generator(device=dev).manual_seed(seed),
+                        device=dev)
+    placed = policy.place(params, mesh)
+    b, s = tr["batch"], tr["seq"]
+    toks = np.random.default_rng(seed).integers(
+        0, arch.vocab_size, (b, s + 1)).astype(np.int32)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:].copy()}
+    shape = ShapeConfig("tp", "train", s, b, microbatch_seqs_per_shard=1)
+    ident = Optimizer(init=lambda p: {}, update=lambda g, st, p: (g, st, {}))
+    fn, info = steps.make_train_step(model, mesh, shape, ident)
+    mem0 = _peak_reset(dev)
+    _sync(dev)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    g, _, m = fn(placed, {}, batch)
+    _sync(dev)
+    step_ms = (time.perf_counter() - t0) * 1e3
+    launches = {k: ops.LAUNCHES[k] for k in ("flash_attention", "ssd_scan")}
+    peak = _peak_extra(dev, mem0)
+    del placed
+
+    # the one-rank step on this rank's card
+    t0 = time.perf_counter()
+    n_micro = info["n_micro"]
+    rows = b // n_micro
+    leaves = [x.detach().requires_grad_() for x in tree_leaves(params)]
+    acc = [torch.zeros_like(x) for x in leaves]
+    one_loss = 0.0
+    for i in range(n_micro):
+        micro = {k: torch.as_tensor(v[i * rows:(i + 1) * rows]).to(dev)
+                 for k, v in batch.items()}
+        logits, _, _ = model.forward(tree_unflatten(params, leaves), micro,
+                                     remat_policy=shape.remat_policy)
+        ce, count = steps.lm_loss_parts(logits, micro["labels"],
+                                        arch.vocab_size)
+        loss = ce / torch.clamp(count, min=1.0)
+        for a, x in zip(acc, torch.autograd.grad(
+                loss, leaves, allow_unused=True, materialize_grads=True)):
+            a += x
+        one_loss += float(loss.detach()) / n_micro
+    _sync(dev)
+    one_ms = (time.perf_counter() - t0) * 1e3
+
+    # this rank's block of each whole gradient against its shard
+    names = ["/".join(map(str, path))
+             for path, _ in tree_leaves_with_path(params)]
+    errs = []
+    for a, x in zip(acc, tree_leaves(g)):
+        want = a / n_micro
+        for dim, p in enumerate(x.placements):
+            if p.is_shard():
+                want = want.chunk(mesh.size(dim), p.dim)[
+                    mesh.get_local_rank(dim)]
+        got = x.to_local()
+        errs.append([float((got - want).abs().max()),
+                     float(want.abs().max())])
+    e = torch.tensor(errs, dtype=torch.float64, device=dev)
+    dist.all_reduce(e, op=dist.ReduceOp.MAX)
+    rel = (e[:, 0] / e[:, 1].clamp(min=1e-30)).tolist()
+    worst = max(range(len(rel)), key=rel.__getitem__)
+    del params, leaves, acc, g
+    _sync(dev)
+    dist.barrier()
+    return dict(rank=rank, name=arch.name, batch=b, seq=s, n_micro=n_micro,
+                remat=shape.remat_policy,
+                tensor_parallel=info["tensor_parallel"],
+                loss=float(m["loss"]), one_loss=one_loss, step_ms=step_ms,
+                one_step_ms=one_ms, peak=peak, launches=launches,
+                grad_rel=rel[worst], grad_worst=names[worst])
 
 
 # ------------------------------------------------------------ phase 5 --
@@ -4662,7 +5213,8 @@ def kernels_line(kern, launches):
                                                "serving_launches",
                                                "dense_launches",
                                                "families_launches",
-                                               "training_launches")
+                                               "training_launches",
+                                               "tp_launches")
                        if key in k}})
     print(json.dumps({"kernels": out}), flush=True)
 

@@ -9,7 +9,9 @@ entry point reports a CUDA error, and adds one to its kernel's count in
 ``LAUNCHES`` — there and nowhere else. The flash launcher also counts
 its launches by problem in ``FLASH_SHAPES``, keyed (B, H, S, T, D,
 causal), so a model's attentions (encoder, decoder, cross) are told
-apart. ``kernels/ops.py`` re-exports ``LAUNCHES``, ``FLASH_SHAPES`` and
+apart, and the SSD launcher in ``SSD_SHAPES``, keyed (B, S, H, P, N), so
+a tensor-parallel rank's share of the heads shows. ``kernels/ops.py``
+re-exports ``LAUNCHES``, ``FLASH_SHAPES``, ``SSD_SHAPES`` and
 ``reset_launch_counts``.
 """
 from __future__ import annotations
@@ -47,12 +49,14 @@ LAUNCHES = {"fused_pyramid_stage0": 0, "matmul": 0, "flash_attention": 0,
             "ssd_scan": 0, "fused_transform": 0,
             "fused_pyramid_transform": 0}
 FLASH_SHAPES: dict[tuple, int] = {}
+SSD_SHAPES: dict[tuple, int] = {}
 
 
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
     FLASH_SHAPES.clear()
+    SSD_SHAPES.clear()
 
 
 class PS0Params(ctypes.Structure):
@@ -264,6 +268,8 @@ def launch_ssd_scan(x, dt, a, bmat, cmat, y, final) -> None:
               cmat.data_ptr(), y.data_ptr(), final.data_ptr(), b, s, h, p, n,
               int(bf16), hb, _stream()), "ssd_scan")
     LAUNCHES["ssd_scan"] += 1
+    key = (b, s, h, p, n)
+    SSD_SHAPES[key] = SSD_SHAPES.get(key, 0) + 1
 
 
 def flash_refusal(t: torch.Tensor) -> str | None:

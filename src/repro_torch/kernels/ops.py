@@ -4,15 +4,15 @@
 Each ``*_op`` is a plain function over a kernel wrapper, so it runs where
 its operands lie: the plain version on CPU tensors, the hand-written kernel
 on CUDA tensors (or it raises). The reference's ``backend="ref"`` is a
-direct call of ``kernels/ref.py`` here. ``LAUNCHES``, ``FLASH_SHAPES``
-and ``reset_launch_counts`` are ``kernels/bindings.py``'s own objects, the
-one place launch counts are read.
+direct call of ``kernels/ref.py`` here. ``LAUNCHES``, ``FLASH_SHAPES``,
+``SSD_SHAPES`` and ``reset_launch_counts`` are ``kernels/bindings.py``'s
+own objects, the one place launch counts are read.
 """
 from __future__ import annotations
 
 from repro_torch.core.transforms import COLOR_REPS
 from repro_torch.kernels.bindings import (FLASH_SHAPES, LAUNCHES,
-                                          reset_launch_counts)
+                                          SSD_SHAPES, reset_launch_counts)
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.image_transform import (color_weight_matrix,
                                                  fused_pyramid_transform,
@@ -20,7 +20,8 @@ from repro_torch.kernels.image_transform import (color_weight_matrix,
 from repro_torch.kernels.matmul import matmul
 from repro_torch.kernels.ssd_scan import ssd_scan
 
-__all__ = ["COLOR_WEIGHTS", "FLASH_SHAPES", "LAUNCHES", "reset_launch_counts",
+__all__ = ["COLOR_WEIGHTS", "FLASH_SHAPES", "LAUNCHES", "SSD_SHAPES",
+           "reset_launch_counts",
            "transform_op", "pyramid_transform_op", "matmul_op",
            "flash_attention_op", "ssd_scan_op"]
 

@@ -20,10 +20,15 @@ fake tensors placed by ``sharding.policy.place``, and the step of
   the name is kept so the two packages' artifacts read alike), the
   backward and the remat recompute included; ``global.hlo_flops`` is
   that times the ranks. ``useful_flops_ratio`` = model FLOPs (6 N D or
-  2 N D) / (rank 0's FLOPs x ranks). The port's train step gathers the
-  weights and computes each data-parallel rank's rows on every rank of
-  the 'model' axis (``launch/steps``), so on (data 16, model 16) this
-  ratio shows that duplication; it is reported as it is.
+  2 N D) / (rank 0's FLOPs x ranks). The dense, vlm, ssm and hybrid
+  families' steps are tensor-parallel over 'model' (``launch/steps``):
+  rank 0 computes its data-parallel rows on its 'model' shard, and only
+  the leaves the policy replicates (norms, the SSM's B and C
+  projections) are computed on every 'model' rank. The moe and audio
+  families' steps gather the weights and compute each data-parallel
+  rank's rows on every rank of the 'model' axis, so on (data 16, model
+  16) their ratio shows that duplication; it is reported as it is.
+  ``step_info["tensor_parallel"]`` says which route a cell took.
 * ``collectives`` are rank 0's (``OpCounter.collectives``), and
   ``per_device.hbm_bytes`` is ``costing.analytic_bytes`` over the ranks.
 * ``roofline_terms_s``: ``compute_s`` = rank 0's FLOPs over the bf16
@@ -147,7 +152,8 @@ def run_cell(arch_name: str, shape_name: str, multi_pod: bool,
     def fake_zeros(tree):
         return tree_map(lambda m: torch.zeros(m.shape, dtype=m.dtype), tree)
 
-    info = {"n_micro": 1}
+    info = {"n_micro": 1,
+            "tensor_parallel": steps.tensor_parallel(arch, mesh)}
     with FakeTensorMode(allow_non_fake_inputs=True):
         plain = fake_zeros(shapes)
         params = policy.place(plain, mesh, shardings)
@@ -167,11 +173,7 @@ def run_cell(arch_name: str, shape_name: str, multi_pod: bool,
             args = (params, batch)
         else:
             step_fn = steps.make_decode_step(model, mesh, shape)
-            rows = shape.global_batch // (steps.dp_size(mesh)
-                                          if steps.batch_shardable(shape, mesh)
-                                          else 1)
-            cache = model.init_cache(rows, shape.seq_len, shape.kv_dtype,
-                                     device="cpu")
+            cache = steps.decode_cache(model, mesh, shape, device="cpu")
             args = (params, cache, batch)
         t_setup = time.time() - t0
         _, counter = costing.count_ops(step_fn, *args)

@@ -4,15 +4,35 @@ the dry-run (no allocation); the port of the reference's
 ``launch/steps.py``.
 
 The reference's train step is one SPMD program: XLA shards it over the
-mesh. The port runs its all-gather-weights form, one process a rank:
+mesh. The port runs one process a rank:
 
 * parameters and optimizer state live as DTensors under the sharding
-  policy's placements (``sharding.policy.place``); each step gathers the
-  parameters whole, runs forward and backward on plain tensors, and
+  policy's placements (``sharding.policy.place``). On one card the mesh
+  is (1, 1), every placement is ``Replicate()`` and nothing is
+  communicated.
+* the dense, vlm, ssm and hybrid families (``TP_FAMILIES``) run
+  tensor-parallel on a 'model' axis of more than 1
+  (``tensor_parallel``): each step gathers each parameter over the
+  data-parallel axes only and keeps its 'model' shard (``_local``: the
+  slice the policy's spec gives this rank), enters the mesh context
+  (``policy.use_ctx_mesh``) and the model code computes the rank's share
+  of the vocab, heads, ``d_ff`` and SSM heads, with Megatron's pair of
+  collectives over the 'model' group (``models/transformer`` says
+  where). Gradients stay local to the rank's shard and are summed over
+  the data-parallel ranks into the parameters' placements; the loss is
+  taken over the vocab shards (``lm_loss_parts``); serving logits are
+  made whole on every rank. A leaf the policy replicates (its dim does
+  not divide) is computed whole, and so is each block whose projections
+  it replicates.
+* the moe family (expert parallelism needs an all-to-all, MLA's latent
+  projections a split of their own) and the audio family take the
+  all-gather-weights route on any mesh: each step gathers every
+  parameter whole, runs forward and backward on plain tensors, and
   reduce-scatters the gradients into the parameters' placements (a sum
   over the data-parallel ranks; ranks that differ only in the 'model'
-  axis compute the same rows). On one card the mesh is (1, 1), every
-  placement is ``Replicate()`` and nothing is communicated.
+  axis compute the same rows). The step's ``info["tensor_parallel"]``
+  (the serving steps' attribute ``tensor_parallel``) says which route it
+  took: the route is chosen by family, not on failure.
 * the global batch (``global_batch`` rows, the whole of it on every
   rank, as a host batch) is cut into ``n_micro`` contiguous
   micro-batches, and each micro-batch into the data-parallel ranks'
@@ -32,6 +52,7 @@ unchunked (``models/transformer`` says so for ``attn_chunk``).
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Any, NamedTuple
 
@@ -55,7 +76,12 @@ _BATCH_AXES = {"mrope_positions": 1}
 def lm_loss_parts(logits, labels, vocab_size: int):
     """(sum of the masked next-token CE, count of valid labels), f32.
     Labels already aligned (labels[t] = target at t); label < 0 masks.
-    Handles vocab padding by masking padded columns."""
+    Handles vocab padding by masking padded columns. Under a step's mesh
+    context the logits are this rank's vocab columns (``lm_logits``):
+    ``_vocab_parallel_parts``."""
+    tp = policy.ctx_tp()
+    if tp is not None:
+        return _vocab_parallel_parts(logits, labels, vocab_size, tp)
     vp = logits.shape[-1]
     lg = logits.to(torch.float32)
     if vp > vocab_size:
@@ -64,6 +90,27 @@ def lm_loss_parts(logits, labels, vocab_size: int):
     logz = torch.logsumexp(lg, dim=-1)
     lab = labels.long().clamp(0, vocab_size - 1)
     gold = lg.gather(-1, lab[..., None])[..., 0]
+    valid = (labels >= 0).to(torch.float32)
+    return torch.sum((logz - gold) * valid), torch.sum(valid)
+
+
+def _vocab_parallel_parts(logits, labels, vocab_size: int, tp):
+    """``lm_loss_parts`` over the 'model' ranks' vocab columns: the max,
+    the sum of exponentials and the gold logit each all-reduced; padded
+    columns masked by their global index."""
+    vp = logits.shape[-1]
+    c0 = tp.rank * vp
+    lg = logits.to(torch.float32)
+    if vp * tp.size > vocab_size:
+        col = c0 + torch.arange(vp, device=lg.device)
+        lg = lg + torch.where(col < vocab_size, 0.0, -1e9)[None, None, :]
+    m = policy.max_tp(lg.amax(dim=-1), tp)
+    se = policy.reduce_from_tp(torch.exp(lg - m[..., None]).sum(-1), tp)
+    logz = m + torch.log(se)
+    lab = labels.long().clamp(0, vocab_size - 1) - c0
+    mine = (lab >= 0) & (lab < vp)
+    gold = lg.gather(-1, lab.clamp(0, vp - 1)[..., None])[..., 0]
+    gold = policy.reduce_from_tp(torch.where(mine, gold, 0.0), tp)
     valid = (labels >= 0).to(torch.float32)
     return torch.sum((logz - gold) * valid), torch.sum(valid)
 
@@ -194,21 +241,58 @@ def cache_specs_sds(model: Model, shape_cfg: ShapeConfig, mesh):
 
 
 # ------------------------------------------------------------ train step ---
+TP_FAMILIES = ("dense", "vlm", "ssm", "hybrid")
+
+
+def tensor_parallel(cfg: ArchConfig, mesh) -> bool:
+    """Whether the steps compute each rank's 'model' shard: a family of
+    ``TP_FAMILIES`` on a 'model' axis of more than 1 (which must divide
+    the padded vocab: the loss reads vocab-parallel logits)."""
+    n = policy.mesh_axes(mesh).get("model", 1)
+    if cfg.family not in TP_FAMILIES or n == 1:
+        return False
+    if cfg.padded_vocab() % n:
+        raise ValueError(f"{cfg.name}: a 'model' axis of {n} does not "
+                         f"divide the padded vocab {cfg.padded_vocab()}")
+    return True
+
+
 def _whole(x):
     """A parameter leaf whole on this rank (a DTensor gathered)."""
     from torch.distributed.tensor import DTensor
     return x.full_tensor() if isinstance(x, DTensor) else x
 
 
-def _dp_placements(mesh):
+def _local(x, mesh):
+    """This rank's 'model' shard of a parameter leaf: gathered over the
+    data-parallel axes, its placement on 'model' kept."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not isinstance(x, DTensor):
+        return x
+    dp = policy.dp_axes(mesh)
+    place = [Replicate() if a in dp else p
+             for a, p in zip(policy.mesh_axes(mesh), x.placements)]
+    return x.redistribute(mesh, place).to_local()
+
+
+def _leaf_fn(cfg, mesh):
+    """(what a step takes of each parameter leaf, its mesh context)."""
+    if tensor_parallel(cfg, mesh):
+        return (lambda x: _local(x, mesh)), policy.use_ctx_mesh(mesh)
+    return _whole, contextlib.nullcontext()
+
+
+def _dp_placements(mesh, like=None):
     """Placements of a tensor each rank computed from its own rows:
-    partial sums over the data-parallel axes (those of size > 1), the
-    same value along the others."""
+    partial sums over the data-parallel axes (those of size > 1); along
+    the others the same value, or with ``like`` (a parameter's gradient
+    on its 'model' shard) ``like``'s placement."""
     from torch.distributed.tensor import Partial, Replicate
     sizes = policy.mesh_axes(mesh)
     dp = policy.dp_axes(mesh)
-    return [Partial() if a in dp and n > 1 else Replicate()
-            for a, n in sizes.items()]
+    return [Partial() if a in dp and n > 1
+            else (like.placements[i] if like is not None else Replicate())
+            for i, (a, n) in enumerate(sizes.items())]
 
 
 def _dp_sum(x, mesh):
@@ -234,7 +318,7 @@ def make_train_step(model: Model, mesh, shape_cfg: ShapeConfig,
     ``sharding.policy.place`` and batch a host batch; it writes none of
     its inputs. info holds ``n_micro``, ``moe_groups`` (the reference's:
     the data-parallel size) and ``grads``, the function the step takes
-    its (loss, gradients) from."""
+    its (loss, gradients) from, and ``tensor_parallel`` (the route)."""
     from torch.distributed.tensor import distribute_tensor
     if mesh is None:
         from repro_torch.launch.mesh import make_host_mesh
@@ -253,6 +337,7 @@ def make_train_step(model: Model, mesh, shape_cfg: ShapeConfig,
     acc_dtype = DTYPES[shape_cfg.grad_accum_dtype]
     mb = gb // n_micro
     dp_mean = None if dpn == 1 else (lambda x: _dp_sum(x, mesh) / dpn)
+    tp = tensor_parallel(cfg, mesh)
 
     def grads(params, batch):
         """(mean LM loss of the global batch, gradients as DTensors under
@@ -262,31 +347,34 @@ def make_train_step(model: Model, mesh, shape_cfg: ShapeConfig,
         labels = np.asarray(batch["labels"])
         counts = [max(float((labels[i * mb:(i + 1) * mb] >= 0).sum()), 1.0)
                   for i in range(n_micro)]
-        leaves = [_whole(x).detach().requires_grad_()
+        take, ctx = _leaf_fn(cfg, mesh)
+        leaves = [take(x).detach().requires_grad_()
                   for x in tree_leaves(params)]
         p = tree_unflatten(params, leaves)
         acc = [torch.zeros(x.shape, dtype=acc_dtype, device=x.device)
                for x in leaves]
         loss_sum = torch.zeros((), device=leaves[0].device)
         rows = local["tokens"].shape[0] // n_micro
-        for i in range(n_micro):
-            micro = {k: v.narrow(_BATCH_AXES.get(k, 0), i * rows, rows)
-                     for k, v in local.items()}
-            logits, aux, _ = model.forward(
-                p, micro, remat_policy=shape_cfg.remat_policy,
-                moe_groups=local_groups, dp_mean=dp_mean)
-            ce, _ = lm_loss_parts(logits, micro["labels"], cfg.vocab_size)
-            loss = ce / counts[i]
-            g = torch.autograd.grad(loss + aux_coef * aux / dpn, leaves,
-                                    allow_unused=True,
-                                    materialize_grads=True)
-            torch._foreach_add_(acc, [x.to(acc_dtype) for x in g])
-            loss_sum = loss_sum + loss.detach()
+        with ctx:
+            for i in range(n_micro):
+                micro = {k: v.narrow(_BATCH_AXES.get(k, 0), i * rows, rows)
+                         for k, v in local.items()}
+                logits, aux, _ = model.forward(
+                    p, micro, remat_policy=shape_cfg.remat_policy,
+                    moe_groups=local_groups, dp_mean=dp_mean)
+                ce, _ = lm_loss_parts(logits, micro["labels"],
+                                      cfg.vocab_size)
+                loss = ce / counts[i]
+                g = torch.autograd.grad(loss + aux_coef * aux / dpn, leaves,
+                                        allow_unused=True,
+                                        materialize_grads=True)
+                torch._foreach_add_(acc, [x.to(acc_dtype) for x in g])
+                loss_sum = loss_sum + loss.detach()
         torch._foreach_div_(acc, n_micro)
-        place = _dp_placements(mesh)
         out = []
         for a, x in zip(acc, tree_leaves(params)):
-            out.append(_reduce_into(a, x, mesh, place))
+            out.append(_reduce_into(a, x, mesh, _dp_placements(
+                mesh, x if tp else None)))
         return _dp_sum(loss_sum, mesh) / n_micro, tree_unflatten(params, out)
 
     @torch.no_grad()
@@ -317,7 +405,7 @@ def make_train_step(model: Model, mesh, shape_cfg: ShapeConfig,
         return params2, opt2, {"loss": loss, **om}
 
     return train_step, {"n_micro": n_micro, "moe_groups": moe_groups,
-                        "grads": grads}
+                        "grads": grads, "tensor_parallel": tp}
 
 
 def _reduce_into(acc, like, mesh, place):
@@ -343,29 +431,47 @@ def _serve_rows(batch, mesh, shape_cfg: ShapeConfig) -> dict:
 def make_prefill_step(model: Model, mesh, shape_cfg: ShapeConfig):
     """prefill_step(params, batch) -> (logits, cache) of this rank's rows
     (``_serve_rows``), each rank's rows one of the reference's
-    ``moe_groups`` routing groups."""
+    ``moe_groups`` routing groups; the logits whole, the cache this
+    rank's heads on the tensor-parallel route (the function's attribute
+    ``tensor_parallel``)."""
     dpn = dp_size(mesh)
     moe_groups = dpn if shape_cfg.global_batch % dpn == 0 else 1
 
     @torch.no_grad()
     def prefill_step(params, batch):
         local = _serve_rows(batch, mesh, shape_cfg)
-        return model.prefill(tree_map(_whole, params), local,
-                             kv_dtype=shape_cfg.kv_dtype,
-                             moe_groups=max(1, moe_groups // dpn),
-                             last_only=shape_cfg.prefill_last_only)
+        take, ctx = _leaf_fn(model.cfg, mesh)
+        with ctx:
+            return model.prefill(tree_map(take, params), local,
+                                 kv_dtype=shape_cfg.kv_dtype,
+                                 moe_groups=max(1, moe_groups // dpn),
+                                 last_only=shape_cfg.prefill_last_only)
+    prefill_step.tensor_parallel = tensor_parallel(model.cfg, mesh)
     return prefill_step
 
 
 def make_decode_step(model: Model, mesh, shape_cfg: ShapeConfig):
     """decode_step(params, cache, batch) -> (logits, cache) of this rank's
-    rows; ``cache`` is this rank's (``make_prefill_step``'s), updated in
-    place."""
+    rows; ``cache`` is this rank's (``make_prefill_step``'s, or
+    ``decode_cache``'s), updated in place."""
     @torch.no_grad()
     def decode_step(params, cache, batch):
         local = _serve_rows(batch, mesh, shape_cfg)
-        return model.decode(tree_map(_whole, params), cache, local)
+        take, ctx = _leaf_fn(model.cfg, mesh)
+        with ctx:
+            return model.decode(tree_map(take, params), cache, local)
+    decode_step.tensor_parallel = tensor_parallel(model.cfg, mesh)
     return decode_step
+
+
+def decode_cache(model: Model, mesh, shape_cfg: ShapeConfig, device=None):
+    """An empty decode cache of this rank: its rows (``_serve_rows``) and,
+    on the tensor-parallel route, its heads."""
+    rows = shape_cfg.global_batch // (dp_size(mesh) if batch_shardable(
+        shape_cfg, mesh) else 1)
+    with _leaf_fn(model.cfg, mesh)[1]:
+        return model.init_cache(rows, shape_cfg.seq_len, shape_cfg.kv_dtype,
+                                device=device)
 
 
 # --------------------------------------------------------- param helpers ---

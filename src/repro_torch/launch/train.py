@@ -6,7 +6,11 @@ of the reference's ``launch/train.py``.
       [--inject-failure 7] [--ckpt-dir DIR] [--device cuda]
 
 The mesh is (data, model) = (ranks present, 1): one card, or the
-processes of a ``torchrun`` job (``launch/mesh.make_host_mesh``). Without
+processes of a ``torchrun`` job (``launch/mesh.make_host_mesh``); with
+``--full`` on a job of the production mesh's ranks (``launch/hw.
+CHIPS_SINGLE_POD``), the production mesh (data 16, model 16), as the
+reference's ``--full`` takes, where the dense, vlm, ssm and hybrid
+families' steps are tensor-parallel over 'model' (``launch/steps``). Without
 ``--full`` the arch's smoke config trains; with it, the full config
 (``--arch zamba2-1.2b --full`` trains its 1.2 B parameters at full width
 and depth on one card). Weights are random, drawn from a generator seeded
@@ -70,7 +74,9 @@ def setup(args, *, cfg=None, log: Callable[[str], None] = print
     from repro_torch.configs.registry import get_arch, smoke_config
     from repro_torch.data.synthetic import lm_token_batches
     from repro_torch.device import resolve_device
-    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch import hw
+    from repro_torch.launch.mesh import (init_world, make_host_mesh,
+                                         make_production_mesh)
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models.factory import build_model, count_params
     from repro_torch.sharding.policy import mesh_axes, place
@@ -82,7 +88,9 @@ def setup(args, *, cfg=None, log: Callable[[str], None] = print
     dev = resolve_device(args.device)
     if cfg is None:
         cfg = get_arch(args.arch) if args.full else smoke_config(args.arch)
-    mesh = make_host_mesh(device=dev)
+    full_mesh = args.full and init_world(dev) == hw.CHIPS_SINGLE_POD
+    mesh = (make_production_mesh(device=dev) if full_mesh
+            else make_host_mesh(device=dev))
     model = build_model(cfg)
     shape = ShapeConfig(name="cli", kind="train", seq_len=args.seq,
                         global_batch=args.batch)
@@ -98,7 +106,8 @@ def setup(args, *, cfg=None, log: Callable[[str], None] = print
                         device=gdev)
     log(f"arch={cfg.name} params={count_params(params):,} "
         f"mesh={mesh_axes(mesh)} n_micro={info['n_micro']} "
-        f"moe_groups={info['moe_groups']} device={gdev}")
+        f"moe_groups={info['moe_groups']} "
+        f"tensor_parallel={info['tensor_parallel']} device={gdev}")
     opt_state = opt.init(params)
     if comp is not None:
         opt_state = {"opt": opt_state, "residual": comp.init(params)}

@@ -19,6 +19,18 @@ Head padding: q heads are padded per KV group up to a multiple of
 ``cfg.head_pad_to`` and zero-masked before ``wo``, so the numerics equal
 the unpadded model's (the reference pads for its tensor-parallel mesh; on
 one card ``head_pad_to`` is 1 and the layout is the identity).
+
+Tensor parallelism (a step under ``policy.use_ctx_mesh`` on a 'model'
+axis of more than 1, with ``wq`` split by the policy): ``wq``/``bq`` hold
+this rank's ``hp / tp`` q heads and ``wo`` their rows; the projections
+are column-parallel (``policy.copy_to_tp`` before them) and ``wo``
+row-parallel (``policy.reduce_from_tp`` after it). ``HeadLayout.
+rank_heads`` names the KV heads the rank's q heads read. Where the KV
+heads split over 'model' as the q heads do, ``wk``/``wv`` hold exactly
+those; where they do not (granite-20b's one KV head, qwen2.5-32b's 8 on
+16 ranks), the policy still splits ``wk``/``wv`` columns inside a head,
+and the rank gathers them over 'model' (``policy.gather_tp``) and keeps
+its KV heads; ``bk``/``bv`` are replicated and sliced.
 """
 from __future__ import annotations
 
@@ -28,6 +40,7 @@ import torch
 
 from repro_torch.models.common import (apply_rope, dense_init, pdtype,
                                       rmsnorm_vec)
+from repro_torch.sharding import policy
 
 
 class HeadLayout(NamedTuple):
@@ -50,6 +63,33 @@ class HeadLayout(NamedTuple):
             g = self.n_q // self.n_kv
             return (i % self.gp) < g
         return i < self.n_q
+
+    def rank_heads(self, size: int, rank: int) -> "RankHeads":
+        """The q heads of rank ``rank`` of ``size`` (an equal block of the
+        padded heads) and the KV heads they read, or ValueError where
+        they do not split so (the heads do not divide, or a rank's q
+        heads would read their KV heads unevenly)."""
+        if self.hp % size:
+            raise ValueError(f"{self.hp} q heads do not split over "
+                             f"{size} 'model' ranks")
+        hq = self.hp // size
+        q0 = rank * hq
+        if hq % self.gp == 0:          # whole KV groups
+            return RankHeads(q0, hq, q0 // self.gp, hq // self.gp, self.gp)
+        if self.gp % hq == 0:          # inside one KV group
+            return RankHeads(q0, hq, q0 // self.gp, 1, hq)
+        raise ValueError(f"{hq} q heads a rank read groups of {self.gp} "
+                         f"unevenly")
+
+
+class RankHeads(NamedTuple):
+    """One 'model' rank's heads: q heads [q0, q0 + hq), reading the KV
+    heads [kv0, kv0 + hkv), gp q heads to a KV head."""
+    q0: int
+    hq: int
+    kv0: int
+    hkv: int
+    gp: int
 
 
 def head_layout(n_q: int, n_kv: int, pad_to: int) -> HeadLayout:
@@ -83,20 +123,68 @@ def init_gqa(gen, cfg, *, device):
     return p
 
 
+def attn_split(p, cfg):
+    """(the ambient 'model' axis, this rank's ``RankHeads``) when ``p``'s
+    ``wq`` holds a share of the q heads, else (None, None): the block
+    runs whole."""
+    tp = policy.ctx_tp()
+    if tp is None:
+        return None, None
+    lo = layout_from_cfg(cfg)
+    if p["wq"].shape[-1] == lo.hp * cfg.head_dim:
+        return None, None
+    return tp, lo.rank_heads(tp.size, tp.rank)
+
+
+def cache_kv_heads(cfg) -> int:
+    """KV heads of a decode cache: all of them, or under the ambient
+    'model' axis those of this rank (where the policy splits ``wq``)."""
+    lo = layout_from_cfg(cfg)
+    tp = policy.ctx_tp()
+    if tp is None or (lo.hp * cfg.head_dim) % tp.size:
+        return lo.khp
+    return lo.rank_heads(tp.size, tp.rank).hkv
+
+
+def _rank_kv(w, lo, rh, cfg, tp):
+    """The columns (last dim) of ``wk``/``wv``/``bk``/``bv`` that hold the
+    KV heads this rank's q heads read."""
+    dh = cfg.head_dim
+    if w.shape[-1] == lo.khp * dh:        # replicated by the policy
+        w = policy.copy_to_tp(w, tp)
+    elif lo.khp % tp.size == 0:           # this rank's KV heads
+        return w
+    else:                                 # split inside a head
+        w = policy.gather_tp(w, -1, tp)
+    return w.narrow(-1, rh.kv0 * dh, rh.hkv * dh)
+
+
 def gqa_qkv(p, x, cfg, rope=None, kv_x=None):
-    """Project to q (B,S,hp,dh) and k,v (B,T,khp,dh); apply rope if given
-    as (cos_q, sin_q, cos_k, sin_k). kv_x: the source of k/v
+    """Project to q (B,S,hp,dh) and k,v (B,T,khp,dh) (under a 'model'
+    split, this rank's q heads and the KV heads they read); apply rope if
+    given as (cos_q, sin_q, cos_k, sin_k). kv_x: the source of k/v
     (cross-attention reads the encoder's states); by default x."""
     lo = layout_from_cfg(cfg)
     b, s, _ = x.shape
     src = x if kv_x is None else kv_x
     t = src.shape[1]
-    q, k, v = x @ p["wq"], src @ p["wk"], src @ p["wv"]
+    tp, rh = attn_split(p, cfg)
+    if tp is None:
+        wk, wv = p["wk"], p["wv"]
+        nq, nkv = lo.hp, lo.khp
+    else:
+        x = policy.copy_to_tp(x, tp)
+        src = x if kv_x is None else policy.copy_to_tp(src, tp)
+        wk, wv = (_rank_kv(p[n], lo, rh, cfg, tp) for n in ("wk", "wv"))
+        nq, nkv = rh.hq, rh.hkv
+    q, k, v = x @ p["wq"], src @ wk, src @ wv
     if "bq" in p:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(b, s, lo.hp, cfg.head_dim)
-    k = k.reshape(b, t, lo.khp, cfg.head_dim)
-    v = v.reshape(b, t, lo.khp, cfg.head_dim)
+        bk, bv = ((p["bk"], p["bv"]) if tp is None else
+                  (_rank_kv(p[n], lo, rh, cfg, tp) for n in ("bk", "bv")))
+        q, k, v = q + p["bq"], k + bk, v + bv
+    q = q.reshape(b, s, nq, cfg.head_dim)
+    k = k.reshape(b, t, nkv, cfg.head_dim)
+    v = v.reshape(b, t, nkv, cfg.head_dim)
     if rope is not None:
         cos_q, sin_q, cos_k, sin_k = rope
         q = apply_rope(q, cos_q, sin_q)
@@ -166,12 +254,18 @@ def chunked_sdpa(q, k, v, *, causal: bool, chunk: int, gp: int = 1):
 
 
 def gqa_out(p, ctx, cfg):
-    """Mask padded heads (exact-zero contribution), then w_o."""
+    """Mask padded heads (exact-zero contribution), then w_o (under a
+    'model' split, this rank's rows of it and the sum over the ranks)."""
     lo = layout_from_cfg(cfg)
-    b, s = ctx.shape[:2]
+    b, s, h = ctx.shape[:3]
+    tp, rh = attn_split(p, cfg)
     if lo.hp != lo.n_q:
-        ctx = ctx * lo.q_mask(ctx.device)[None, None, :, None].to(ctx.dtype)
-    return ctx.reshape(b, s, lo.hp * cfg.head_dim) @ p["wo"]
+        mask = lo.q_mask(ctx.device)
+        if tp is not None:
+            mask = mask[rh.q0:rh.q0 + rh.hq]
+        ctx = ctx * mask[None, None, :, None].to(ctx.dtype)
+    out = ctx.reshape(b, s, h * cfg.head_dim) @ p["wo"]
+    return out if tp is None else policy.reduce_from_tp(out, tp)
 
 
 # ------------------------------------------------------------------ MLA ----

@@ -15,6 +15,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.sharding import policy
+
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
@@ -129,8 +131,27 @@ def init_embedding(gen, cfg, *, device):
                                     pdtype(cfg), device=device)}
 
 
+def _vocab_split(n_rows: int, cfg):
+    """The ambient 'model' axis (``policy.ctx_tp``) when this rank holds
+    ``n_rows`` of the padded vocab's rows, a share of them, else None."""
+    tp = policy.ctx_tp()
+    if tp is None or n_rows == cfg.padded_vocab():
+        return None
+    return tp
+
+
 def embed_tokens(p, tokens, cfg):
-    return p["embedding"][tokens.long()]
+    """The tokens' rows of the embedding. Under a 'model' split of the
+    vocab rows each rank looks up the tokens in its rows (zeros for the
+    others) and the ranks' rows are summed: one nonzero term, exact."""
+    tp = _vocab_split(p["embedding"].shape[0], cfg)
+    if tp is None:
+        return p["embedding"][tokens.long()]
+    rows = p["embedding"].shape[0]
+    t = tokens.long() - tp.rank * rows
+    mine = (t >= 0) & (t < rows)
+    e = p["embedding"][t.clamp(0, rows - 1)]
+    return policy.reduce_from_tp(torch.where(mine[..., None], e, 0.0), tp)
 
 
 def init_lm_head(gen, cfg, *, device):
@@ -141,9 +162,29 @@ def init_lm_head(gen, cfg, *, device):
 
 
 def lm_logits(head_p, embed_p, h, cfg):
+    """Logits over the padded vocab; under a 'model' split of the head
+    (``lm_head`` columns, or the tied embedding's rows), this rank's
+    columns (vocab-parallel: ``whole_logits`` gathers them)."""
+    tp = _vocab_split(embed_p["embedding"].shape[0] if cfg.tie_embeddings
+                      else head_p["lm_head"].shape[1], cfg)
+    if tp is not None:
+        h = policy.copy_to_tp(h, tp)
     if cfg.tie_embeddings:
         return h @ embed_p["embedding"].T
     return h @ head_p["lm_head"]
+
+
+def whole_logits(logits, cfg):
+    """Vocab-parallel logits (``lm_logits``) whole on every rank: each
+    rank's columns in a zero-filled row, summed over the 'model' ranks
+    (exact: one nonzero term a column). As they are without a split."""
+    tp = policy.ctx_tp()
+    vp = logits.shape[-1]
+    if tp is None or vp == cfg.padded_vocab():
+        return logits
+    out = logits.new_zeros(logits.shape[:-1] + (vp * tp.size,))
+    out.narrow(-1, tp.rank * vp, vp).copy_(logits)
+    return policy.reduce_from_tp(out, tp)
 
 
 def activation(name: str):

@@ -21,9 +21,11 @@ What differs from the reference, and why:
   slot) outputs and sums them in the order of its top-k choices, in f32,
   then casts to the activations' dtype once: one prefill gives the same
   bits on every run.
-* No sharding calls. The reference constrains the routing tensors to its
-  mesh (``policy.ctx_constrain``); on one card there is nothing to
-  constrain.
+* No sharding calls in the MoE. The reference constrains the routing
+  tensors to its mesh (``policy.ctx_constrain``); the port's moe family
+  runs its experts whole on every rank (``launch/steps``). The dense MLP
+  splits ``d_ff`` over 'model' under a step's mesh context
+  (``apply_mlp``).
 
 The expert products are batched matmuls (``torch.einsum``), as they are
 plain einsums in the reference: no Pallas kernel computes them.
@@ -36,6 +38,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.models.common import activation, dense_init, pdtype
+from repro_torch.sharding import policy
 
 
 # ------------------------------------------------------------- dense MLP ---
@@ -61,12 +64,25 @@ def init_mlp(gen, cfg, d_ff: int | None = None, gated: bool | None = None,
 
 
 def apply_mlp(p, x, cfg):
+    """Under a 'model' split of ``d_ff`` (``policy.ctx_tp``, the hidden
+    width of ``p`` a share of ``cfg.d_ff``): ``w_gate``/``w_up``/``w_in``/
+    ``b_in`` column-parallel, ``w_down``/``w_out`` row-parallel and summed
+    over the ranks, ``b_out`` added once after the sum."""
     act = activation(cfg.act)
+    tp = policy.ctx_tp()
+    if tp is not None and p["w_down" if "w_gate" in p else "w_out"
+                           ].shape[0] == cfg.d_ff:
+        tp = None
+    if tp is not None:
+        x = policy.copy_to_tp(x, tp)
     if "w_gate" in p:
         h = act(x @ p["w_gate"]) * (x @ p["w_up"])
-        return h @ p["w_down"]
+        out = h @ p["w_down"]
+        return out if tp is None else policy.reduce_from_tp(out, tp)
     h = act(x @ p["w_in"] + p["b_in"])
-    return h @ p["w_out"] + p["b_out"]
+    if tp is None:
+        return h @ p["w_out"] + p["b_out"]
+    return policy.reduce_from_tp(h @ p["w_out"], tp) + p["b_out"]
 
 
 # ------------------------------------------------------------------- MoE ---

@@ -8,6 +8,18 @@ The full-sequence SSD goes through the ``ssd_scan`` kernel wrapper
 (``kernels/ssd_scan.py``: the hand-written CUDA kernel on the card, the
 plain ``ssd_chunked`` below on the CPU); single-token decode is the plain
 ``ssd_decode`` recurrence, as in the reference.
+
+Tensor parallelism (a step under ``policy.use_ctx_mesh`` on a 'model'
+axis of more than 1, with ``w_x`` split by the policy): each rank holds
+its SSM heads' ``w_z``, ``w_x``, ``w_dt``, ``conv_x``, ``conv_x_b``,
+``a_log``, ``dt_bias``, ``d_skip``, ``norm_scale`` and ``w_out`` rows;
+``w_b``, ``w_c``, ``conv_b`` and ``conv_c`` are replicated, and B and C
+enter the rank's heads through ``policy.copy_to_tp``. The gated norm's
+sum of squares runs over all of ``d_inner`` (an all-reduce of a (B, S, 1)
+sum; its denominator is the global ``h_true * head_dim``), the padded
+heads are masked by their global index, and ``w_out``'s products are
+summed over the ranks. A decode cache holds the rank's heads
+(``init_ssm_cache``).
 """
 from __future__ import annotations
 
@@ -18,6 +30,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.ssd_scan import ssd_scan
 from repro_torch.models.common import _uniform, dense_init, pdtype
+from repro_torch.sharding import policy
 
 
 def init_ssm(gen, cfg, *, device):
@@ -157,12 +170,30 @@ def ssd_decode(x, dtv, a, bmat, cmat, state):
     return y[:, None], new_state                           # (B,1,H,P)
 
 
-def _gated_norm(y, z, scale, true_dim: int, eps: float):
+def _gated_norm(y, z, scale, true_dim: int, eps: float, tp=None):
     """RMSNorm(y * silu(z)) with the denominator using the TRUE channel
-    count so zero-padded channels do not perturb real outputs."""
+    count so zero-padded channels do not perturb real outputs. tp: the
+    'model' axis whose ranks hold the other channels (their sums of
+    squares are added; the sum's gradient too)."""
     g = y.to(torch.float32) * F.silu(z.to(torch.float32))
-    ms = torch.sum(g * g, dim=-1, keepdim=True) / true_dim
+    ss = torch.sum(g * g, dim=-1, keepdim=True)
+    if tp is not None:
+        ss = policy.copy_to_tp(policy.reduce_from_tp(ss, tp), tp)
+    ms = ss / true_dim
     return (g * torch.rsqrt(ms + eps)) * scale.to(torch.float32)
+
+
+def ssm_split(p, cfg):
+    """(the ambient 'model' axis, this rank's first SSM head) when ``p``
+    holds a share of the SSM heads, else (None, 0)."""
+    tp = policy.ctx_tp()
+    if tp is None or p["w_x"].shape[1] == cfg.d_inner_padded:
+        return None, 0
+    hl = p["w_dt"].shape[1]
+    if hl * tp.size != cfg.ssm_heads_padded:
+        raise ValueError(f"{cfg.ssm_heads_padded} SSM heads do not split "
+                         f"over {tp.size} 'model' ranks as d_inner does")
+    return tp, tp.rank * hl
 
 
 def apply_ssm(p, x, cfg, cache=None, collect_state: bool = False):
@@ -175,12 +206,17 @@ def apply_ssm(p, x, cfg, cache=None, collect_state: bool = False):
     b, seqlen, _ = x.shape
     hp, hd = cfg.ssm_heads_padded, s.head_dim
     h_true = cfg.ssm_heads
+    tp, h0 = ssm_split(p, cfg)
+    xs = x
+    if tp is not None:
+        hp = p["w_dt"].shape[1]
+        xs = policy.copy_to_tp(x, tp)
 
-    z = x @ p["w_z"]
-    xi = x @ p["w_x"]
+    z = xs @ p["w_z"]
+    xi = xs @ p["w_x"]
     bi = x @ p["w_b"]
     ci = x @ p["w_c"]
-    dtv = F.softplus((x @ p["w_dt"]).to(torch.float32)
+    dtv = F.softplus((xs @ p["w_dt"]).to(torch.float32)
                      + p["dt_bias"][None, None].to(torch.float32))
 
     decode = cache is not None
@@ -195,6 +231,8 @@ def apply_ssm(p, x, cfg, cache=None, collect_state: bool = False):
     ci, conv_c = _causal_conv(ci, p["conv_c"], p["conv_c_b"],
                               cache["conv_c"] if decode else None)
     xi, bi, ci = F.silu(xi), F.silu(bi), F.silu(ci)
+    if tp is not None:     # replicated B, C into this rank's heads
+        bi, ci = policy.copy_to_tp(bi, tp), policy.copy_to_tp(ci, tp)
 
     xh = xi.reshape(b, seqlen, hp, hd)
     a = -torch.exp(p["a_log"].to(torch.float32))
@@ -204,13 +242,16 @@ def apply_ssm(p, x, cfg, cache=None, collect_state: bool = False):
         y, state = ssd_scan(xh, dtv, a, bi, ci, chunk=s.chunk_size)
     y = y + xh.to(torch.float32) * p["d_skip"][None, None, :, None]
 
-    if hp != h_true:  # zero padded heads before the coupling norm
-        mask = (torch.arange(hp, device=x.device) < h_true).to(torch.float32)
+    if h0 + hp > h_true:  # zero padded heads before the coupling norm
+        mask = (torch.arange(h0, h0 + hp, device=x.device) < h_true
+                ).to(torch.float32)
         y = y * mask[None, None, :, None]
     y = y.reshape(b, seqlen, hp * hd)
     y = _gated_norm(y, z, p["norm_scale"], true_dim=h_true * hd,
-                    eps=cfg.norm_eps).to(x.dtype)
+                    eps=cfg.norm_eps, tp=tp).to(x.dtype)
     out = y @ p["w_out"]
+    if tp is not None:
+        out = policy.reduce_from_tp(out, tp)
     if decode:
         new_cache = dict(conv_x=conv_x, conv_b=conv_b, conv_c=conv_c,
                          state=state)
@@ -223,14 +264,20 @@ def apply_ssm(p, x, cfg, cache=None, collect_state: bool = False):
 
 
 def init_ssm_cache(cfg, batch: int, dtype=torch.float32, *, device):
+    """One layer's decode cache: every SSM head's, or under the ambient
+    'model' axis (where the policy splits ``d_inner``) this rank's."""
     s = cfg.ssm
     k = s.d_conv - 1
     gn = s.n_groups * s.d_state
+    hp = cfg.ssm_heads_padded
+    tp = policy.ctx_tp()
+    if tp is not None and cfg.d_inner_padded % tp.size == 0:
+        hp //= tp.size
     return dict(
-        conv_x=torch.zeros((batch, cfg.d_inner_padded, k), dtype=dtype,
+        conv_x=torch.zeros((batch, hp * s.head_dim, k), dtype=dtype,
                            device=device),
         conv_b=torch.zeros((batch, gn, k), dtype=dtype, device=device),
         conv_c=torch.zeros((batch, gn, k), dtype=dtype, device=device),
-        state=torch.zeros((batch, cfg.ssm_heads_padded, s.head_dim,
-                           s.d_state), dtype=torch.float32, device=device),
+        state=torch.zeros((batch, hp, s.head_dim, s.d_state),
+                          dtype=torch.float32, device=device),
     )

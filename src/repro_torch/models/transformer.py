@@ -37,9 +37,20 @@ data-parallel rank its one group of those). The port's default is
 "none", where the reference's is "full": serving and the tests call
 ``forward`` with no option, and a checkpoint there would only cost time
 (under autograd, each kernel of a checkpointed layer launches twice: once
-in the forward and once when the backward recomputes it). There is no
-``ctx_constrain``: the reference's sharding hints steer XLA's SPMD
-partitioner, and eager PyTorch has none to steer.
+in the forward and once when the backward recomputes it).
+
+Tensor parallelism: under a step's mesh context on a 'model' axis of
+more than 1 (``sharding.policy.use_ctx_mesh``; ``launch/steps`` enters
+it for the dense, vlm, ssm and hybrid families), each leaf of
+``params`` is this rank's 'model' shard and the blocks compute their
+share: the vocab rows of the embedding and the head (vocab-parallel
+logits, made whole for serving by ``common.whole_logits``), the q heads
+and the KV heads they read (``attention``), ``d_ff`` (``ffn.apply_mlp``)
+and the SSM heads (``ssm.apply_ssm``); zamba2's shared block and the
+vlm's M-RoPE path ride on the same dense block, and ``init_cache`` holds
+the rank's heads. Without the context the code dispatches no collective
+and no extra op: the reference's sharding hints (``ctx_constrain``)
+steer XLA's SPMD partitioner; here model code calls the collectives.
 
 The reference's ``attn_chunk`` (query chunks of ``chunked_sdpa`` for long
 prefill) has no counterpart here: on the card the flash kernel tiles the
@@ -64,7 +75,8 @@ from repro_torch.models import ffn
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (
     DTYPES, apply_norm, embed_tokens, init_embedding, init_lm_head,
-    init_norm, lm_logits, mrope_for_heads, pdtype, rope_for_heads)
+    init_norm, lm_logits, mrope_for_heads, pdtype, rope_for_heads,
+    whole_logits)
 from repro_torch.serve import kvcache
 
 ATTN_FAMILIES = ("dense", "moe", "vlm")
@@ -252,18 +264,18 @@ def _dense_block(lp, h, cfg, rope, *, moe_groups=1, dp_mean=None,
                 lp["attn"], ain, cfg, cos, sin)
             collected = {"c_kv": c_kv, "k_rope": k_rope}
     else:
-        lo = attn.layout_from_cfg(cfg)
         rope4 = None if cos is None else (cos, sin, cos, sin)
         q, k, v = attn.gqa_qkv(lp["attn"], ain, cfg, rope=rope4)
+        gp = q.shape[2] // k.shape[2]     # q heads a KV head (this rank's)
         if cache_slice is not None:
             new_cache = kvcache.write_kv_layer(cache_slice, k, v, pos)
             kf, vf = kvcache.read_kv_layer(new_cache, h.dtype)
             k_valid = (torch.arange(kf.shape[1], device=h.device)[None]
                        <= pos[:, None])
             ctx = attn.sdpa(q, kf, vf, causal=False, k_valid=k_valid,
-                            gp=lo.gp)
+                            gp=gp)
         else:
-            ctx = full_attention(q, k, v, lo.gp, causal=True)
+            ctx = full_attention(q, k, v, gp, causal=True)
             collected = {"k": k, "v": v}
         aout = attn.gqa_out(lp["attn"], ctx, cfg)
     h = h + aout
@@ -434,7 +446,7 @@ def prefill(params, batch, cfg, *, kv_dtype="bfloat16", moe_groups=1,
         if pieces["shared"] is not None:
             cache["shared_attn"] = {"k": pieces["shared"]["k"].to(cache_dt),
                                     "v": pieces["shared"]["v"].to(cache_dt)}
-    return logits[:, -1], cache
+    return whole_logits(logits[:, -1], cfg), cache
 
 
 # ----------------------------------------------------------------- decode --
@@ -457,7 +469,7 @@ def decode_step(params, cache, batch, cfg):
     h = apply_norm(params["final_norm"], h, cfg)
     logits = lm_logits(params, params["embed"], h, cfg)
     cache["pos"] = pos + 1
-    return logits[:, -1], cache
+    return whole_logits(logits[:, -1], cfg), cache
 
 
 def _ssm_decode(params, h, cache, cfg, rope, pos):

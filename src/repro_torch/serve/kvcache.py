@@ -17,6 +17,11 @@ Layouts (stacked over layers):
              KHp, Dh) ("cross"), written once by prefill
   pos:       (B,) int32 -- number of valid tokens (same for all layers)
 
+Under a step's mesh context on a 'model' axis of more than 1
+(``sharding.policy.use_ctx_mesh``), ``init_cache`` holds this rank's KV
+heads and SSM heads (``attention.cache_kv_heads``,
+``ssm.init_ssm_cache``), as the rank's prefill writes them.
+
 Unlike the reference, ``write_kv_layer`` writes the new token into the
 cache tensors in place (the reference returns a new cache): a decode step
 then writes one token per row instead of copying the cache.
@@ -26,7 +31,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.models.attention import layout_from_cfg
+from repro_torch.models.attention import cache_kv_heads
 from repro_torch.models.common import DTYPES
 from repro_torch.models.ssm import init_ssm_cache
 
@@ -47,7 +52,7 @@ def _dq8(q, scale, dtype):
 def init_attn_kv(cfg, batch: int, seq: int, kv_dtype: str = "bfloat16",
                  n_layers: int | None = None, *, device):
     l = n_layers if n_layers is not None else cfg.n_layers
-    shape = (l, batch, seq, layout_from_cfg(cfg).khp, cfg.head_dim)
+    shape = (l, batch, seq, cache_kv_heads(cfg), cfg.head_dim)
     if kv_dtype == "int8":
         return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
                 "v": torch.zeros(shape, dtype=torch.int8, device=device),

@@ -20,11 +20,19 @@ port of the reference's ``sharding/policy.py``. Two independent layers:
    the reference's major-to-minor order; ``Replicate()`` elsewhere), and
    ``place`` puts a tree of tensors on the mesh under them.
 
-   The reference's trace-time mesh context (``use_ctx_mesh``,
-   ``ctx_constrain``, ``ctx_dp_axes``) has no counterpart: its
-   constraints are hints to XLA's SPMD partitioner, and eager PyTorch has
-   no partitioner to hint. ``constrain_batch`` places a batch under
-   ``batch_spec`` instead.
+   The reference's mesh context (``use_ctx_mesh``) is here too: a step
+   that computes each rank's 'model' shard (``launch/steps``) enters it,
+   and model code reads the 'model' group and its rank from it
+   (``ctx_tp``) without the mesh threaded through every signature.
+   Where the reference's ``ctx_constrain`` hints XLA's SPMD partitioner,
+   the port's model code calls Megatron's pair of collectives over the
+   'model' group itself (``copy_to_tp``: the identity, whose backward
+   all-reduces the gradient, before a column-parallel product;
+   ``reduce_from_tp``: an all-reduce, whose backward is the identity,
+   after a row-parallel product), ``gather_tp`` (an all-gather whose
+   backward reduce-scatters) and ``max_tp``. Without a context, or on a
+   'model' axis of 1, ``ctx_tp`` is None and model code dispatches none
+   of them. ``constrain_batch`` places a batch under ``batch_spec``.
 
 2. **Corpus row sharding** (scan engine, DESIGN.md §9), numpy only:
    ``ShardPlan`` / ``plan_shards`` partition a scan's metadata-survivor
@@ -43,6 +51,8 @@ from dataclasses import dataclass
 from typing import NamedTuple
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
 # leaf name -> logical axes per dim (suffix match on the param path).
 RULES: dict[str, tuple] = {
@@ -226,6 +236,142 @@ def at_path(tree, path):
     for k in path:
         tree = tree[k]
     return tree
+
+
+# ---- mesh context: model code reads the 'model' group from it, as the
+# reference's reads its ambient mesh (``use_ctx_mesh``) ----
+class TPGroup(NamedTuple):
+    """The 'model' axis of the ambient mesh as this rank sees it."""
+    size: int
+    rank: int
+    group: object      # the 'model' ProcessGroup
+
+
+_CTX_TP: TPGroup | None = None
+
+
+class use_ctx_mesh:
+    """``with use_ctx_mesh(mesh):`` model code under it computes this
+    rank's 'model' shard (``ctx_tp``); the previous context comes back on
+    exit."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+
+    def __enter__(self):
+        global _CTX_TP
+        self._prev = _CTX_TP
+        _CTX_TP = _tp_group(self.mesh)
+        return self.mesh
+
+    def __exit__(self, *exc):
+        global _CTX_TP
+        _CTX_TP = self._prev
+
+
+def _tp_group(mesh):
+    if mesh is None or mesh_axes(mesh).get("model", 1) == 1:
+        return None
+    return TPGroup(mesh.size(mesh.mesh_dim_names.index("model")),
+                   mesh.get_local_rank("model"), mesh.get_group("model"))
+
+
+def ctx_tp() -> TPGroup | None:
+    """The ambient mesh's 'model' axis, or None: no context, or an axis
+    of 1 (model code then runs as on one card)."""
+    return _CTX_TP
+
+
+def _all_reduce(x, op, group):
+    out = torch.ops._c10d_functional.all_reduce(x.contiguous(), op,
+                                               group.group_name)
+    return torch.ops._c10d_functional.wait_tensor(out)
+
+
+# The gather and the reduce-scatter take the process group's own ops: the
+# functional all-gather of CUDA tensors crashes gloo (torch 2.11; gloo
+# ranks share one card where NCCL refuses), its own op does not.
+def _all_gather0(x, group):
+    """The ranks' ``x`` concatenated along dim 0, in rank order."""
+    n = dist.get_world_size(group)
+    out = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
+    dist.all_gather_into_tensor(out, x.contiguous(), group=group)
+    return out
+
+
+def _reduce_scatter0(x, group):
+    """The ranks' ``x`` summed, and this rank's block of dim 0 of it."""
+    n = dist.get_world_size(group)
+    out = x.new_empty((x.shape[0] // n,) + tuple(x.shape[1:]))
+    dist.reduce_scatter_tensor(out, x.contiguous(), group=group)
+    return out
+
+
+class _CopyToTP(torch.autograd.Function):
+    """Identity; the backward sums the gradient over the 'model' ranks."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, "sum", ctx.group), None
+
+
+class _ReduceFromTP(torch.autograd.Function):
+    """The sum over the 'model' ranks; the backward is the identity."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce(x, "sum", group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherTP(torch.autograd.Function):
+    """The 'model' ranks' blocks of ``dim`` gathered; the backward sums
+    the gradient over the ranks and keeps this rank's block."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _all_gather0(x.movedim(dim, 0), group).movedim(0, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_reduce_scatter0(g.movedim(ctx.dim, 0), ctx.group)
+                .movedim(0, ctx.dim), None, None)
+
+
+def copy_to_tp(x, tp: TPGroup):
+    """``x``, replicated over the 'model' ranks, entering computation that
+    each rank does for its own shard (a column-parallel product): the
+    identity; under autograd the backward all-reduces the gradient."""
+    if not torch.is_grad_enabled():
+        return x
+    return _CopyToTP.apply(x, tp.group)
+
+
+def reduce_from_tp(x, tp: TPGroup):
+    """The 'model' ranks' partial ``x`` summed (after a row-parallel
+    product): an all-reduce whose backward is the identity."""
+    return _ReduceFromTP.apply(x, tp.group)
+
+
+def gather_tp(x, dim: int, tp: TPGroup):
+    """A leaf split over 'model' along ``dim``, whole on every rank for
+    computation that each rank does for its own shard: an all-gather
+    whose backward reduce-scatters the gradient."""
+    return _GatherTP.apply(x, dim, tp.group)
+
+
+def max_tp(x, tp: TPGroup):
+    """The elementwise max over the 'model' ranks (no gradient)."""
+    return _all_reduce(x.detach(), "max", tp.group)
 
 
 def batch_spec(mesh, ndim: int, batch_axis: int = 0) -> PSpec:

@@ -21,6 +21,11 @@
   in a process of its own: its parameter counts, model FLOPs, cache bytes
   and memory breakdown equal what the reference's functions give for the
   same cell, computed without lowering anything.
+* zamba2-1.2b and deepseek-7b x decode_32k x single with TP-resident
+  weights: the step is tensor-parallel over 'model' (no parameter
+  all-gathered, rank 0's FLOPs x 256 within 1.25x of the step on one
+  rank, zamba2's collective term ten times below the whole-weight
+  step's).
 """
 import json
 import os
@@ -435,3 +440,60 @@ def test_dryrun_cell_equals_the_reference_accounting(tmp_path, monkeypatch,
         res["collectives"]["total_bytes"] / hw.NVLINK_BW > 0
     assert res["dominant"] == max(terms, key=terms.get)
     assert 0 < res["useful_flops_ratio"] < 1
+
+
+# ------------------------------------------- dry-run, tensor-parallel ---
+# the same cell on a fake world of one rank: the whole step on rank 0
+_ONE_RANK = """
+import json, sys
+from repro_torch.launch import dryrun, mesh
+dryrun.fake_world(1)
+dryrun.fake_world = lambda world: None
+mesh.make_production_mesh = lambda multi_pod=False, device=None: \\
+    mesh.make_mesh_compat((1, 1), ("data", "model"), device)
+res = dryrun.run_cell(sys.argv[1], sys.argv[2], False,
+                      {"params_tp_only": True})
+print(json.dumps({"flops": res["per_device"]["hlo_flops"],
+                  "chips": res["chips"],
+                  "tp": res["step_info"]["tensor_parallel"]}))
+"""
+# zamba2-1.2b x decode_32k x single's collective_s when every rank
+# gathered every weight whole (the all-gather-weights step)
+WHOLE_WEIGHTS_COLLECTIVE_S = 2.7619e-03
+
+
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "deepseek-7b"])
+def test_dryrun_decode_cell_computes_each_ranks_model_shard(tmp_path, arch):
+    """<arch> x decode_32k x single, TP-resident weights
+    (``params_tp_only``): the step is tensor-parallel, rank 0's
+    collectives hold no all-gather (no parameter gathered, only
+    activations all-reduced), rank 0's FLOPs x 256 are at most 1.25x the
+    same step counted on a fake world of one rank (only the replicated
+    leaves' work is repeated on every 'model' rank), and zamba2's
+    collective term is at least ten times below the whole-weight step's."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", "decode_32k", "--mesh", "single", "--set",
+         "params_tp_only=true", "--out", str(tmp_path)],
+        capture_output=True, text=True, timeout=300, env=env, cwd=ROOT)
+    assert out.returncode == 0, out.stderr[-2000:]
+    name = arch.replace(".", "_")
+    res = json.loads((tmp_path / f"{name}__decode_32k__single.json")
+                     .read_text())
+    assert res["status"] == "ok" and res["chips"] == 256
+    assert res["step_info"]["tensor_parallel"] is True
+    kinds = res["collectives"]["count_by_type"]
+    assert "all-gather" not in kinds and kinds.get("all-reduce", 0) > 0
+    one = subprocess.run(
+        [sys.executable, "-c", _ONE_RANK, arch, "decode_32k"],
+        capture_output=True, text=True, timeout=300, env=env, cwd=ROOT)
+    assert one.returncode == 0, one.stderr[-2000:]
+    whole = json.loads(one.stdout.strip().splitlines()[-1])
+    assert whole["chips"] == 1 and whole["tp"] is False
+    ratio = res["per_device"]["hlo_flops"] * 256 / whole["flops"]
+    print(f"{arch}: rank 0 FLOPs x 256 / one rank's = {ratio:.4f}")
+    assert 1.0 <= ratio <= 1.25
+    if arch == "zamba2-1.2b":
+        assert res["roofline_terms_s"]["collective_s"] <= \
+            WHOLE_WEIGHTS_COLLECTIVE_S / 10

@@ -501,6 +501,9 @@ def test_chip_smoke_rehearsal_runs_every_phase_on_the_cpu():
         in out.stdout
     assert "pipeline_forward, 2 gloo ranks" in out.stdout and \
         "torch.equal to the stack: True" in out.stdout
+    assert "== tensor parallel" in out.stdout
+    assert out.stdout.count("float32 against the one-rank path") == 2
+    assert "train step zamba2-1.2b f32" in out.stdout
 
 
 def _c_struct_fields(source: str, struct: str) -> list[str]:

@@ -6,12 +6,16 @@ refuses two ranks on one card) on a machine with several cards.
 
 Needs two or more cards: a (data 1, model 2) mesh, and (data 1, model 4)
 where four are present. On each mesh, chip_smoke.tp_check's lines:
-zamba2-1.2b at its published widths and depth and deepseek-7b at 4 of
-its 30 layers served (8 prompts x 512 tokens, then greedy steps) through
-``launch/steps`` on random bf16 weights, each rank's parameter bytes and
-peak memory beside the one-rank path's on rank 0's card, the prefill
-logits and greedy tokens held against it; and one f32 zamba2-1.2b train
-step of 8 x 512 tokens held against the one-rank step (loss, each leaf's
+zamba2-1.2b at its published widths and depth, deepseek-7b at 4 of its
+30 layers, phi3.5-moe at 2 of 32 and deepseek-v2 at 1 of 60 (experts
+and MLA heads split over 'model') served (8 prompts x 512 tokens, then
+greedy steps), and whisper-tiny whole on 1500 frames (8 x 128; on 4
+ranks its 6 heads padded to 8) through ``launch/steps`` on random bf16
+weights, each rank's parameter bytes and peak memory beside the
+one-rank path's on rank 0's card, the prefill logits and greedy tokens
+held against it, the MoE routing hashes equal on every rank and on one
+card; and f32 train steps of zamba2-1.2b (8 x 512) and phi3.5-moe (1
+layer, 2 x 256) held against the one-rank step (loss, each leaf's
 gradient). Prints the cards' name and power limit (nvidia-smi) first.
 """
 from __future__ import annotations

@@ -255,23 +255,32 @@
    refuses two ranks on one card; the collectives' CUDA tensors stage
    through the host) on a (data 1, model 2) mesh, started before the
    fleet phase (which runs on the host alone) and joined after it. Each
-   probes the
-   collectives of the model code on its tensors, then serves through
-   ``launch/steps`` zamba2-1.2b whole (8 prompts x 512 tokens, 32 greedy
-   steps) and deepseek-7b at 4 of its 30 layers (8 steps), random bf16
-   weights at published widths: each rank's parameter bytes against the
-   one-rank path's, its peak memory, its launches (counts reset just
-   before, read just after: flash and SSD at the per-rank shapes, a
-   layer each) and, on rank 0, the one-rank path on the same card:
-   prefill logits within TP_LOGIT_TOL of the largest, greedy tokens
-   printed; then the same weights widened to f32, logits within
-   CONSIST_TOL and greedy tokens equal but for first differences at
-   near-ties. Then one f32 zamba2-1.2b train step of 8 x 512 tokens on
-   the mesh against the one-rank step on every rank: loss within
-   TP_LOSS_TOL relative, each leaf's gradient (the ranks' shards
-   together) within TRAIN_GRAD_TOL. Each per-rank flash and SSD shape is
-   then held against its plain version and timed (rows of the kernels
-   line; ``tp_launches`` both ranks' launches).
+   probes the collectives of the model code on its tensors, then serves
+   through ``launch/steps``, random bf16 weights at published widths,
+   zamba2-1.2b whole (8 prompts x 512 tokens, 8 greedy steps; 32 before
+   the moe and audio families joined, a cut printed), deepseek-7b at 4
+   of its 30 layers, phi3.5-moe at 2 of 32, deepseek-v2 at 1 of 60 (8 x
+   512, 8 steps each) and whisper-tiny whole (1500 frames, 8 x 128, 8
+   steps), the MoE models at the capacity factor that drops no token
+   (``no_drops``): each rank's parameter bytes against the one-rank
+   path's, its peak memory, its launches (counts reset just before, read
+   just after: flash and SSD at the per-rank shapes, a layer each) and,
+   on rank 0, the one-rank path on the same card: prefill logits within
+   TP_LOGIT_TOL of the largest, greedy tokens printed; then the same
+   weights widened to f32, logits within CONSIST_TOL and greedy tokens
+   equal but for first differences at near-ties. For the MoE models the
+   routing at the default capacity factor (``apply_moe`` on the first
+   layer's experts, one input on every rank, tokens dropped; and the
+   served warm-up prefill's every layer): hashes of each rank's top-k
+   experts, kept tokens and slots gathered, equal on every rank and to
+   the one-rank path's, and the output within MOE_TP_TOL. Then one f32
+   train step of zamba2-1.2b (8 x 512 tokens) and of phi3.5-moe (1 layer,
+   2 x 256, aux loss included) on the mesh against the one-rank step on
+   every rank: loss within TP_LOSS_TOL relative, each leaf's gradient
+   (the ranks' shards together, ``w_router`` included) within
+   TRAIN_GRAD_TOL. Each per-rank flash and SSD shape is then held
+   against its plain version and timed (rows of the kernels line;
+   ``tp_launches`` both ranks' launches).
 5. Kernel entry points (``kernels/ops``), the twin of the reference's
    ``bench_transform_kernel`` at the query path's width: a chunk of 256
    dyadic 224 px frames through ``pyramid_transform_op`` with all 20
@@ -394,6 +403,21 @@ TRAIN_GRAD_TOL = 1e-3
 # largest |g|.
 TP_LOGIT_TOL = 2.0 ** -3
 TP_LOSS_TOL = 1e-5
+# apply_moe in bf16 on a rank's experts (the ranks' f32 partial sums
+# all-reduced, cast once) against one card on the same input and
+# routing: max |diff| over the largest |out|. The rank's batched expert
+# GEMMs run at another batch count, so cuBLAS may round their bf16
+# outputs otherwise (an ulp, 2^-8); a token lost or counted twice moves
+# its output by its whole scale.
+MOE_TP_TOL = 2.0 ** -6
+# the tensor-parallel phase serves its MoE models' prefill (8 x 512
+# prompt tokens, one routing group) at capacity factor 4: the busiest
+# expert of a random router takes ~1.2x the mean, so no routed token is
+# dropped, where no_drops's E/k (every expert a slot for every token of
+# the group) would hold deepseek-v2's 160 experts x 4096 slots x 5120 (13
+# GB a tensor in f32). Decode steps (8 tokens) take no_drops. The
+# prefill's dropped choices are counted and printed.
+TP_MOE_PREFILL_FACTOR = 4.0
 
 # the moe/MLA/vlm/audio phase: (arch, depth served, depth of the f32
 # consistency check); None: the published depth. phi3.5-moe's 16 layers
@@ -444,12 +468,22 @@ FULL = dict(base=224, chunk=256, out_res=(112, 56, 28), split=512,
             fleet=dict(dryrun=("zamba2-1.2b", "decode_32k"), timeout=300,
                        pipe=dict(n_micro=8, mb=256, d=4096, timeout=180)),
             # the tensor-parallel phase: (arch, layers served (None: its
-            # published depth), batch, prompt, greedy steps), and one f32
-            # train step, on a (data 1, model 2) mesh
-            tp=dict(full=True, model=2, timeout=420, f32_gen=8,
-                    serve=(("zamba2-1.2b", None, 8, 512, 32),
-                           ("deepseek-7b", 4, 8, 512, 8)),
-                    train=dict(arch="zamba2-1.2b", batch=8, seq=512)))
+            # published depth), batch, prompt, greedy steps, greedy steps
+            # of the f32 check), and f32 train steps (layers, batch,
+            # seq), on a (data 1, model 2) mesh; ``cuts`` printed
+            tp=dict(full=True, model=2, timeout=480,
+                    serve=(("zamba2-1.2b", None, 8, 512, 8, 4),
+                           ("deepseek-7b", 4, 8, 512, 8, 8),
+                           ("phi3.5-moe-42b-a6.6b", 2, 8, 512, 8, 8),
+                           ("deepseek-v2-236b", 1, 8, 512, 8, 8),
+                           ("whisper-tiny", None, 8, 128, 8, 8)),
+                    cuts=("zamba2-1.2b's greedy steps 32 -> 8 and its f32 "
+                          "check 8 -> 4 (the phase's time for the moe and "
+                          "audio models)",),
+                    train=(dict(arch="zamba2-1.2b", layers=None, batch=8,
+                                seq=512),
+                           dict(arch="phi3.5-moe-42b-a6.6b", layers=1,
+                                batch=2, seq=256))))
 # the rehearsal's few steps teach its toy models little: no learning floor
 REHEARSE = dict(base=32, chunk=32, out_res=(16, 8, 4), split=48, train=48,
                 steps=3, floors=(0.0, 0.0), pinned=False, corpus=96,
@@ -479,10 +513,17 @@ REHEARSE = dict(base=32, chunk=32, out_res=(16, 8, 4), split=48, train=48,
                               fail_at=(2, 4), grad_seq=32),
                 fleet=dict(dryrun=("mamba2-130m", "decode_32k"), timeout=300,
                            pipe=dict(n_micro=3, mb=4, d=16, timeout=120)),
-                tp=dict(full=False, model=2, timeout=300, f32_gen=2,
-                        serve=(("zamba2-1.2b", None, 2, 64, 4),
-                               ("deepseek-7b", 2, 2, 64, 4)),
-                        train=dict(arch="zamba2-1.2b", batch=4, seq=64)))
+                tp=dict(full=False, model=2, timeout=300,
+                        serve=(("zamba2-1.2b", None, 2, 64, 4, 2),
+                               ("deepseek-7b", 2, 2, 64, 4, 2),
+                               ("phi3.5-moe-42b-a6.6b", None, 2, 64, 4, 2),
+                               ("deepseek-v2-236b", None, 2, 64, 4, 2),
+                               ("whisper-tiny", None, 2, 16, 4, 2)),
+                        cuts=(),
+                        train=(dict(arch="zamba2-1.2b", layers=None,
+                                    batch=4, seq=64),
+                               dict(arch="phi3.5-moe-42b-a6.6b", layers=1,
+                                    batch=2, seq=32))))
 
 
 def log(msg: str) -> None:
@@ -4164,43 +4205,52 @@ def training_kernel_rows(dev, cfg, card, kern, arch, counted, seed):
             "micro-batch", counted["ssd_scan"])
 
 
-def flash_row(dev, card, kern, it, gen, path, role, note, n):
-    """flash_attention at q,k,v ``path`` (B, H, S, D) bf16 causal, on the
-    (B,S,H,D).transpose(1, 2) views a model passes: held against the
-    plain version widened to f32 (FLASH_BF16_TOL), timed beside SDPA on
-    the same views and the plain version, with its bound; appended to
-    ``kern``'s flash ``other_shapes`` with ``n`` launches."""
+def flash_row(dev, card, kern, it, gen, path, role, note, n, t=None,
+              causal=True):
+    """flash_attention at q ``path`` (B, H, S, D) and k, v (B, H, T, D)
+    bf16 (T: S by default), causal or not, on the (B,S,H,D).transpose(1,
+    2) views a model passes: held against the plain version widened to
+    f32 (FLASH_BF16_TOL), timed beside SDPA on the same views and the
+    plain version, with its bound; appended to ``kern``'s flash
+    ``other_shapes`` with ``n`` launches."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.ref import flash_attention_ref
     b, h, s, d = path
-    q, k, v = ((torch.randn((b, s, h, d), generator=gen, device=dev) * 0.5
-                ).to(torch.bfloat16).transpose(1, 2) for _ in range(3))
-    want = flash_attention_ref(q.float(), k.float(), v.float())
-    err, ok = _close(flash_attention(q, k, v), want, *FLASH_BF16_TOL)
+    t = s if t is None else t
+    q, k, v = ((torch.randn((b, sl, h, d), generator=gen, device=dev) * 0.5
+                ).to(torch.bfloat16).transpose(1, 2) for sl in (s, t, t))
+    want = flash_attention_ref(q.float(), k.float(), v.float(),
+                               causal=causal)
+    err, ok = _close(flash_attention(q, k, v, causal=causal), want,
+                     *FLASH_BF16_TOL)
     if not ok:
-        raise AssertionError(f"flash_attention {path}: {err}")
-    t = alternating(
-        f"flash_attention {path} bf16 causal on (B,S,H,D) views",
-        (("kernel", lambda: flash_attention(q, k, v)),
-         ("sdpa", lambda: F.scaled_dot_product_attention(q, k, v,
-                                                          is_causal=True))),
+        raise AssertionError(f"flash_attention {path} T {t}: {err}")
+    kind = "causal" if causal else "not causal"
+    shape = (f"q,k,v {path}" if t == s else
+             f"q {path}, k/v {(b, h, t, d)}") + f" bf16 {kind}"
+    tm = alternating(
+        f"flash_attention {shape} on (B,S,H,D) views",
+        (("kernel", lambda: flash_attention(q, k, v, causal=causal)),
+         ("sdpa", lambda: F.scaled_dot_product_attention(
+             q, k, v, is_causal=causal))),
         dev, it)
-    t_ops = 4.0 * b * h * d * s * (s + 1) / 2 / card["bf16"]
-    t_mem = 4.0 * b * h * s * d * 2 / card["bw"]
-    fl = dict(ms=t["kernel"]["ms"][0], library_ms=t["sdpa"]["ms"][0],
-              device_ms=t["kernel"]["device_ms"][0],
-              library_device_ms=t["sdpa"]["device_ms"][0],
-              plain_ms=time_ms(lambda: flash_attention_ref(q, k, v), dev,
-                               it),
+    pairs = s * (s + 1) / 2 if causal else s * t
+    t_ops = 4.0 * b * h * d * pairs / card["bf16"]
+    t_mem = 2.0 * b * h * d * 2 * (s + t) / card["bw"]
+    fl = dict(ms=tm["kernel"]["ms"][0], library_ms=tm["sdpa"]["ms"][0],
+              device_ms=tm["kernel"]["device_ms"][0],
+              library_device_ms=tm["sdpa"]["device_ms"][0],
+              plain_ms=time_ms(lambda: flash_attention_ref(
+                  q, k, v, causal=causal), dev, it),
               bound_ms=max(t_ops, t_mem) * 1e3,
               bound_by="operations" if t_ops > t_mem else "bytes",
               launches=n, max_abs_err=err,
-              shape=f"q,k,v {path} bf16 causal, (B,S,H,D).transpose(1, 2) "
-                    f"views ({note}, {n} launches)")
-    log(f"  flash_attention {path} bf16 causal ({role}): max |err| "
+              shape=f"{shape}, (B,S,H,D).transpose(1, 2) views ({note}, "
+                    f"{n} launches)")
+    log(f"  flash_attention {shape} ({role}): max |err| "
         f"{err:.3g}; kernel {fl['ms']:.4f} ms, plain {fl['plain_ms']:.4f} "
         f"ms, sdpa {fl['library_ms']:.4f} ms (CUDA events); device time "
         f"kernel {_ms(fl['device_ms'])} ms, sdpa "
@@ -4493,9 +4543,9 @@ def tensor_parallel_path(dev, cfg, card, kern, seed, ranks):
     log("== tensor parallel")
     res = tp_join(ranks)
     counts = {k: sum(part["launches"][k] for r in res
-                     for part in r["serve"] + [r["train"]])
+                     for part in r["serve"] + r["train"])
               for k in ("flash_attention", "ssd_scan")}
-    # each served model's per-rank shapes (the train step's are f32: the
+    # each served model's per-rank shapes (the train steps' are f32: the
     # kernels' FFMA paths, held by the earlier phases), both ranks' launches
     gen = torch.Generator(device=dev).manual_seed(seed + 23)
     for i, (name, *_) in enumerate(tp["serve"]):
@@ -4505,7 +4555,7 @@ def tensor_parallel_path(dev, cfg, card, kern, seed, ranks):
             n = sum(dict((tuple(k), c) for k, c in p["flash_shapes"]).get(
                 (b, h, s, t, d, causal), 0) for p in parts)
             flash_row(dev, card, kern, cfg["iters"], gen, (b, h, s, d),
-                      "tensor-parallel rank", note, n)
+                      "tensor-parallel rank", note, n, t=t, causal=causal)
         for b, s, h, pp, nn, _ in parts[0]["expect"]["ssd_shapes"]:
             n = sum(dict((tuple(k), c) for k, c in p["ssd_shapes"]).get(
                 (b, s, h, pp, nn), 0) for p in parts)
@@ -4574,9 +4624,12 @@ def tp_join(h):
         if r["probe"]["all-reduce sum"] is not True or \
                 r["probe"]["all-reduce max"] is not True:
             raise AssertionError(f"rank {r['rank']}: {r['probe']}")
+    for cut in tp["cuts"]:
+        log(f"  cut: {cut}")
     for i, spec in enumerate(tp["serve"]):
         _tp_serve_lines(dev, tp, [r["serve"][i] for r in res])
-    _tp_train_lines(dev, tp, [r["train"] for r in res])
+    for i, spec in enumerate(tp["train"]):
+        _tp_train_lines(dev, tp, [r["train"][i] for r in res])
     return res
 
 
@@ -4595,6 +4648,8 @@ def _tp_serve_lines(dev, tp, parts):
             f"prefill {p['prefill_ms']:.1f} ms, decode {p['decode_ms']:.1f} "
             f"ms/step; launches {p['launches']}, flash {p['flash_shapes']}, "
             f"ssd {p['ssd_shapes']}")
+    if "routing" in p0:
+        _tp_routing_lines(p0["name"], parts)
     for dt, c in p0["vs_one_rank"].items():
         tol = TP_LOGIT_TOL if dt == "bfloat16" else CONSIST_TOL
         log(f"    {dt} against the one-rank path on rank 0's card (prefill "
@@ -4607,8 +4662,20 @@ def _tp_serve_lines(dev, tp, parts):
             f"near-tie, {c['other_rows']} elsewhere (row, step, the "
             f"one-rank path's top-two gap: {c['firsts']}); "
             f"{c['near_ties']} near-ties among its "
-            f"{p0['batch'] * (c['steps'] + 1)} tokens")
-        if c["logit_rel"] > tol or (dt == "float32" and c["other_rows"]):
+            f"{p0['batch'] * (c['steps'] + 1)} tokens"
+            + ("" if not c["routes"] else
+               f"; routing against it over {c['routes']['calls']} calls "
+               f"(the prefill's layers, then each step's): "
+               f"{c['routes']['tokens']} of {c['routes']['choices']} "
+               f"choices' tokens route to other experts; rows where that "
+               f"first happens (row: call, layer, the one-rank path's "
+               f"router gap there): {_rows_text(c['routes']['rows'])}; "
+               f"prefill logits held on {c['logit_rows']} of "
+               f"{p0['batch']} rows; {c['router_rows']} rows' tokens "
+               f"first differ after a router near-tie (under "
+               f"{MOE_ROUTER_TIE:g})"))
+        if c["logit_rel"] > tol or (dt == "float32" and (
+                c["other_rows"] or c["bad_route_rows"])):
             raise AssertionError(f"tensor-parallel {p0['name']} {dt}: {c}")
     if dev.type == "cuda":
         for p in parts:
@@ -4622,13 +4689,45 @@ def _tp_serve_lines(dev, tp, parts):
                                      f"launches: {p} != {want}")
 
 
+def _rows_text(rows) -> str:
+    """``_route_diffs``'s rows, in row order, gaps to 3 digits."""
+    return "{" + ", ".join(f"{r}: ({v[0]}, {v[1]}, {v[2]:.3g})" for r, v in
+                           sorted(rows.items(), key=lambda kv: int(kv[0])))\
+        + "}"
+
+
+def _tp_routing_lines(name, parts):
+    """Print and hold the MoE routing on every rank: the same hashes on
+    every rank and on the one-rank path, tokens dropped at the default
+    capacity factor, the output within MOE_TP_TOL."""
+    r0 = parts[0]["routing"]
+    ranks = [p["routing"]["hash"] for p in parts]
+    warm = [p["routing"]["warmup"] for p in parts]
+    log(f"    routing at capacity factor {r0['factor']} (apply_moe on the "
+        f"first layer's experts, {r0['tokens']} tokens, one input on every "
+        f"rank): hashes of top-k, kept tokens and slots {ranks}, the "
+        f"one-rank path's {r0['one_hash']}; equal: "
+        f"{len(set(ranks + [r0['one_hash']])) == 1}; {r0['dropped']} of "
+        f"{r0['choices']} choices dropped; output max |diff| "
+        f"{r0['out_diff']:.4g} of max |out| {r0['out_max']:.4g} "
+        f"({r0['out_rel']:.4g}, tol {MOE_TP_TOL:.4g}); the served warm-up "
+        f"prefill's {len(warm[0])} layers' routings equal on every rank: "
+        f"{all(w == warm[0] for w in warm)}, choices dropped there "
+        f"{[p['routing']['served_dropped'] for p in parts]}")
+    if len(set(ranks + [r0["one_hash"]])) != 1 or r0["dropped"] == 0 or \
+            r0["out_rel"] > MOE_TP_TOL or any(w != warm[0] for w in warm):
+        raise AssertionError(f"tensor-parallel {name} routing: "
+                             f"{[p['routing'] for p in parts]}")
+
+
 def _tp_train_lines(dev, tp, parts):
     """Print and hold the train step's results on every rank."""
     p0 = parts[0]
     rel = max(p["grad_rel"] for p in parts)
     worst = max(parts, key=lambda p: p["grad_rel"])
-    log(f"  train step {p0['name']} f32, {p0['batch']} x {p0['seq']} "
-        f"tokens, {p0['n_micro']} micro-batches, remat {p0['remat']!r}, "
+    log(f"  train step {p0['name']} f32 ({p0['cut']}), {p0['batch']} x "
+        f"{p0['seq']} tokens, {p0['n_micro']} micro-batches, remat "
+        f"{p0['remat']!r}, "
         f"tensor_parallel={p0['tensor_parallel']}: loss "
         f"{p0['loss']:.6f}, one-rank step {p0['one_loss']:.6f} (|diff| "
         f"{abs(p0['loss'] - p0['one_loss']):.3g}, tol {TP_LOSS_TOL} "
@@ -4643,7 +4742,8 @@ def _tp_train_lines(dev, tp, parts):
             or rel > TRAIN_GRAD_TOL or not p0["tensor_parallel"]:
         raise AssertionError(f"tensor-parallel train step: {parts}")
     if dev.type == "cuda" and any(
-            min(p["launches"].values()) == 0 for p in parts):
+            (p["launches"][k] > 0) != want for p in parts
+            for k, want in p["expect"].items()):
         raise AssertionError(f"train step launches: {parts}")
 
 
@@ -4654,6 +4754,9 @@ def _tp_rank(rank, port, backend, device, tp, seed, out_dir):
     sys.path.insert(0, str(SRC))
     one_card = backend == "gloo"
     os.environ["LOCAL_RANK"] = "0" if one_card else str(rank)
+    # the ranks widen and free tens of GB of weights model after model
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
     import torch
     import torch.distributed as dist
 
@@ -4672,7 +4775,8 @@ def _tp_rank(rank, port, backend, device, tp, seed, out_dir):
                "probe": _tp_probe(mesh, dev)}
         out["serve"] = [_tp_serve(mesh, dev, rank, tp, seed + 21 + i, spec)
                         for i, spec in enumerate(tp["serve"])]
-        out["train"] = _tp_train(mesh, dev, rank, tp, seed + 25)
+        out["train"] = [_tp_train(mesh, dev, rank, tp, seed + 25 + i, tr)
+                        for i, tr in enumerate(tp["train"])]
         Path(out_dir, f"rank{rank}.json").write_text(json.dumps(out))
     finally:
         dist.destroy_process_group()
@@ -4713,17 +4817,20 @@ def _tp_probe(mesh, dev):
     return out
 
 
-def _tp_greedy(dev, prefill, decode, prompts, n_gen, host):
+def _tp_greedy(dev, prefill, decode, prompts, n_gen, host, extras=None):
     """Greedy decoding: (prefill logits, tokens (B, n_gen + 1), each
     step's top-two logits, prefill ms, decode ms a step). ``host``: the
-    steps take host batches (``launch/steps``)."""
+    steps take host batches (``launch/steps``); ``extras``: the family's
+    other prefill inputs (whisper's frames), on the host."""
     import torch
 
     from repro_torch.launch.serve import grow_cache
+    batch = {"tokens": prompts, **(extras or {})}
+    if not host:
+        batch = {k: v.to(dev) for k, v in batch.items()}
     _sync(dev)
     t0 = time.perf_counter()
-    logits, cache = prefill({"tokens": prompts if host
-                             else prompts.to(dev)})
+    logits, cache = prefill(batch)
     first = logits
     cache = grow_cache(cache, n_gen)
     tok = logits.argmax(-1)
@@ -4742,27 +4849,156 @@ def _tp_greedy(dev, prefill, decode, prompts, n_gen, host):
             (t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3 / max(n_gen, 1))
 
 
-def _tp_vs_one(dev, model, params, prompts, n_gen, got):
-    """The one-rank path (the model on its whole weights, this card) on
-    the same prompts against the ranks' greedy run ``got``: prefill
-    logits' max |diff| over the largest |logit|, and each row's first
-    differing token, whether the one-rank path's top two logits there are
-    a near-tie (NEAR_TIE_BF16)."""
-    one = _tp_greedy(dev, lambda bt: model.prefill(params, bt),
-                     lambda c, bt: model.decode(params, c, bt),
-                     prompts, n_gen, False)
-    diff = float((got[0].float() - one[0].float()).abs().max())
+def _tp_vs_one(dev, models, params, prompts, extras, n_gen, got,
+               kv_dtype, routes=None):
+    """The one-rank path (the prefill and decode ``models`` on the whole
+    weights, this card, its cache in ``kv_dtype`` as the ranks') on the
+    same prompts against the ranks' greedy run ``got``: prefill logits'
+    max |diff| over the largest |logit|, and each row's first differing
+    token, whether the one-rank path's top two logits there are a
+    near-tie (NEAR_TIE_BF16). ``routes``: the ranks' routings of that
+    run (``_Routes``), held against the one-rank path's
+    (``_route_diffs``). In f32 a row whose routing first differs at a
+    router near-tie (the one-rank path's k-th and (k+1)-th probabilities
+    within MOE_ROUTER_TIE: the two paths' f32 sums in another order pick
+    the other expert) takes other experts from there on: its prefill
+    logits are left out of the max when that was in the prefill, and a
+    first differing token at or after it is counted apart (``router_rows``);
+    a row whose routing first differs elsewhere is a fault
+    (``bad_route_rows``)."""
+    pre, dec = models
+    with _Routes() as one_routes:
+        one = _tp_greedy(dev, lambda bt: pre.prefill(params, bt,
+                                                     kv_dtype=kv_dtype),
+                         lambda c, bt: dec.decode(params, c, bt),
+                         prompts, n_gen, False, extras)
+    b = prompts.shape[0]
+    rr = ({} if routes is None else
+          _route_diffs(routes, one_routes, dec.cfg.n_layers, prompts.shape[1]))
+    rows = rr.get("rows", {})
+    f32 = kv_dtype == "float32"
+    same = [r for r in range(b) if not (f32 and rows.get(r, (1,))[0] == 0)]
+    g0, o0 = got[0].float()[same], one[0].float()[same]
+    diff = float((g0 - o0).abs().max()) if same else 0.0
     top = float(one[0].float().abs().max())
     div = [first_divergence(g, w, t2)
            for g, w, t2 in zip(got[1], one[1], one[2])]
     firsts = [(r, i, round(float(one[2][r, i, 0] - one[2][r, i, 1]), 4))
               for r, (i, _) in enumerate(div) if i is not None]
+    routed = [r for r, (i, _) in enumerate(div) if i is not None and r in rows
+              and rows[r][0] <= i and rows[r][2] < MOE_ROUTER_TIE]
     return dict(steps=n_gen, one_prefill_ms=one[3], one_decode_ms=one[4],
                 logit_diff=diff, logit_max=top, logit_rel=diff / top,
+                logit_rows=len(same), routes=rr or None,
+                bad_route_rows=[r for r, v in rows.items()
+                                if v[2] >= MOE_ROUTER_TIE],
+                router_rows=len(routed),
                 rows_equal=sum(i is None for i, _ in div),
-                tie_rows=sum(i is not None and t for i, t in div),
-                other_rows=sum(i is not None and not t for i, t in div),
+                tie_rows=sum(i is not None and t and r not in routed
+                             for r, (i, t) in enumerate(div)),
+                other_rows=sum(i is not None and not t and r not in routed
+                               for r, (i, t) in enumerate(div)),
                 firsts=firsts, near_ties=int(near_ties(one[2]).sum()))
+
+
+class _Routes:
+    """``with _Routes() as seen:`` each routing ``ffn.apply_moe`` takes
+    (``ffn.route``) is appended to ``seen``."""
+
+    def __enter__(self):
+        from repro_torch.models import ffn
+        self.ffn, self.route, self.seen = ffn, ffn.route, []
+
+        def spy(*a, **kw):
+            r = self.route(*a, **kw)
+            self.seen.append(r)
+            return r
+        ffn.route = spy
+        return self.seen
+
+    def __exit__(self, *exc):
+        self.ffn.route = self.route
+
+
+def _route_diffs(got, want, n_layers, s):
+    """Where two runs' routings (``_Routes`` lists, call by call: the
+    prefill's ``n_layers``, then each decode step's) send a token to other
+    top-k experts. -> {"calls", "tokens", "choices", "rows": {row: [call,
+    layer, gap]}}: for each row (prefill token t is row t // s, a decode
+    step's token t row t), the first call (0 the prefill, j the j-th decode
+    step) and layer where one of its tokens does, and the largest of
+    those tokens' gaps between the second run's k-th and (k+1)-th router
+    probability over the k-th (a near-tie under MOE_ROUTER_TIE)."""
+    tokens, choices, rows = 0, 0, {}
+    for i, (a, b) in enumerate(zip(got, want)):
+        k = b.topi.shape[-1]
+        choices += b.topi.numel()
+        diff = (a.topi.sort(-1).values != b.topi.sort(-1).values).any(-1)
+        diff = diff.flatten()
+        if not bool(diff.any()):
+            continue
+        tokens += int(diff.sum())
+        call, layer = divmod(i, n_layers)
+        top = b.probs.flatten(0, -2).topk(k + 1, -1).values
+        gap = ((top[:, k - 1] - top[:, k]) / top[:, k - 1]).tolist()
+        new = {}
+        for t in diff.nonzero().flatten().tolist():
+            row = t // s if call == 0 else t
+            if row not in rows:
+                new[row] = max(new.get(row, 0.0), gap[t])
+        rows.update({r: [call, layer, g] for r, g in new.items()})
+    return dict(calls=min(len(got), len(want)), tokens=tokens,
+                choices=choices, rows=rows)
+
+
+def _route_hash(r) -> str:
+    """A digest of one routing's top-k experts, kept tokens and slots."""
+    import hashlib
+
+    import torch
+    return hashlib.sha256(torch.cat([r.topi.flatten(), r.sel_idx.flatten(),
+                                     r.slot.flatten()]).cpu().numpy()
+                          .tobytes()).hexdigest()[:16]
+
+
+def _tp_routing(mesh, dev, rank, arch, params, b, s, seed):
+    """``apply_moe`` at ``arch``'s own capacity factor on the first
+    layer's experts, one bf16 input (b, s, d) on every rank (tokens that
+    share a direction crowd the same experts, so some are dropped), under
+    the mesh context on the rank's experts and on one card (the whole
+    layer):
+    the routing's hash on every rank and on one card, the choices
+    dropped, the output against one card's."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch import steps
+    from repro_torch.models import ffn
+    from repro_torch.sharding import policy
+    def first(tree):
+        return ({k: first(v) for k, v in tree.items()}
+                if isinstance(tree, dict) else tree[0])
+    layer = first(params["layers"]["moe"])
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    d = arch.d_model
+    x = (torch.randn((b, s, d), generator=gen, device=dev)
+         + 2.0 * torch.randn((d,), generator=gen, device=dev)).to(
+             torch.bfloat16)
+    mine = steps._locals(policy.place(layer, mesh), mesh)
+    with _Routes() as seen, torch.no_grad():
+        with policy.use_ctx_mesh(mesh):
+            out, _ = ffn.apply_moe(mine, x, arch)
+        one, _ = ffn.apply_moe(layer, x, arch)
+    hashes = [None] * mesh.size()
+    dist.all_gather_object(hashes, _route_hash(seen[0]))
+    diff = float((out.float() - one.float()).abs().max())
+    top = float(one.float().abs().max())
+    del mine, x, out, one
+    return dict(hash=hashes[rank], one_hash=_route_hash(seen[1]),
+                factor=arch.moe.capacity_factor, tokens=b * s,
+                choices=b * s * arch.moe.top_k,
+                dropped=int((seen[0].slot < 0).sum()), out_diff=diff,
+                out_max=top, out_rel=diff / top)
 
 
 def _tp_serve(mesh, dev, rank, tp, seed, spec):
@@ -4770,7 +5006,12 @@ def _tp_serve(mesh, dev, rank, tp, seed, spec):
     bf16, with the launch counts reset just before and read just after;
     then the same weights widened to f32, greedy again. On rank 0 the
     one-rank path (the model on its whole weights) runs on the same
-    prompts in both dtypes and is held against the ranks'."""
+    prompts in both dtypes and is held against the ranks'. A MoE model
+    serves where no token is dropped (the two paths' bf16 sums differ,
+    and a token dropped on one path only would move its logits by their
+    scale): its prefill at TP_MOE_PREFILL_FACTOR (the choices dropped are
+    counted), its decode steps at ``no_drops``; its routing at its own
+    factor is checked first (``_tp_routing``)."""
     import torch
     import torch.distributed as dist
 
@@ -4778,42 +5019,78 @@ def _tp_serve(mesh, dev, rank, tp, seed, spec):
     from repro_torch.configs.registry import get_arch, smoke_config
     from repro_torch.kernels import ops
     from repro_torch.launch import steps
+    from repro_torch.models.attention import layout_from_cfg
     from repro_torch.models.factory import build_model
     from repro_torch.sharding.policy import place
     from repro_torch.train.optimizer import tree_leaves, tree_map
-    name, layers, b, s, n_gen = spec
+    name, layers, b, s, n_gen, f32_gen = spec
+    n = tp["model"]
     arch = get_arch(name) if tp["full"] else smoke_config(name)
     cut = "published widths" if tp["full"] else "smoke config"
     cut += (f", {layers} of its {arch.n_layers} layers" if layers
             else ", all its layers")
     if layers is not None:
         arch = arch.replace(n_layers=layers)
+    if arch.n_heads % n:
+        # whisper-tiny's 6 heads on 4 ranks: padded with zero-masked
+        # heads, as the reference pads them for its meshes
+        arch = arch.replace(head_pad_to=n)
+        cut += f", q heads padded to {layout_from_cfg(arch).hp}"
     gen = torch.Generator(device=dev).manual_seed(seed)
     params = build_model(arch).init(gen, device=dev)
-    prompts = torch.randint(0, arch.vocab_size, (b, s), generator=gen,
-                            device=dev).cpu()
+    prompts, extras = family_inputs(arch, b, s, gen, dev)
+    prompts, extras = prompts.cpu(), {k: v.cpu() for k, v in extras.items()}
     out = dict(rank=rank, name=arch.name, cut=cut, batch=b, prompt=s,
                gen=n_gen, vs_one_rank={})
-    for dt, n_steps in (("bfloat16", n_gen),
-                        ("float32", min(n_gen, tp["f32_gen"]))):
-        model = build_model(arch.replace(dtype=dt))
-        p = params if dt == "bfloat16" else tree_map(
-            lambda x: x.to(torch.float32), params)
-        placed = place(p, mesh)
-        pre = steps.make_prefill_step(model, mesh, ShapeConfig(
+    pre_arch = arch
+    if arch.moe is not None:
+        out["routing"] = _tp_routing(mesh, dev, rank, arch, params, b, s,
+                                     seed + 1)
+        pre_arch = arch.replace(moe=dataclasses.replace(
+            arch.moe, capacity_factor=TP_MOE_PREFILL_FACTOR))
+        arch = no_drops(arch)
+        out["cut"] += (f", prefill at capacity factor "
+                       f"{TP_MOE_PREFILL_FACTOR:g}, decode at "
+                       f"{arch.moe.capacity_factor:g} (no drops)")
+    placed = None
+    for dt, n_steps in (("bfloat16", n_gen), ("float32", f32_gen)):
+        models = (build_model(pre_arch.replace(dtype=dt)),
+                  build_model(arch.replace(dtype=dt)))
+        if dt == "bfloat16":
+            placed = place(params, mesh)
+            if rank != 0:   # the shards alone: the whole weights freed
+                placed = tree_map(torch.clone, placed)
+                params = None
+        elif rank == 0:     # the one-rank path needs the whole f32 weights
+            del placed
+            params = tree_map(lambda x: x.to(torch.float32), params)
+            placed = place(params, mesh)
+        else:               # the shards widened
+            placed = tree_map(lambda x: x.to(torch.float32), placed)
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        pre = steps.make_prefill_step(models[0], mesh, ShapeConfig(
             "tp", "prefill", s, b, kv_dtype=dt))
-        dec = steps.make_decode_step(model, mesh, ShapeConfig(
+        dec = steps.make_decode_step(models[1], mesh, ShapeConfig(
             "tp", "decode", s + n_gen, b, kv_dtype=dt))
 
-        def run(n):
+        def run(k):
             return _tp_greedy(dev, lambda bt: pre(placed, bt),
-                              lambda c, bt: dec(placed, c, bt), prompts, n,
-                              True)
+                              lambda c, bt: dec(placed, c, bt), prompts, k,
+                              True, extras)
         if dt == "bfloat16":
-            run(2)                    # warm-up
+            with _Routes() as seen:
+                run(2)                # warm-up
+            if arch.moe is not None:
+                out["routing"]["warmup"] = [_route_hash(r)
+                                            for r in seen[:arch.n_layers]]
+                out["routing"]["served_dropped"] = int(sum(
+                    (r.slot < 0).sum() for r in seen[:arch.n_layers]))
+            del seen
             mem0 = _peak_reset(dev)
             ops.reset_launch_counts()
-        got = run(n_steps)
+        with _Routes() as seen:
+            got = run(n_steps)
         if dt == "bfloat16":         # the served run: counts and bytes
             out["launches"] = {k: ops.LAUNCHES[k]
                                for k in ("flash_attention", "ssd_scan")}
@@ -4834,36 +5111,55 @@ def _tp_serve(mesh, dev, rank, tp, seed, spec):
                            w for w, r in zip(whole, rep) if r))
             del local
         if rank == 0:
-            out["vs_one_rank"][dt] = _tp_vs_one(dev, model, p, prompts,
-                                                n_steps, got)
-        del placed, p, got
+            out["vs_one_rank"][dt] = _tp_vs_one(
+                dev, models, params, prompts, extras, n_steps, got, dt,
+                seen if arch.moe is not None else None)
+        del got, seen
         _sync(dev)
         dist.barrier()
-    n = tp["model"]
-    n_attn = (arch.n_layers // arch.hybrid_attn_every
-              if arch.family == "hybrid" else
-              arch.n_layers if arch.uses_attention else 0)
-    n_ssm = arch.n_layers if arch.ssm is not None else 0
-    out["chunk"] = arch.ssm.chunk_size if n_ssm else None
-    out["expect"] = {
-        "launches": {"flash_attention": n_attn, "ssd_scan": n_ssm},
-        "flash_shapes": [[b, arch.n_heads // n, s, s, arch.head_dim, True,
-                          n_attn]] if n_attn else [],
-        "ssd_shapes": [[b, s, arch.ssm_heads // n, arch.ssm.head_dim,
-                        arch.ssm.d_state, n_ssm]] if n_ssm else []}
-    del params
+    del placed, params
+    out["chunk"] = arch.ssm.chunk_size if arch.ssm is not None else None
+    out["expect"] = _tp_expect(arch, n, b, s)
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     return out
 
 
-def _tp_train(mesh, dev, rank, tp, seed):
-    """One train step (f32, an identity optimizer: its output is the
-    gradients) on the (1, n) mesh, and on every rank the one-rank step's
-    loss and gradients (the model on its whole weights, the same
-    micro-batches and normalization as ``make_train_step``); each rank
-    compares its gradient shards, and the ranks' worst per leaf are
-    combined (a max over the ranks: the whole leaf's error)."""
+def _tp_expect(arch, n, b, s):
+    """A rank's flash and SSD launches in one prefill of ``arch`` on a
+    'model' axis of ``n``: by kernel, and by problem (sorted as
+    ``ops.FLASH_SHAPES``/``SSD_SHAPES`` items), a layer each."""
+    from repro_torch.models.attention import layout_from_cfg
+    flash = {}
+    if arch.family == "audio":
+        hq, d = layout_from_cfg(arch).hp // n, arch.head_dim
+        t = arch.encoder.n_frames
+        flash = {(b, hq, t, t, d, False): arch.encoder.n_layers,
+                 (b, hq, s, s, d, True): arch.n_layers,
+                 (b, hq, s, t, d, False): arch.n_layers}
+    elif arch.uses_attention and arch.mla is None:
+        n_attn = (arch.n_layers // arch.hybrid_attn_every
+                  if arch.family == "hybrid" else arch.n_layers)
+        flash = {(b, layout_from_cfg(arch).hp // n, s, s, arch.head_dim,
+                  True): n_attn}
+    n_ssm = arch.n_layers if arch.ssm is not None else 0
+    return {"launches": {"flash_attention": sum(flash.values()),
+                         "ssd_scan": n_ssm},
+            "flash_shapes": [list(k) + [c] for k, c in sorted(
+                flash.items())],
+            "ssd_shapes": [[b, s, arch.ssm_heads // n, arch.ssm.head_dim,
+                            arch.ssm.d_state, n_ssm]] if n_ssm else []}
+
+
+def _tp_train(mesh, dev, rank, tp, seed, tr):
+    """One train step of ``tr`` (f32, an identity optimizer: its output is
+    the gradients) on the (1, n) mesh, and on every rank the one-rank
+    step's loss and gradients (the model on its whole weights, the same
+    micro-batches and normalization as ``make_train_step``, the MoE aux
+    term included); each rank compares its gradient shards, and the
+    ranks' worst per leaf are combined (a max over the ranks: the whole
+    leaf's error). A MoE model trains at the capacity factor that drops
+    no token (``no_drops``), as it serves."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -4877,9 +5173,16 @@ def _tp_train(mesh, dev, rank, tp, seed):
     from repro_torch.train.optimizer import (Optimizer, tree_leaves,
                                              tree_leaves_with_path,
                                              tree_unflatten)
-    tr = tp["train"]
     arch = (get_arch(tr["arch"]) if tp["full"] else smoke_config(tr["arch"])
             ).replace(dtype="float32")
+    cut = "published widths" if tp["full"] else "smoke config"
+    cut += (f", {tr['layers']} of its {arch.n_layers} layers"
+            if tr["layers"] else ", all its layers")
+    if tr["layers"]:
+        arch = arch.replace(n_layers=tr["layers"])
+    if arch.moe is not None:
+        arch = no_drops(arch)
+        cut += f", capacity factor {arch.moe.capacity_factor:g} (no drops)"
     model = build_model(arch)
     params = model.init(torch.Generator(device=dev).manual_seed(seed),
                         device=dev)
@@ -4912,13 +5215,14 @@ def _tp_train(mesh, dev, rank, tp, seed):
     for i in range(n_micro):
         micro = {k: torch.as_tensor(v[i * rows:(i + 1) * rows]).to(dev)
                  for k, v in batch.items()}
-        logits, _, _ = model.forward(tree_unflatten(params, leaves), micro,
-                                     remat_policy=shape.remat_policy)
+        logits, aux, _ = model.forward(tree_unflatten(params, leaves),
+                                       micro, remat_policy=shape.remat_policy)
         ce, count = steps.lm_loss_parts(logits, micro["labels"],
                                         arch.vocab_size)
         loss = ce / torch.clamp(count, min=1.0)
         for a, x in zip(acc, torch.autograd.grad(
-                loss, leaves, allow_unused=True, materialize_grads=True)):
+                loss + steps.MOE_AUX_COEF * aux, leaves, allow_unused=True,
+                materialize_grads=True)):
             a += x
         one_loss += float(loss.detach()) / n_micro
     _sync(dev)
@@ -4944,7 +5248,10 @@ def _tp_train(mesh, dev, rank, tp, seed):
     del params, leaves, acc, g
     _sync(dev)
     dist.barrier()
-    return dict(rank=rank, name=arch.name, batch=b, seq=s, n_micro=n_micro,
+    return dict(rank=rank, name=arch.name, cut=cut, batch=b, seq=s,
+                n_micro=n_micro, expect={   # the kernels the step launches
+                    "flash_attention": arch.uses_attention
+                    and arch.mla is None, "ssd_scan": arch.ssm is not None},
                 remat=shape.remat_policy,
                 tensor_parallel=info["tensor_parallel"],
                 loss=float(m["loss"]), one_loss=one_loss, step_ms=step_ms,

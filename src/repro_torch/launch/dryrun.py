@@ -20,15 +20,15 @@ fake tensors placed by ``sharding.policy.place``, and the step of
   the name is kept so the two packages' artifacts read alike), the
   backward and the remat recompute included; ``global.hlo_flops`` is
   that times the ranks. ``useful_flops_ratio`` = model FLOPs (6 N D or
-  2 N D) / (rank 0's FLOPs x ranks). The dense, vlm, ssm and hybrid
-  families' steps are tensor-parallel over 'model' (``launch/steps``):
-  rank 0 computes its data-parallel rows on its 'model' shard, and only
-  the leaves the policy replicates (norms, the SSM's B and C
-  projections) are computed on every 'model' rank. The moe and audio
-  families' steps gather the weights and compute each data-parallel
-  rank's rows on every rank of the 'model' axis, so on (data 16, model
-  16) their ratio shows that duplication; it is reported as it is.
-  ``step_info["tensor_parallel"]`` says which route a cell took.
+  2 N D) / (rank 0's FLOPs x ranks). Every family's step is
+  tensor-parallel over 'model' (``launch/steps``): rank 0 computes its
+  data-parallel rows on its 'model' shard (heads, ``d_ff``, experts,
+  vocab, SSM heads), and only the leaves the policy replicates (norms,
+  the SSM's B and C projections, MLA's latent projections, the MoE
+  router and its routing) are computed on every 'model' rank, as are
+  the q heads that pad a head count up to the axis (whisper-tiny's 6 to
+  16). ``step_info["tensor_parallel"]`` says whether the 'model' axis
+  split the work.
 * ``collectives`` are rank 0's (``OpCounter.collectives``), and
   ``per_device.hbm_bytes`` is ``costing.analytic_bytes`` over the ranks.
 * ``roofline_terms_s``: ``compute_s`` = rank 0's FLOPs over the bf16

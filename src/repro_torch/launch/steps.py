@@ -10,29 +10,21 @@ mesh. The port runs one process a rank:
   policy's placements (``sharding.policy.place``). On one card the mesh
   is (1, 1), every placement is ``Replicate()`` and nothing is
   communicated.
-* the dense, vlm, ssm and hybrid families (``TP_FAMILIES``) run
-  tensor-parallel on a 'model' axis of more than 1
+* on a 'model' axis of more than 1 every family runs tensor-parallel
   (``tensor_parallel``): each step gathers each parameter over the
   data-parallel axes only and keeps its 'model' shard (``_local``: the
   slice the policy's spec gives this rank), enters the mesh context
   (``policy.use_ctx_mesh``) and the model code computes the rank's share
-  of the vocab, heads, ``d_ff`` and SSM heads, with Megatron's pair of
-  collectives over the 'model' group (``models/transformer`` says
-  where). Gradients stay local to the rank's shard and are summed over
-  the data-parallel ranks into the parameters' placements; the loss is
-  taken over the vocab shards (``lm_loss_parts``); serving logits are
-  made whole on every rank. A leaf the policy replicates (its dim does
-  not divide) is computed whole, and so is each block whose projections
-  it replicates.
-* the moe family (expert parallelism needs an all-to-all, MLA's latent
-  projections a split of their own) and the audio family take the
-  all-gather-weights route on any mesh: each step gathers every
-  parameter whole, runs forward and backward on plain tensors, and
-  reduce-scatters the gradients into the parameters' placements (a sum
-  over the data-parallel ranks; ranks that differ only in the 'model'
-  axis compute the same rows). The step's ``info["tensor_parallel"]``
-  (the serving steps' attribute ``tensor_parallel``) says which route it
-  took: the route is chosen by family, not on failure.
+  of the vocab, heads (GQA and MLA), ``d_ff``, experts and SSM heads,
+  with Megatron's pair of collectives over the 'model' group
+  (``models/transformer`` and ``models/encdec`` say where). Gradients
+  stay local to the rank's shard and are summed over the data-parallel
+  ranks into the parameters' placements; the loss is taken over the
+  vocab shards (``lm_loss_parts``); serving logits are made whole on
+  every rank. A leaf the policy replicates (its dim does not divide) is
+  computed whole, and so is each block whose projections it replicates.
+  The step's ``info["tensor_parallel"]`` (the serving steps' attribute
+  ``tensor_parallel``) says whether the 'model' axis splits the work.
 * the global batch (``global_batch`` rows, the whole of it on every
   rank, as a host batch) is cut into ``n_micro`` contiguous
   micro-batches, and each micro-batch into the data-parallel ranks'
@@ -42,8 +34,12 @@ mesh. The port runs one process a rank:
 * each micro-batch's loss is the masked mean over its tokens on all
   ranks: every rank divides its sum by the whole micro-batch's valid
   label count (read from the host batch), and the ranks' gradients add
-  up. The MoE aux term's token fractions are averaged over the ranks in
-  the forward (``ffn.apply_moe(dp_mean=)``).
+  up. The MoE aux term's token fractions are averaged over the
+  data-parallel ranks in the forward (``ffn.apply_moe(dp_mean=)``). Its
+  value is the same on every 'model' rank, and so is its gradient, which
+  reaches the replicated router and the activations by no collective
+  (the expert path's gradient is summed over 'model' where it enters the
+  rank's experts): it counts once, not once a 'model' rank.
 
 ``train_attn_chunk`` (and the reference's ``attn_chunk`` fallback for
 long sequences) has no counterpart: the flash kernel tiles the queries
@@ -52,7 +48,6 @@ unchunked (``models/transformer`` says so for ``attn_chunk``).
 """
 from __future__ import annotations
 
-import contextlib
 import math
 from typing import Any, NamedTuple
 
@@ -241,15 +236,12 @@ def cache_specs_sds(model: Model, shape_cfg: ShapeConfig, mesh):
 
 
 # ------------------------------------------------------------ train step ---
-TP_FAMILIES = ("dense", "vlm", "ssm", "hybrid")
-
-
 def tensor_parallel(cfg: ArchConfig, mesh) -> bool:
-    """Whether the steps compute each rank's 'model' shard: a family of
-    ``TP_FAMILIES`` on a 'model' axis of more than 1 (which must divide
-    the padded vocab: the loss reads vocab-parallel logits)."""
+    """Whether the steps compute each rank's 'model' shard: a 'model'
+    axis of more than 1 (which must divide the padded vocab: the loss
+    reads vocab-parallel logits)."""
     n = policy.mesh_axes(mesh).get("model", 1)
-    if cfg.family not in TP_FAMILIES or n == 1:
+    if n == 1:
         return False
     if cfg.padded_vocab() % n:
         raise ValueError(f"{cfg.name}: a 'model' axis of {n} does not "
@@ -258,7 +250,7 @@ def tensor_parallel(cfg: ArchConfig, mesh) -> bool:
 
 
 def _whole(x):
-    """A parameter leaf whole on this rank (a DTensor gathered)."""
+    """A tensor whole on this rank (a DTensor gathered)."""
     from torch.distributed.tensor import DTensor
     return x.full_tensor() if isinstance(x, DTensor) else x
 
@@ -275,11 +267,9 @@ def _local(x, mesh):
     return x.redistribute(mesh, place).to_local()
 
 
-def _leaf_fn(cfg, mesh):
-    """(what a step takes of each parameter leaf, its mesh context)."""
-    if tensor_parallel(cfg, mesh):
-        return (lambda x: _local(x, mesh)), policy.use_ctx_mesh(mesh)
-    return _whole, contextlib.nullcontext()
+def _locals(params, mesh):
+    """``_local`` of every parameter leaf."""
+    return tree_map(lambda x: _local(x, mesh), params)
 
 
 def _dp_placements(mesh, like=None):
@@ -318,7 +308,8 @@ def make_train_step(model: Model, mesh, shape_cfg: ShapeConfig,
     ``sharding.policy.place`` and batch a host batch; it writes none of
     its inputs. info holds ``n_micro``, ``moe_groups`` (the reference's:
     the data-parallel size) and ``grads``, the function the step takes
-    its (loss, gradients) from, and ``tensor_parallel`` (the route)."""
+    its (loss, gradients) from, and ``tensor_parallel`` (whether the
+    'model' axis splits the work)."""
     from torch.distributed.tensor import distribute_tensor
     if mesh is None:
         from repro_torch.launch.mesh import make_host_mesh
@@ -347,15 +338,14 @@ def make_train_step(model: Model, mesh, shape_cfg: ShapeConfig,
         labels = np.asarray(batch["labels"])
         counts = [max(float((labels[i * mb:(i + 1) * mb] >= 0).sum()), 1.0)
                   for i in range(n_micro)]
-        take, ctx = _leaf_fn(cfg, mesh)
-        leaves = [take(x).detach().requires_grad_()
+        leaves = [_local(x, mesh).detach().requires_grad_()
                   for x in tree_leaves(params)]
         p = tree_unflatten(params, leaves)
         acc = [torch.zeros(x.shape, dtype=acc_dtype, device=x.device)
                for x in leaves]
         loss_sum = torch.zeros((), device=leaves[0].device)
         rows = local["tokens"].shape[0] // n_micro
-        with ctx:
+        with policy.use_ctx_mesh(mesh):
             for i in range(n_micro):
                 micro = {k: v.narrow(_BATCH_AXES.get(k, 0), i * rows, rows)
                          for k, v in local.items()}
@@ -373,8 +363,7 @@ def make_train_step(model: Model, mesh, shape_cfg: ShapeConfig,
         torch._foreach_div_(acc, n_micro)
         out = []
         for a, x in zip(acc, tree_leaves(params)):
-            out.append(_reduce_into(a, x, mesh, _dp_placements(
-                mesh, x if tp else None)))
+            out.append(_reduce_into(a, x, mesh, _dp_placements(mesh, x)))
         return _dp_sum(loss_sum, mesh) / n_micro, tree_unflatten(params, out)
 
     @torch.no_grad()
@@ -432,7 +421,7 @@ def make_prefill_step(model: Model, mesh, shape_cfg: ShapeConfig):
     """prefill_step(params, batch) -> (logits, cache) of this rank's rows
     (``_serve_rows``), each rank's rows one of the reference's
     ``moe_groups`` routing groups; the logits whole, the cache this
-    rank's heads on the tensor-parallel route (the function's attribute
+    rank's heads under a 'model' split (the function's attribute
     ``tensor_parallel``)."""
     dpn = dp_size(mesh)
     moe_groups = dpn if shape_cfg.global_batch % dpn == 0 else 1
@@ -440,9 +429,8 @@ def make_prefill_step(model: Model, mesh, shape_cfg: ShapeConfig):
     @torch.no_grad()
     def prefill_step(params, batch):
         local = _serve_rows(batch, mesh, shape_cfg)
-        take, ctx = _leaf_fn(model.cfg, mesh)
-        with ctx:
-            return model.prefill(tree_map(take, params), local,
+        with policy.use_ctx_mesh(mesh):
+            return model.prefill(_locals(params, mesh), local,
                                  kv_dtype=shape_cfg.kv_dtype,
                                  moe_groups=max(1, moe_groups // dpn),
                                  last_only=shape_cfg.prefill_last_only)
@@ -457,19 +445,18 @@ def make_decode_step(model: Model, mesh, shape_cfg: ShapeConfig):
     @torch.no_grad()
     def decode_step(params, cache, batch):
         local = _serve_rows(batch, mesh, shape_cfg)
-        take, ctx = _leaf_fn(model.cfg, mesh)
-        with ctx:
-            return model.decode(tree_map(take, params), cache, local)
+        with policy.use_ctx_mesh(mesh):
+            return model.decode(_locals(params, mesh), cache, local)
     decode_step.tensor_parallel = tensor_parallel(model.cfg, mesh)
     return decode_step
 
 
 def decode_cache(model: Model, mesh, shape_cfg: ShapeConfig, device=None):
     """An empty decode cache of this rank: its rows (``_serve_rows``) and,
-    on the tensor-parallel route, its heads."""
+    under a 'model' split, its heads."""
     rows = shape_cfg.global_batch // (dp_size(mesh) if batch_shardable(
         shape_cfg, mesh) else 1)
-    with _leaf_fn(model.cfg, mesh)[1]:
+    with policy.use_ctx_mesh(mesh):
         return model.init_cache(rows, shape_cfg.seq_len, shape_cfg.kv_dtype,
                                 device=device)
 

@@ -30,7 +30,14 @@ heads split over 'model' as the q heads do, ``wk``/``wv`` hold exactly
 those; where they do not (granite-20b's one KV head, qwen2.5-32b's 8 on
 16 ranks), the policy still splits ``wk``/``wv`` columns inside a head,
 and the rank gathers them over 'model' (``policy.gather_tp``) and keeps
-its KV heads; ``bk``/``bv`` are replicated and sliced.
+its KV heads; ``bk``/``bv`` are replicated and sliced. MLA (``mla_split``)
+splits its heads the same way: ``w_uq``/``w_uk``/``w_uv`` hold the rank's
+``n_heads / tp`` heads' columns and ``wo`` their rows, while the latent
+projections and norms (``w_dq``, ``q_norm``, ``w_dkv``, ``kv_norm``) are
+replicated: the normalized latents ``cq``, ``c_kv`` and the shared rope
+key are computed whole on every rank (the decode cache is whole and the
+same on every rank) and enter the rank's heads through
+``policy.copy_to_tp``.
 """
 from __future__ import annotations
 
@@ -192,6 +199,19 @@ def gqa_qkv(p, x, cfg, rope=None, kv_x=None):
     return q, k, v
 
 
+def gqa_q(p, x, cfg):
+    """q alone (B,S,hp,dh), or under a 'model' split this rank's q heads:
+    the decode cross-attention's projection, its k/v read from a
+    cache."""
+    tp, rh = attn_split(p, cfg)
+    if tp is not None:
+        x = policy.copy_to_tp(x, tp)
+    q = x @ p["wq"]
+    if "bq" in p:
+        q = q + p["bq"]
+    return q.reshape(*x.shape[:2], -1, cfg.head_dim)
+
+
 def repeat_kv(k, gp: int):
     """(B,T,khp,dh) -> (B,T,khp*gp,dh), each KV head repeated gp times."""
     if gp == 1:
@@ -291,13 +311,36 @@ def init_mla(gen, cfg, *, device):
             "wo": dense((h * m.v_head_dim, d))}
 
 
+def mla_split(p, cfg):
+    """(the ambient 'model' axis, this rank's head count) when ``p``'s
+    ``w_uq`` holds a share of the heads, else (None, ``cfg.n_heads``):
+    the block runs whole. ValueError where the policy splits the columns
+    but not at a head's edge."""
+    tp = policy.ctx_tp()
+    h = cfg.n_heads
+    if tp is None or p["w_uq"].shape[-1] == h * (
+            cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim):
+        return None, h
+    if h % tp.size:
+        raise ValueError(f"MLA: {h} heads do not split over {tp.size} "
+                         f"'model' ranks")
+    return tp, h // tp.size
+
+
+def _to_heads(x, tp):
+    """``x``, whole on every rank, entering this rank's heads."""
+    return x if tp is None else policy.copy_to_tp(x, tp)
+
+
 def mla_q(p, x, cfg, cos, sin):
-    """-> q_nope (B,S,H,nope), q_rope (B,S,H,rope)."""
-    m, h = cfg.mla, cfg.n_heads
+    """-> q_nope (B,S,H,nope), q_rope (B,S,H,rope) (H: this rank's heads
+    under a 'model' split)."""
+    m = cfg.mla
+    tp, h = mla_split(p, cfg)
     b, s, _ = x.shape
     cq = rmsnorm_vec(x @ p["w_dq"], p["q_norm"], cfg.norm_eps)
-    q = (cq @ p["w_uq"]).reshape(b, s, h,
-                                 m.qk_nope_head_dim + m.qk_rope_head_dim)
+    q = (_to_heads(cq, tp) @ p["w_uq"]).reshape(
+        b, s, h, m.qk_nope_head_dim + m.qk_rope_head_dim)
     return (q[..., :m.qk_nope_head_dim],
             apply_rope(q[..., m.qk_nope_head_dim:], cos, sin))
 
@@ -313,21 +356,29 @@ def mla_latent_kv(p, x, cfg, cos, sin):
     return c_kv, k_rope
 
 
+def _mla_out(p, ctx, tp):
+    """``wo`` (this rank's rows of it, and the sum over the ranks)."""
+    out = ctx @ p["wo"]
+    return out if tp is None else policy.reduce_from_tp(out, tp)
+
+
 def mla_attention_full(p, x, cfg, cos, sin):
     """Prefill/forward: per-head K,V rebuilt from the latent, then plain
     causal ``sdpa`` (q/k heads of nope + rope, v heads of v_head_dim).
     -> (out (B,S,d), (c_kv, k_rope))."""
-    m, h = cfg.mla, cfg.n_heads
+    m = cfg.mla
+    tp, h = mla_split(p, cfg)
     b, s, _ = x.shape
     q_nope, q_rope = mla_q(p, x, cfg, cos, sin)
     c_kv, k_rope = mla_latent_kv(p, x, cfg, cos, sin)
-    k_nope = (c_kv @ p["w_uk"]).reshape(b, s, h, m.qk_nope_head_dim)
-    v = (c_kv @ p["w_uv"]).reshape(b, s, h, m.v_head_dim)
+    c_in, r_in = _to_heads(c_kv, tp), _to_heads(k_rope, tp)
+    k_nope = (c_in @ p["w_uk"]).reshape(b, s, h, m.qk_nope_head_dim)
+    v = (c_in @ p["w_uv"]).reshape(b, s, h, m.v_head_dim)
     q = torch.cat([q_nope, q_rope], -1)
-    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+    k = torch.cat([k_nope, r_in[:, :, None, :].expand(
         b, s, h, m.qk_rope_head_dim)], -1)
     ctx = sdpa(q, k, v, causal=True)
-    out = ctx.reshape(b, s, h * m.v_head_dim) @ p["wo"]
+    out = _mla_out(p, ctx.reshape(b, s, h * m.v_head_dim), tp)
     return out, (c_kv, k_rope)
 
 
@@ -336,10 +387,15 @@ def mla_attention_decode(p, x, cfg, cos, sin, c_kv_cache, k_rope_cache,
     """Absorbed decode: scores and aggregation in the latent space, W_UK
     folded into q and W_UV applied after, O(T * (r + rope)) a head instead
     of rebuilding K/V. x (B,1,d); c_kv_cache (B,T,r), k_rope_cache
-    (B,T,rope), the current token already written; k_valid (B,T)."""
-    m, h = cfg.mla, cfg.n_heads
+    (B,T,rope), the current token already written; k_valid (B,T). Under a
+    'model' split the rank folds its own heads' ``w_uk``/``w_uv`` over the
+    whole latent cache."""
+    m = cfg.mla
+    tp, h = mla_split(p, cfg)
     b = x.shape[0]
     q_nope, q_rope = mla_q(p, x, cfg, cos, sin)           # (B,1,H,*)
+    c_kv_cache, k_rope_cache = (_to_heads(c_kv_cache, tp),
+                                _to_heads(k_rope_cache, tp))
     w_uk = p["w_uk"].reshape(m.kv_lora_rank, h, m.qk_nope_head_dim)
     q_lat = torch.einsum("bshn,rhn->bshr", q_nope, w_uk)  # absorb W_UK
     scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
@@ -352,4 +408,4 @@ def mla_attention_decode(p, x, cfg, cos, sin, c_kv_cache, k_rope_cache,
     ctx_lat = torch.einsum("bhst,btr->bshr", probs, c_kv_cache)
     w_uv = p["w_uv"].reshape(m.kv_lora_rank, h, m.v_head_dim)
     ctx = torch.einsum("bshr,rhv->bshv", ctx_lat, w_uv)   # absorb W_UV
-    return ctx.reshape(b, 1, h * m.v_head_dim) @ p["wo"]
+    return _mla_out(p, ctx.reshape(b, 1, h * m.v_head_dim), tp)

@@ -19,6 +19,16 @@ place. ``forward(remat_policy=)`` checkpoints each encoder and decoder
 layer under any policy but "none", as the reference's ``jax.checkpoint``
 around both layer scans ("dots" too is a full checkpoint there); its
 default is "none", as ``models/transformer``'s says why.
+
+Tensor parallelism, as in ``models/transformer``: under a step's mesh
+context on a 'model' axis of more than 1 the encoder's and the decoder's
+self- and cross-attention compute the rank's q heads and the KV heads
+they read (``attention.gqa_qkv``/``gqa_q``/``gqa_out``; the grouping is
+read from the shapes, q heads over KV heads), the MLPs the rank's share
+of ``d_ff``, the tied embedding its vocab rows; ``dec_pos`` and the
+sinusoidal table are replicated, and the serving logits are made whole
+(``common.whole_logits``). The cross cache holds the rank's KV heads,
+as the self cache does (``serve/kvcache.init_cache``).
 """
 from __future__ import annotations
 
@@ -31,7 +41,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import ffn
 from repro_torch.models.common import (
     DTYPES, apply_norm, embed_init, embed_tokens, init_embedding, init_norm,
-    lm_logits, pdtype, sinusoidal_positions)
+    lm_logits, pdtype, sinusoidal_positions, whole_logits)
 from repro_torch.models.transformer import (_layers, _remat, _stack,
                                            full_attention, init_stack)
 from repro_torch.serve import kvcache
@@ -79,10 +89,9 @@ def _enc_positions(n_pos: int, d_model: int, device, dtype):
 
 
 def _enc_layer(lp, h, cfg):
-    lo = attn.layout_from_cfg(cfg)
     q, k, v = attn.gqa_qkv(lp["attn"], apply_norm(lp["ln1"], h, cfg), cfg)
-    h = h + attn.gqa_out(lp["attn"],
-                         full_attention(q, k, v, lo.gp, causal=False), cfg)
+    h = h + attn.gqa_out(lp["attn"], full_attention(
+        q, k, v, q.shape[2] // k.shape[2], causal=False), cfg)
     return h + ffn.apply_mlp(lp["mlp"], apply_norm(lp["ln2"], h, cfg), cfg)
 
 
@@ -100,18 +109,18 @@ def _dec_block(lp, h, enc_out, cfg, *, self_cache=None, cross_kv=None,
     """One decoder block. self_cache given => decode (S==1), with the
     cross-attention's cached (k, v) in ``cross_kv``. Returns (h, collected
     self k/v, collected cross k/v, updated self cache slice)."""
-    lo = attn.layout_from_cfg(cfg)
     ain = apply_norm(lp["ln1"], h, cfg)
     q, k, v = attn.gqa_qkv(lp["self_attn"], ain, cfg)
+    gp = q.shape[2] // k.shape[2]     # q heads a KV head (this rank's)
     new_self = collected = None
     if self_cache is not None:
         new_self = kvcache.write_kv_layer(self_cache, k, v, pos)
         kf, vf = kvcache.read_kv_layer(new_self, h.dtype)
         k_valid = (torch.arange(kf.shape[1], device=h.device)[None]
                    <= pos[:, None])
-        ctx = attn.sdpa(q, kf, vf, causal=False, k_valid=k_valid, gp=lo.gp)
+        ctx = attn.sdpa(q, kf, vf, causal=False, k_valid=k_valid, gp=gp)
     else:
-        ctx = full_attention(q, k, v, lo.gp, causal=True)
+        ctx = full_attention(q, k, v, gp, causal=True)
         if collect:
             collected = {"k": k, "v": v}
     h = h + attn.gqa_out(lp["self_attn"], ctx, cfg)
@@ -119,14 +128,13 @@ def _dec_block(lp, h, enc_out, cfg, *, self_cache=None, cross_kv=None,
     xin = apply_norm(lp["ln_x"], h, cfg)
     if cross_kv is not None:
         kx, vx = cross_kv
-        qx = xin @ lp["cross_attn"]["wq"]
-        if "bq" in lp["cross_attn"]:
-            qx = qx + lp["cross_attn"]["bq"]
-        qx = qx.reshape(*xin.shape[:2], lo.hp, cfg.head_dim)
-        ctx_x = attn.sdpa(qx, kx, vx, causal=False, gp=lo.gp)
+        qx = attn.gqa_q(lp["cross_attn"], xin, cfg)
+        ctx_x = attn.sdpa(qx, kx, vx, causal=False,
+                          gp=qx.shape[2] // kx.shape[2])
     else:
         qx, kx, vx = attn.gqa_qkv(lp["cross_attn"], xin, cfg, kv_x=enc_out)
-        ctx_x = full_attention(qx, kx, vx, lo.gp, causal=False)
+        ctx_x = full_attention(qx, kx, vx, qx.shape[2] // kx.shape[2],
+                               causal=False)
     h = h + attn.gqa_out(lp["cross_attn"], ctx_x, cfg)
 
     h = h + ffn.apply_mlp(lp["mlp"], apply_norm(lp["ln2"], h, cfg), cfg)
@@ -171,7 +179,7 @@ def prefill(params, batch, cfg, *, kv_dtype="bfloat16", last_only=False,
                                device=logits.device)}
     for name in ("self", "cross"):
         cache[name] = {k: v.to(cache_dt) for k, v in pieces[name].items()}
-    return logits[:, -1], cache
+    return whole_logits(logits[:, -1], cfg), cache
 
 
 def decode_step(params, cache, batch, cfg, **_):
@@ -189,4 +197,4 @@ def decode_step(params, cache, batch, cfg, **_):
     h = apply_norm(params["final_norm"], h, cfg)
     logits = lm_logits(params, params["embed"], h, cfg)
     cache["pos"] = pos + 1
-    return logits[:, -1], cache
+    return whole_logits(logits[:, -1], cfg), cache

@@ -21,11 +21,24 @@ What differs from the reference, and why:
   slot) outputs and sums them in the order of its top-k choices, in f32,
   then casts to the activations' dtype once: one prefill gives the same
   bits on every run.
-* No sharding calls in the MoE. The reference constrains the routing
-  tensors to its mesh (``policy.ctx_constrain``); the port's moe family
-  runs its experts whole on every rank (``launch/steps``). The dense MLP
-  splits ``d_ff`` over 'model' under a step's mesh context
-  (``apply_mlp``).
+* Expert parallelism. The reference keeps the stacked experts sharded
+  over 'model' and constrains the routing tensors to its mesh
+  (``policy.ctx_constrain``), so that each shard gathers and computes its
+  own experts' tokens. Here, under a step's mesh context on a 'model'
+  axis of more than 1 (``policy.ctx_tp``) where the policy splits the
+  stack (``w_gate_e`` holds E / n experts), the rank holds experts
+  [rank E/n, (rank+1) E/n). The tokens are the same on every rank (the
+  attention before sums its heads over the ranks), so every rank routes
+  them whole, as one card does, and drops the same ones; it then runs
+  its own experts' tokens, sums each token's kept choices that fall on
+  them, and the ranks' f32 partial sums are all-reduced
+  (``policy.reduce_from_tp``): an all-reduce of activation size, no
+  all-to-all. The router is replicated; its out-path gradient comes
+  through this rank's experts only, so the gate tensor and the tokens
+  enter them through ``policy.copy_to_tp`` (the backward sums them over
+  the ranks), while the aux loss, computed whole on every rank, takes
+  none. The dense MLP and the shared experts split ``d_ff`` over
+  'model' (``apply_mlp``).
 
 The expert products are batched matmuls (``torch.einsum``), as they are
 plain einsums in the reference: no Pallas kernel computes them.
@@ -63,15 +76,16 @@ def init_mlp(gen, cfg, d_ff: int | None = None, gated: bool | None = None,
             "b_out": torch.zeros((cfg.d_model,), dtype=dt, device=device)}
 
 
-def apply_mlp(p, x, cfg):
-    """Under a 'model' split of ``d_ff`` (``policy.ctx_tp``, the hidden
-    width of ``p`` a share of ``cfg.d_ff``): ``w_gate``/``w_up``/``w_in``/
-    ``b_in`` column-parallel, ``w_down``/``w_out`` row-parallel and summed
-    over the ranks, ``b_out`` added once after the sum."""
+def apply_mlp(p, x, cfg, d_ff: int | None = None):
+    """Under a 'model' split of the hidden width (``policy.ctx_tp``, the
+    hidden width of ``p`` a share of ``d_ff``, by default ``cfg.d_ff``):
+    ``w_gate``/``w_up``/``w_in``/``b_in`` column-parallel,
+    ``w_down``/``w_out`` row-parallel and summed over the ranks, ``b_out``
+    added once after the sum."""
     act = activation(cfg.act)
     tp = policy.ctx_tp()
     if tp is not None and p["w_down" if "w_gate" in p else "w_out"
-                           ].shape[0] == cfg.d_ff:
+                           ].shape[0] == (d_ff or cfg.d_ff):
         tp = None
     if tp is not None:
         x = policy.copy_to_tp(x, tp)
@@ -140,9 +154,12 @@ def _sort_desc(x):
     return torch.sort(x, dim=-1, descending=True, stable=True)
 
 
-def route(p, xg, cfg, cap: int) -> Routing:
+def route(p, xg, cfg, cap: int, tp=None) -> Routing:
     """Router softmax, each token's top-k experts (renormalized weights),
-    and each expert's top-``cap`` tokens of a (G,Tg,d) group tensor."""
+    and each expert's top-``cap`` tokens of a (G,Tg,d) group tensor, for
+    all E experts. tp: the 'model' axis whose ranks each run a share of
+    the experts (``apply_moe``); the gate tensor then enters the experts'
+    selection through ``policy.copy_to_tp``."""
     moe = cfg.moe
     g, tg, _ = xg.shape
     # bf16 inputs, f32 products and sums (the reference's
@@ -154,6 +171,8 @@ def route(p, xg, cfg, cap: int) -> Routing:
     topv, topi = vals[..., :moe.top_k], idx[..., :moe.top_k]
     topv = topv / topv.sum(-1, keepdim=True)                   # renorm
     gate = torch.zeros_like(probs).scatter_(-1, topi, topv)    # (G,Tg,E)
+    if tp is not None:
+        gate = policy.copy_to_tp(gate, tp)
     sel_gate, sel_idx = (t[..., :cap] for t in
                          _sort_desc(gate.transpose(1, 2)))     # (G,E,C)
     # slot_of[g, e, t]: where expert e keeps token t (-1: not kept); then
@@ -168,6 +187,16 @@ def route(p, xg, cfg, cap: int) -> Routing:
     return Routing(probs, topi, sel_gate, sel_idx, slot)
 
 
+def _expert_split(p, cfg):
+    """The ambient 'model' axis when ``p``'s expert stack is split over it
+    (``w_gate_e`` holds E / n experts), else None: the experts run
+    whole."""
+    tp = policy.ctx_tp()
+    if tp is None or p["w_gate_e"].shape[0] == cfg.moe.num_experts:
+        return None
+    return tp
+
+
 def apply_moe(p, x, cfg, n_groups: int = 1, dp_mean=None):
     """x (B, S, d) -> (out (B,S,d), aux_loss scalar f32).
 
@@ -176,7 +205,9 @@ def apply_moe(p, x, cfg, n_groups: int = 1, dp_mean=None):
     where each rank holds one routing group of the reference's batch:
     the aux loss's token fractions are then the whole batch's, so the
     ranks' aux losses average to the reference's (its gradient flows
-    through the router probabilities only)."""
+    through the router probabilities only). Under a 'model' split of the
+    experts (``_expert_split``) each rank computes its experts' share of
+    the output (the module docstring)."""
     moe = cfg.moe
     b, s, d = x.shape
     t = b * s
@@ -184,27 +215,42 @@ def apply_moe(p, x, cfg, n_groups: int = 1, dp_mean=None):
     tg = t // g
     cap = moe_capacity(tg, cfg)
     xg = x.reshape(g, tg, d)
-    r = route(p, xg, cfg, cap)
+    tp = _expert_split(p, cfg)
+    r = route(p, xg, cfg, cap, tp)
+    n_e = p["w_gate_e"].shape[0]              # this rank's experts
+    e0 = 0 if tp is None else tp.rank * n_e
+    sel_gate = r.sel_gate[:, e0:e0 + n_e]
+    sel_idx = r.sel_idx[:, e0:e0 + n_e]
+    src = xg if tp is None else policy.copy_to_tp(xg, tp)
 
-    xe = xg.gather(1, r.sel_idx.reshape(g, -1, 1).expand(-1, -1, d)
-                   ).reshape(g, moe.num_experts, cap, d)
+    xe = src.gather(1, sel_idx.reshape(g, -1, 1).expand(-1, -1, d)
+                    ).reshape(g, n_e, cap, d)
     act = activation(cfg.act)
     h = act(torch.einsum("gecd,edf->gecf", xe, p["w_gate_e"]))
     h = h * torch.einsum("gecd,edf->gecf", xe, p["w_up_e"])
     ye = torch.einsum("gecf,efd->gecd", h, p["w_down_e"])
-    ye = ye * r.sel_gate[..., None].to(ye.dtype)               # weight
+    ye = ye * sel_gate[..., None].to(ye.dtype)                 # weight
 
-    # the combine: each token sums its kept choices' outputs, best first
-    flat = ye.reshape(g, moe.num_experts * cap, d)
+    # the combine: each token sums its kept choices' outputs on this
+    # rank's experts, best first, in f32; the ranks' sums are added in f32
+    # and cast once
+    flat = ye.reshape(g, n_e * cap, d)
     out = torch.zeros((g, tg, d), dtype=torch.float32, device=x.device)
     for j in range(moe.top_k):
-        kept = r.slot[..., j] >= 0
-        at = r.topi[..., j] * cap + r.slot[..., j].clamp(min=0)
+        e, kept = r.topi[..., j], r.slot[..., j] >= 0
+        if tp is not None:                    # this rank's experts' choices
+            e = e - e0
+            kept = kept & (e >= 0) & (e < n_e)
+            e = e.clamp(0, n_e - 1)
+        at = e * cap + r.slot[..., j].clamp(min=0)
         yj = flat.gather(1, at[..., None].expand(-1, -1, d))
         out += torch.where(kept[..., None], yj.to(torch.float32), 0.0)
+    if tp is not None:
+        out = policy.reduce_from_tp(out, tp)
     out = out.to(x.dtype)
     if "shared" in p:
-        out = out + apply_mlp(p["shared"], xg, cfg)
+        out = out + apply_mlp(p["shared"], xg, cfg, d_ff=(
+            moe.num_shared_experts * moe.d_ff_shared))
 
     # Switch-style load-balance aux loss
     counts = torch.zeros_like(r.probs).scatter_(-1, r.topi, 1.0)

@@ -41,11 +41,13 @@ in the forward and once when the backward recomputes it).
 
 Tensor parallelism: under a step's mesh context on a 'model' axis of
 more than 1 (``sharding.policy.use_ctx_mesh``; ``launch/steps`` enters
-it for the dense, vlm, ssm and hybrid families), each leaf of
-``params`` is this rank's 'model' shard and the blocks compute their
-share: the vocab rows of the embedding and the head (vocab-parallel
-logits, made whole for serving by ``common.whole_logits``), the q heads
-and the KV heads they read (``attention``), ``d_ff`` (``ffn.apply_mlp``)
+it), each leaf of ``params`` is this rank's 'model' shard and the blocks
+compute their share: the vocab rows of the embedding and the head
+(vocab-parallel logits, made whole for serving by
+``common.whole_logits``), the q heads and the KV heads they read, or
+MLA's heads over the whole latent (``attention``), ``d_ff``
+(``ffn.apply_mlp``), the experts (``ffn.apply_moe``: every rank routes
+all tokens, runs its own experts, and the ranks' outputs are summed)
 and the SSM heads (``ssm.apply_ssm``); zamba2's shared block and the
 vlm's M-RoPE path ride on the same dense block, and ``init_cache`` holds
 the rank's heads. Without the context the code dispatches no collective

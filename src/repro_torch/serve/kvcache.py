@@ -19,8 +19,10 @@ Layouts (stacked over layers):
 
 Under a step's mesh context on a 'model' axis of more than 1
 (``sharding.policy.use_ctx_mesh``), ``init_cache`` holds this rank's KV
-heads and SSM heads (``attention.cache_kv_heads``,
-``ssm.init_ssm_cache``), as the rank's prefill writes them.
+heads (the self cache, the audio family's cross cache too) and SSM heads
+(``attention.cache_kv_heads``, ``ssm.init_ssm_cache``), as the rank's
+prefill writes them; MLA's latent cache is whole and the same on every
+rank (each rank folds its heads' up-projections over it).
 
 Unlike the reference, ``write_kv_layer`` writes the new token into the
 cache tensors in place (the reference returns a new cache): a decode step

@@ -1,8 +1,9 @@
-"""The tensor-parallel steps on NCCL ranks, one card a rank: chip_smoke.py's
-``== tensor parallel`` phase (two gloo ranks sharing one card, since NCCL
-refuses two ranks on one card) on a machine with several cards.
+"""The tensor-parallel and context-parallel steps on NCCL ranks, one card a
+rank: chip_smoke.py's ``== tensor parallel`` and ``== context parallel``
+phases (gloo ranks sharing one card, since NCCL refuses two ranks on one
+card) on a machine with several cards.
 
-    python3 benchmarks/torch_tp_nccl.py     # from the repo root
+    python3 benchmarks/torch_tp_nccl.py [--part tp|cp|all]   # repo root
 
 Needs two or more cards: a (data 1, model 2) mesh, and (data 1, model 4)
 where four are present. On each mesh, chip_smoke.tp_check's lines:
@@ -16,22 +17,36 @@ one-rank path's on rank 0's card, the prefill logits and greedy tokens
 held against it, the MoE routing hashes equal on every rank and on one
 card; and f32 train steps of zamba2-1.2b (8 x 512) and phi3.5-moe (1
 layer, 2 x 256) held against the one-rank step (loss, each leaf's
-gradient). Prints the cards' name and power limit (nvidia-smi) first.
+gradient). Then (``--part cp``) the context-parallel decode on (data 2,
+model 1), (data 4, model 1) and (data 2, model 2) where the cards are
+there: chip_smoke.cp_check's lines, zamba2-1.2b whole at long_500k
+(batch 1, the cache's 524288 positions split over 'data'), a prompt and
+greedy steps from its end and across the middle blocks' edge, held
+against the one-rank path on the first card (bf16 logits within 0.05
+of the largest and tokens equal but for near-ties; f32 at seq_len 65536
+within 1e-5, tokens equal). Prints the cards' name and power limit
+(nvidia-smi) first.
 """
 from __future__ import annotations
 
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
     import torch
 
     import chip_smoke
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--part", choices=("tp", "cp", "all"), default="all")
+    part = ap.parse_args(argv).part
     cards = torch.cuda.device_count()
     if cards < 2:
         print(f"needs two cards, this machine has {cards}", file=sys.stderr)
@@ -42,12 +57,22 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import build
     build.build_all()            # once, before the ranks load the kernels
-    for n in (2, 4):
+    dev = torch.device("cuda")
+    for n in (2, 4) if part != "cp" else ():
         if n > cards:
             break
         print(f"== (data 1, model {n}), {n} NCCL ranks", flush=True)
-        chip_smoke.tp_check(torch.device("cuda"),
-                            dict(chip_smoke.FULL["tp"], model=n), "nccl", 0)
+        chip_smoke.tp_check(dev, dict(chip_smoke.FULL["tp"], model=n),
+                            "nccl", 0)
+    for data, model in ((2, 1), (4, 1), (2, 2)) if part != "tp" else ():
+        if data * model > cards:
+            continue
+        print(f"== context parallel (data {data}, model {model}), "
+              f"{data * model} NCCL ranks", flush=True)
+        t0 = time.perf_counter()
+        chip_smoke.cp_check(dev, dict(chip_smoke.FULL["cp"], data=data,
+                                      model=model), "nccl", 31)
+        print(f"  {time.perf_counter() - t0:.1f} s", flush=True)
     return 0
 
 

@@ -281,6 +281,30 @@
    TRAIN_GRAD_TOL. Each per-rank flash and SSD shape is then held
    against its plain version and timed (rows of the kernels line;
    ``tp_launches`` both ranks' launches).
+   Context parallel: two gloo ranks on the one card on a (data 2, model
+   1) mesh, zamba2-1.2b whole (random bf16 weights at published widths)
+   at long_500k: batch 1, the decode cache's 524288 positions split over
+   'data', 262144 a rank, as the reference's ``cache_pspecs`` splits
+   them (``launch/steps``: each rank prefills the 512-token prompt whole
+   through the flash and SSD kernels and keeps its block). Each rank
+   takes 4 greedy steps from position 512 (rank 1's block holds no
+   valid key), then, positions [0, 262140) filled from the seed at the
+   prefill's k/v RMS and the prompt's SSM state kept, 8 greedy steps
+   across the edge of rank 0's block. The weights are ZeRO over 'data'
+   (the reference's long_500k placement) for the prefill and the short
+   steps, which gather them each step, then placed whole for the long
+   steps (the reason printed). It prints each rank's cache against the
+   whole (0.500 of the k/v), its peak memory, its decode ms a step (gloo
+   through the host: a correctness phase, not speed), the combine's
+   collectives a step, one gather's ms and its launches (counts reset
+   just before the prefill, read after the last step). After the
+   ranks exit, the one-rank path (the whole cache) on the same card:
+   logits within CP_LOGIT_TOL of the largest and greedy tokens equal but
+   for a first difference at a near-tie; then the same in f32 at
+   seq_len 65536 (weights whole on every rank, the reason printed):
+   logits within 1e-5 of the largest and tokens equal. The prefill's
+   per-rank flash and SSD shapes are held against their plain versions
+   and timed (``cp_launches`` both ranks' launches).
 5. Kernel entry points (``kernels/ops``), the twin of the reference's
    ``bench_transform_kernel`` at the query path's width: a chunk of 256
    dyadic 224 px frames through ``pyramid_transform_op`` with all 20
@@ -419,6 +443,15 @@ MOE_TP_TOL = 2.0 ** -6
 # prefill's dropped choices are counted and printed.
 TP_MOE_PREFILL_FACTOR = 4.0
 
+# the context-parallel phase against the one-rank path: logits within
+# this share of the largest |logit| (bf16: the two paths' softmax sums
+# over 262144 positions a rank round in another order; f32: the order
+# alone)
+CP_LOGIT_TOL = {"bfloat16": 0.05, "float32": 1e-5}
+CP_WHOLE_WHY = ("gathering zamba2-1.2b's 2.34 GB of bf16 weights through "
+                "the host each step (two gloo ranks on one card: the "
+                "gather's ms are printed below) would take most of the "
+                "phase's time")
 # the moe/MLA/vlm/audio phase: (arch, depth served, depth of the f32
 # consistency check); None: the published depth. phi3.5-moe's 16 layers
 # are ~42 GB of bf16 weights, deepseek-v2's 4 ~34 GB, qwen2-vl's 4 ~12 GB.
@@ -483,7 +516,16 @@ FULL = dict(base=224, chunk=256, out_res=(112, 56, 28), split=512,
                     train=(dict(arch="zamba2-1.2b", layers=None, batch=8,
                                 seq=512),
                            dict(arch="phi3.5-moe-42b-a6.6b", layers=1,
-                                batch=2, seq=256))))
+                                batch=2, seq=256))),
+            # the context-parallel phase: zamba2-1.2b whole at long_500k
+            # (batch 1) on a (data 2, model 1) mesh, its bf16 cache at
+            # seq_len 524288 (12.9 GB a rank), the f32 check at 65536
+            # (3.2 GB a rank); a prompt, greedy steps from the prompt's end
+            # and from the middle of the sequence; the weights' placement
+            cp=dict(full=True, arch="zamba2-1.2b", data=2, prompt=512,
+                    short=4, steps=8, chunk=8192, timeout=420,
+                    seq={"bfloat16": 524288, "float32": 65536},
+                    zero={"bfloat16": True, "float32": False}))
 # the rehearsal's few steps teach its toy models little: no learning floor
 REHEARSE = dict(base=32, chunk=32, out_res=(16, 8, 4), split=48, train=48,
                 steps=3, floors=(0.0, 0.0), pinned=False, corpus=96,
@@ -523,7 +565,11 @@ REHEARSE = dict(base=32, chunk=32, out_res=(16, 8, 4), split=48, train=48,
                         train=(dict(arch="zamba2-1.2b", layers=None,
                                     batch=4, seq=64),
                                dict(arch="phi3.5-moe-42b-a6.6b", layers=1,
-                                    batch=2, seq=32))))
+                                    batch=2, seq=32))),
+                cp=dict(full=False, arch="zamba2-1.2b", data=2, prompt=8,
+                        short=4, steps=8, chunk=8, timeout=300,
+                        seq={"bfloat16": 64, "float32": 32},
+                        zero={"bfloat16": True, "float32": False}))
 
 
 def log(msg: str) -> None:
@@ -592,6 +638,10 @@ def main(argv=None) -> int:
     for name, n in phase(tensor_parallel_path, dev, cfg, card, kern,
                          args.seed, tp_ranks).items():
         kern[name]["tp_launches"] = n
+        launches[name] += n
+    for name, n in phase(context_parallel_path, dev, cfg, card, kern,
+                         args.seed).items():
+        kern[name]["cp_launches"] = n
         launches[name] += n
     launches.update(phase(ops_path, dev, cfg, card, kern, args.seed))
     log(f"all phases: {time.perf_counter() - t_run:.1f} s")
@@ -5259,6 +5309,450 @@ def _tp_train(mesh, dev, rank, tp, seed, tr):
                 grad_rel=rel[worst], grad_worst=names[worst])
 
 
+# ----------------------------------------------------------- phase 4g --
+def context_parallel_path(dev, cfg, card, kern, seed):
+    """Context-parallel decode (``launch/steps`` on a batch that does not
+    split over the data-parallel axes): two gloo ranks on the one card on
+    a (data 2, model 1) mesh, zamba2-1.2b at long_500k, each rank holding
+    its block of the decode cache's sequence, held against the one-rank
+    path (``cp_check``). Then the prefill's per-rank flash and SSD shapes
+    are held against their plain versions and timed. Returns both ranks'
+    launches in the bf16 run."""
+    import torch
+    cp = cfg["cp"]
+    log("== context parallel")
+    t0 = time.perf_counter()
+    res = cp_check(dev, cp, "gloo", seed + 31)
+    parts = [r["runs"]["bfloat16"] for r in res]
+    counts = {k: sum(p["launches"][k] for p in parts)
+              for k in ("flash_attention", "ssd_scan")}
+    gen = torch.Generator(device=dev).manual_seed(seed + 37)
+    note = f"{res[0]['name']} prefill on a rank of ({cp['data']}, 1)"
+    for b, h, s, t, d, causal, _ in parts[0]["expect"]["flash_shapes"]:
+        flash_row(dev, card, kern, cfg["iters"], gen, (b, h, s, d),
+                  "context-parallel rank", note,
+                  counts["flash_attention"], t=t, causal=causal)
+    for b, s, h, pp, nn, _ in parts[0]["expect"]["ssd_shapes"]:
+        ssd_row(dev, card, kern, cfg["iters"], gen, (b, s, h, pp), nn,
+                parts[0]["chunk"], note, counts["ssd_scan"])
+    log(f"  the phase: {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
+def cp_check(dev, cp, backend, seed):
+    """``cp["data"] x cp.get("model", 1)`` ranks on a (data, model) mesh
+    (``_cp_rank``: gloo ranks on one card, or on the CPU in the
+    rehearsal, or NCCL ranks, one card each), each holding its block of
+    the decode cache's sequence; after they exit (their blocks beside a
+    whole cache would not fit one card), the one-rank path on the first
+    card against their logits and tokens (``_cp_one``, ``_cp_hold``).
+    Prints each rank's lines; returns the ranks' results."""
+    import shutil
+    import socket
+
+    import torch
+    import torch.multiprocessing as mp
+    t0 = time.perf_counter()
+    n_model = cp.get("model", 1)
+    world = cp["data"] * n_model
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    out_dir = ROOT / "build" / "context_parallel"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    ctx = mp.start_processes(_cp_rank, args=(port, backend, dev.type, cp,
+                                             seed, str(out_dir)),
+                             nprocs=world, join=False, start_method="spawn")
+    while not ctx.join(timeout=1):
+        if time.perf_counter() > t0 + cp["timeout"]:
+            for proc in ctx.processes:
+                proc.kill()
+            raise AssertionError(f"context parallel: the ranks did not "
+                                 f"finish in {cp['timeout']} s")
+    res = [torch.load(out_dir / f"rank{r}.pt", weights_only=False)
+           for r in range(world)]
+    shutil.rmtree(out_dir)
+    where = ("one card, gloo: the collectives' CUDA tensors stage through "
+             "the host" if backend == "gloo" and dev.type == "cuda" else
+             f"{backend}, one card a rank" if dev.type == "cuda" else
+             "gloo on the CPU (rehearsal)")
+    r0 = res[0]
+    log(f"  {world} ranks on a (data {cp['data']}, model {n_model}) mesh "
+        f"({where}) in {time.perf_counter() - t0:.1f} s; a correctness "
+        f"run, not speed")
+    log(f"  {r0['name']} ({r0['cut']}), long_500k: batch 1; a "
+        f"{cp['prompt']}-token prompt prefilled whole on every rank (flash "
+        f"+ SSD) and placed into its blocks; {cp['short']} greedy steps from "
+        f"position {cp['prompt']} (only the first block holds valid keys); "
+        f"then positions [0, at) filled from the seed at the prefill's k/v "
+        f"RMS, the prompt's SSM state kept, and {cp['steps']} greedy steps "
+        f"from at = seq_len / 2 - 4 (across the edge of the middle blocks)")
+    for dt in ("bfloat16", "float32"):
+        parts = [r["runs"][dt] for r in res]
+        p0 = parts[0]
+        log(f"  {dt} cache: seq_len {p0['seq']}, at {p0['at']}; weights "
+            f"{p0['weights']}")
+        for p in parts:
+            log(f"    rank {p['rank']} (data {p['coord'][0]}, model "
+                f"{p['coord'][1]}): cache {_mb(p['cache_bytes'])} of the "
+                f"one-rank path's {_mb(p['whole_bytes'])} "
+                f"({p['cache_bytes'] / p['whole_bytes']:.3f}; its "
+                f"shared-attention k/v {p['kv_frac']:.3f} of theirs); peak "
+                f"allocated {_mb(p['peak'])}; prefill {p['prefill_ms']:.1f} "
+                f"ms; decode {p['short_ms']:.1f} ms/step from "
+                f"{cp['prompt']}, {p['long_ms']:.1f} ms/step from "
+                f"{p['at']} ({where.split(':')[0]}); the combine's "
+                f"collectives a step {p['collectives']}; the weights' "
+                f"gather over 'data' (``steps._local``) "
+                + (f"{p['gather_ms']:.1f} ms" if p["gather_ms"]
+                   is not None else "not run (whole weights)")
+                + (f"; launches {p['launches']}, flash {p['flash_shapes']}, "
+                   f"ssd {p['ssd_shapes']}" if dt == "bfloat16" else ""))
+        same = all(torch.equal(p["tokens"][k], p0["tokens"][k])
+                   and torch.equal(p["logits"][k], p0["logits"][k])
+                   for p in parts[1:] for k in ("short", "long"))
+        one = _cp_one(dev, cp, seed, dt)
+        _cp_hold(dt, p0, one, same, n_model)
+        if dev.type == "cuda" and dt == "bfloat16":
+            for p in parts:
+                if p["launches"] != p["expect"]["launches"] or \
+                        [list(k) + [n] for k, n in p["flash_shapes"]] \
+                        != p["expect"]["flash_shapes"] or \
+                        [list(k) + [n] for k, n in p["ssd_shapes"]] \
+                        != p["expect"]["ssd_shapes"]:
+                    raise AssertionError(f"context-parallel rank "
+                                         f"{p['rank']} launches: "
+                                         f"{p['launches']} != {p['expect']}")
+    return res
+
+
+def _cp_hold(dt, got, one, ranks_equal, n_model=1):
+    """Print and hold one dtype's run of the ranks (``got``: rank 0's;
+    every rank's tokens and logits equal, ``ranks_equal``) against the
+    one-rank path's (``one``): logits within CP_LOGIT_TOL[dt] of the
+    largest |logit| up to each run's first differing token (on a 'model'
+    axis of ``n_model`` > 1 the tensor-parallel phase's tolerances: its
+    row-parallel sums move the prefill's logits too), and tokens equal
+    (in bf16 but for a first difference at a near-tie)."""
+    tol = (CP_LOGIT_TOL[dt] if n_model == 1 else
+           TP_LOGIT_TOL if dt == "bfloat16" else CONSIST_TOL)
+    pre = float((got["prefill_logits"] - one["prefill_logits"]).abs().max())
+    line = [f"    {dt} against the one-rank path (mesh (1, 1), the whole "
+            f"cache; decode {one['long_ms']:.1f} ms/step from "
+            f"{got['at']}): prefill logits max |diff| {pre:.4g}; every rank's "
+            f"tokens and logits equal: {ranks_equal}"]
+    bad = not ranks_equal
+    for k in ("short", "long"):
+        g, w, top2 = got["tokens"][k], one["tokens"][k], one["top2"][k]
+        first, tie = first_divergence(g[0], w[0], top2[0])
+        upto = len(g[0]) if first is None else first + 1
+        diff = float((got["logits"][k][:upto] - one["logits"][k][:upto])
+                     .abs().max())
+        top = float(one["logits"][k][:upto].abs().max())
+        line.append(f"{k} ({len(g[0]) - 1} steps from "
+                    f"{got['at'] if k == 'long' else got['prompt']}): logits "
+                    f"max |diff| {diff:.4g} of max |logit| {top:.4g} "
+                    f"({diff / top:.3g}, tol {tol:g}) up to "
+                    + ("the end" if first is None else f"step {first}")
+                    + f"; tokens {g[0].tolist()} vs {w[0].tolist()}: "
+                    + ("equal" if first is None else
+                       f"first differ at step {first}"
+                       + (" (a near-tie)" if tie else ""))
+                    + f"; {int(near_ties(top2).sum())} near-ties among the "
+                      f"one-rank path's tokens")
+        bad |= diff / top > tol or (first is not None and (
+            dt == "float32" or not tie))
+    log("; ".join(line))
+    if bad:
+        raise AssertionError(f"context-parallel {dt}: {line}")
+
+
+def _cp_arch(cp, dt):
+    from repro_torch.configs.registry import get_arch, smoke_config
+    arch = get_arch(cp["arch"]) if cp["full"] else smoke_config(cp["arch"])
+    return arch.replace(dtype=dt)
+
+
+def _cp_greedy(dev, step, cache, logits, n):
+    """``n`` greedy steps from the prefill's ``logits`` (1, Vp) through
+    ``step`` (cache, host batch) -> (logits, cache): (tokens (1, n + 1),
+    the logits each token was taken from (n + 1, Vp) f32 on the host,
+    their top two (1, n + 1, 2), ms a step)."""
+    import torch
+    tok = logits.argmax(-1)
+    toks, lgs = [tok], [logits.float()]
+    _sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        logits, cache = step(cache, {"tokens": tok[:, None].cpu()})
+        tok = logits.argmax(-1)
+        toks.append(tok)
+        lgs.append(logits.float())
+    _sync(dev)
+    ms = (time.perf_counter() - t0) * 1e3 / max(n, 1)
+    lg = torch.cat(lgs).cpu()
+    return (torch.stack(toks, 1).cpu(), lg, lg.topk(2, -1).values[None],
+            ms)
+
+
+def _cp_sumsq(cache, n):
+    """(2, J): the sum of squares of the shared-attention k and v at the
+    prompt's positions [0, n) that this rank's blocks hold, a pass each."""
+    import torch
+    kv = cache["shared_attn"]
+    return torch.stack([kv[k][:, :, :n].float().pow(2).sum((1, 2, 3, 4))
+                        for k in ("k", "v")]).cpu()
+
+
+def _cp_fill(cache, rms, at, seed, chunk, start, heads):
+    """Positions [0, at) of the shared-attention k/v that this block (from
+    position ``start``; KV heads from ``heads[0]`` of ``heads[1]``)
+    holds, drawn chunk by chunk on the card from generators seeded by
+    (pass, k or v, chunk): the same values on every rank and on the
+    one-rank path; N(0, rms^2) a pass and leaf."""
+    import torch
+    kv = cache["shared_attn"]
+    for i, name in enumerate(("k", "v")):
+        x = kv[name]                          # (J, B, t, KH, D)
+        t, kh = x.shape[2], x.shape[3]
+        for j in range(x.shape[0]):
+            for c0 in range(0, at, chunk):
+                lo, hi = max(c0, start), min(c0 + chunk, at, start + t)
+                if lo >= hi:
+                    continue
+                g = torch.Generator(device=x.device).manual_seed(
+                    seed * 1_000_003 + (2 * j + i) * 100_003 + c0 // chunk)
+                vals = torch.randn((x.shape[1], chunk, heads[1],
+                                    x.shape[4]), generator=g,
+                                   device=x.device)
+                x[j, :, lo - start:hi - start] = (
+                    vals[:, lo - c0:hi - c0, heads[0]:heads[0] + kh]
+                    * rms[i, j]).to(x.dtype)
+
+
+def _cp_run(dev, cp, seed, dt, prefill, step, start, heads=None,
+            reduce=None, long_step=None):
+    """One dtype's run on a rank (``step`` the decode step, ``start`` and
+    ``heads`` the rank's first position and (first KV head, all KV
+    heads)) or on the one-rank path: prefill, the short greedy steps,
+    the fill and the long greedy steps (through ``long_step()``'s step
+    where it is given). ``reduce``: the ranks' squares of the prompt's
+    k/v summed (their RMS)."""
+    import torch
+
+    from repro_torch.models.attention import layout_from_cfg
+    from repro_torch.train.optimizer import tree_map
+    arch = _cp_arch(cp, dt)
+    heads = heads or (0, layout_from_cfg(arch).khp)
+    seq = cp["seq"][dt]
+    at = seq // 2 - 4
+    prompt = torch.randint(0, arch.vocab_size, (1, cp["prompt"]),
+                           generator=torch.Generator().manual_seed(seed))
+    _sync(dev)
+    t0 = time.perf_counter()
+    logits, cache = prefill({"tokens": prompt})
+    _sync(dev)
+    out = dict(seq=seq, at=at, prompt=cp["prompt"],
+               prefill_ms=(time.perf_counter() - t0) * 1e3,
+               prefill_logits=logits.float().cpu(), tokens={}, logits={},
+               top2={})
+    state = tree_map(torch.clone, cache["ssm"])
+    sq = _cp_sumsq(cache, cp["prompt"])
+    if reduce is not None:
+        sq = reduce(sq)
+    kv = cache["shared_attn"]["k"]
+    rms = (sq / (cp["prompt"] * kv.shape[1] * heads[1] * kv.shape[4])
+           ).sqrt()
+    for k, n in (("short", cp["short"]), ("long", cp["steps"])):
+        if k == "long":
+            for name, x in state.items():
+                cache["ssm"][name].copy_(x)
+            _cp_fill(cache, rms, at, seed, cp["chunk"], start, heads)
+            cache["pos"].fill_(at)
+            if long_step is not None:
+                step = long_step()
+        toks, lg, top2, ms = _cp_greedy(dev, step, cache, logits, n)
+        out["tokens"][k], out["logits"][k], out["top2"][k] = toks, lg, top2
+        out[f"{k}_ms"] = ms
+    return out, cache
+
+
+def _cp_one(dev, cp, seed, dt):
+    """The one-rank path: the model on its whole weights (the ranks'
+    seed), the whole cache (``steps.place_cache`` on a (1, 1) mesh)."""
+    import torch
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import steps
+    from repro_torch.models.factory import build_model
+    from repro_torch.sharding.policy import MeshShape
+    model = build_model(_cp_arch(cp, dt))
+    params = model.init(torch.Generator(device=dev).manual_seed(seed),
+                        device=dev)
+    sc = ShapeConfig("cp", "decode", cp["seq"][dt], 1, kv_dtype=dt)
+    one = MeshShape(("data", "model"), (1, 1))
+
+    def prefill(batch):
+        logits, cache = model.prefill(
+            params, {k: v.to(dev) for k, v in batch.items()}, kv_dtype=dt)
+        return logits, steps.place_cache(cache, model, one, sc)
+    def decode(c, bt):
+        return model.decode(params, c, {k: v.to(dev) for k, v in bt.items()})
+    out, cache = _cp_run(dev, cp, seed, dt, prefill, decode, 0)
+    del cache, params
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def _cp_rank(rank, port, backend, device, cp, seed, out_dir):
+    """One rank of ``cp_check``: each dtype's run (``_cp_serve``) on the
+    (data, model) mesh; results to ``out_dir``."""
+    sys.path.insert(0, str(SRC))
+    one_card = backend == "gloo"
+    os.environ["LOCAL_RANK"] = "0" if one_card else str(rank)
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.device import resolve_device
+    from repro_torch.launch.mesh import make_mesh_compat
+    dev = resolve_device(torch.device(device, 0 if one_card else rank)
+                         if device == "cuda" else device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    shape = (cp["data"], cp.get("model", 1))
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=shape[0] * shape[1])
+    try:
+        mesh = make_mesh_compat(shape, ("data", "model"), device=dev.type)
+        out = {"rank": rank, "runs": {}}
+        for dt in ("bfloat16", "float32"):
+            out["runs"][dt] = _cp_serve(mesh, dev, rank, cp, seed, dt)
+        arch = _cp_arch(cp, "bfloat16")
+        out["name"] = arch.name
+        out["cut"] = ("published widths, all its layers" if cp["full"]
+                      else "smoke config")
+        torch.save(out, Path(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _cp_serve(mesh, dev, rank, cp, seed, dt):
+    """One dtype's run through the steps on this rank, launch counts
+    reset just before the prefill and read after the last step, the
+    combine's collectives counted. The weights: whole on every rank, or
+    (``cp["zero"]``) ZeRO over 'data', the reference's long_500k
+    placement, for the prefill and the short steps (each gathers them,
+    ``steps._local``), then gathered once more, timed, and placed whole
+    for the long steps (CP_WHOLE_WHY)."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch import costing, steps
+    from repro_torch.models.attention import layout_from_cfg
+    from repro_torch.models.factory import build_model
+    from repro_torch.sharding import policy
+    from repro_torch.train.optimizer import tree_map
+    arch = _cp_arch(cp, dt)
+    model = build_model(arch)
+    seq = cp["seq"][dt]
+    sc = ShapeConfig("cp", "decode", seq, 1, kv_dtype=dt)
+    zero = cp["zero"][dt]
+    params = model.init(torch.Generator(device=dev).manual_seed(seed),
+                        device=dev)
+    _, specs = steps.params_sds(model, mesh, tp_only=not zero)
+    placed = tree_map(torch.clone, policy.place(
+        params, mesh, policy.tree_map_with_path(
+            lambda _, s: policy.placements(s, mesh), specs)))
+    del params
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    pre = steps.make_prefill_step(model, mesh, sc)
+    dec = steps.make_decode_step(model, mesh, sc)
+    if not (pre.context_parallel and dec.context_parallel):
+        raise AssertionError(f"rank {rank}: the steps are not "
+                             f"context-parallel")
+    start = mesh.get_local_rank("data") * (seq // mesh.size(0))
+    lo = layout_from_cfg(arch)
+    heads = (0, lo.khp)
+    if mesh.size(1) > 1:
+        heads = (lo.rank_heads(mesh.size(1), mesh.get_local_rank("model"))
+                 .kv0, lo.khp)
+    calls = {"max": 0, "sum": 0}
+    wrapped = policy.max_dp, policy.sum_dp
+
+    def counting(name, fn):
+        def run(x, dp):
+            calls[name] += 1
+            return fn(x, dp)
+        return run
+
+    def reduce(sq):        # every rank's heads and blocks
+        return policy._all_reduce(sq.to(dev), "sum", dist.group.WORLD).cpu()
+    gather = []
+
+    def whole_step():
+        """The long steps' decode step, on the weights gathered whole."""
+        nonlocal placed
+        if zero:
+            _sync(dev)
+            t0 = time.perf_counter()
+            local = steps._locals(placed, mesh)
+            _sync(dev)
+            gather.append((time.perf_counter() - t0) * 1e3)
+            _, specs = steps.params_sds(model, mesh, tp_only=True)
+            placed = policy.tree_map_with_path(
+                lambda path, x: DTensor.from_local(x, mesh, policy.placements(
+                    policy.at_path(specs, path), mesh), run_check=False),
+                local)
+            del local
+        return lambda c, bt: dec(placed, c, bt)
+    ops.reset_launch_counts()
+    policy.max_dp, policy.sum_dp = (counting("max", wrapped[0]),
+                                    counting("sum", wrapped[1]))
+    try:
+        out, cache = _cp_run(dev, cp, seed, dt,
+                             lambda bt: pre(placed, bt),
+                             lambda c, bt: dec(placed, c, bt), start, heads,
+                             reduce, whole_step)
+    finally:
+        policy.max_dp, policy.sum_dp = wrapped
+    n_steps = cp["short"] + cp["steps"]
+    out.update(rank=rank, coord=tuple(mesh.get_coordinate()),
+               launches={k: ops.LAUNCHES[k] for k in (
+                   "flash_attention", "ssd_scan")},
+               flash_shapes=sorted(ops.FLASH_SHAPES.items()),
+               ssd_shapes=sorted(ops.SSD_SHAPES.items()),
+               collectives={k: v / n_steps for k, v in calls.items()},
+               peak=(torch.cuda.max_memory_allocated(dev)
+                     if dev.type == "cuda" else None),
+               cache_bytes=costing.tree_bytes(cache),
+               whole_bytes=costing.tree_bytes(steps.cache_specs_sds(
+                   model, sc, policy.MeshShape(("data", "model"), (1, 1)))),
+               kv_frac=cache["shared_attn"]["k"].shape[2] / seq,
+               weights=("ZeRO over 'data' (the reference's long_500k "
+                        "placement) for the prefill and the short steps, "
+                        "gathered whole each step; whole for the long "
+                        "steps: " if zero else "whole: ") + CP_WHOLE_WHY,
+               expect=_tp_expect(arch, mesh.size(1), 1, cp["prompt"]),
+               chunk=arch.ssm.chunk_size)
+    out["gather_ms"] = gather[0] if gather else None
+    del cache, placed
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    dist.barrier()
+    return out
+
+
 # ------------------------------------------------------------ phase 5 --
 def ops_path(dev, cfg, card, kern, seed):
     """The two transform kernels through the ``kernels/ops`` entry points
@@ -5521,7 +6015,7 @@ def kernels_line(kern, launches):
                                                "dense_launches",
                                                "families_launches",
                                                "training_launches",
-                                               "tp_launches")
+                                               "tp_launches", "cp_launches")
                        if key in k}})
     print(json.dumps({"kernels": out}), flush=True)
 

@@ -28,7 +28,10 @@ fake tensors placed by ``sharding.policy.place``, and the step of
   router and its routing) are computed on every 'model' rank, as are
   the q heads that pad a head count up to the axis (whisper-tiny's 6 to
   16). ``step_info["tensor_parallel"]`` says whether the 'model' axis
-  split the work.
+  split the work. A decode cell whose batch does not split over the
+  data-parallel axes (long_500k) is context-parallel
+  (``step_info["context_parallel"]``): rank 0 holds and reads its block
+  of the cache's sequence, ``step_info["cache_bytes_rank"]`` bytes.
 * ``collectives`` are rank 0's (``OpCounter.collectives``), and
   ``per_device.hbm_bytes`` is ``costing.analytic_bytes`` over the ranks.
 * ``roofline_terms_s``: ``compute_s`` = rank 0's FLOPs over the bf16
@@ -174,6 +177,8 @@ def run_cell(arch_name: str, shape_name: str, multi_pod: bool,
         else:
             step_fn = steps.make_decode_step(model, mesh, shape)
             cache = steps.decode_cache(model, mesh, shape, device="cpu")
+            info["context_parallel"] = steps.context_parallel(shape, mesh)
+            info["cache_bytes_rank"] = costing.tree_bytes(cache)
             args = (params, cache, batch)
         t_setup = time.time() - t0
         _, counter = costing.count_ops(step_fn, *args)

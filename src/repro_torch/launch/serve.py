@@ -30,8 +30,8 @@ import numpy as np
 import torch
 
 from repro_torch.device import params_device, resolve_device
+from repro_torch.serve.kvcache import SEQ_LEAVES
 
-_CACHE_SEQ_LEAVES = ("k", "v", "k_scale", "v_scale", "c_kv", "k_rope")
 
 
 @dataclass
@@ -51,7 +51,7 @@ def grow_cache(cache, extra: int):
         if isinstance(x, dict):
             return {k: (v if k == "cross" else grow(k, v))
                     for k, v in x.items()}
-        if name in _CACHE_SEQ_LEAVES and x.dim() >= 3:
+        if name in SEQ_LEAVES and x.dim() >= 3:
             pad = x.new_zeros(x.shape[:2] + (extra,) + x.shape[3:])
             return torch.cat([x, pad], dim=2)
         return x

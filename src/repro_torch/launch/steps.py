@@ -25,6 +25,15 @@ mesh. The port runs one process a rank:
   computed whole, and so is each block whose projections it replicates.
   The step's ``info["tensor_parallel"]`` (the serving steps' attribute
   ``tensor_parallel``) says whether the 'model' axis splits the work.
+* a serving batch that does not split over the data-parallel axes
+  (long_500k's one sequence: ``context_parallel``) is served whole on
+  every rank, as the reference's ``input_specs`` replicate it, and the
+  decode cache's sequence is split over 'data' as the reference's
+  ``cache_pspecs`` splits it: each 'data' rank holds its block
+  (``decode_cache``, ``place_cache``), and the decode step's attention
+  combines the ranks' partial softmaxes (``policy.ctx_dp``,
+  ``models/attention``). Greedy decoding then runs without
+  ``launch/serve.grow_cache``, which cannot grow a block.
 * the global batch (``global_batch`` rows, the whole of it on every
   rank, as a host batch) is cut into ``n_micro`` contiguous
   micro-batches, and each micro-batch into the data-parallel ranks'
@@ -257,14 +266,21 @@ def _whole(x):
 
 def _local(x, mesh):
     """This rank's 'model' shard of a parameter leaf: gathered over the
-    data-parallel axes, its placement on 'model' kept."""
-    from torch.distributed.tensor import DTensor, Replicate
+    data-parallel axes, its placement on 'model' kept. The gathers are
+    the process groups' own all-gathers (``policy._all_gather0``), the
+    minor mesh axis first: DTensor's redistribute takes the functional
+    all-gather, which crashes gloo ranks on CUDA tensors."""
+    from torch.distributed.tensor import DTensor
     if not isinstance(x, DTensor):
         return x
     dp = policy.dp_axes(mesh)
-    place = [Replicate() if a in dp else p
-             for a, p in zip(policy.mesh_axes(mesh), x.placements)]
-    return x.redistribute(mesh, place).to_local()
+    out = x.to_local()
+    for axis, p in reversed(list(zip(policy.mesh_axes(mesh),
+                                     x.placements))):
+        if axis in dp and p.is_shard():
+            out = policy._all_gather0(out.movedim(p.dim, 0),
+                                      mesh.get_group(axis)).movedim(0, p.dim)
+    return out
 
 
 def _locals(params, mesh):
@@ -406,6 +422,21 @@ def _reduce_into(acc, like, mesh, place):
 
 
 # ------------------------------------------------------ serve step fns -----
+def context_parallel(shape_cfg: ShapeConfig, mesh) -> bool:
+    """Whether a decode step of this cell splits the cache's sequence over
+    'data' (``cache_pspecs``): the batch does not split over the
+    data-parallel axes and the 'data' axis is more than 1."""
+    return (not batch_shardable(shape_cfg, mesh)
+            and policy.mesh_axes(mesh).get("data", 1) > 1)
+
+
+def _decode_ctx(mesh, shape_cfg: ShapeConfig):
+    """The mesh context of a decode step: with the cache's sequence length
+    where it is split over 'data' (``policy.ctx_dp``)."""
+    return policy.use_ctx_mesh(mesh, shape_cfg.seq_len if context_parallel(
+        shape_cfg, mesh) else None)
+
+
 def _serve_rows(batch, mesh, shape_cfg: ShapeConfig) -> dict:
     """This rank's rows of a host batch: its block under
     ``policy.batch_spec`` when the batch splits over the data-parallel
@@ -422,43 +453,83 @@ def make_prefill_step(model: Model, mesh, shape_cfg: ShapeConfig):
     (``_serve_rows``), each rank's rows one of the reference's
     ``moe_groups`` routing groups; the logits whole, the cache this
     rank's heads under a 'model' split (the function's attribute
-    ``tensor_parallel``)."""
+    ``tensor_parallel``). Where the batch does not split over the
+    data-parallel axes (``context_parallel``), every rank prefills it
+    whole, as the reference does, and the cache comes back as this rank's
+    blocks of a ``shape_cfg.seq_len`` cache (``place_cache``; the step's
+    attribute ``context_parallel``)."""
     dpn = dp_size(mesh)
     moe_groups = dpn if shape_cfg.global_batch % dpn == 0 else 1
+    cp = context_parallel(shape_cfg, mesh)
 
     @torch.no_grad()
     def prefill_step(params, batch):
         local = _serve_rows(batch, mesh, shape_cfg)
         with policy.use_ctx_mesh(mesh):
-            return model.prefill(_locals(params, mesh), local,
-                                 kv_dtype=shape_cfg.kv_dtype,
-                                 moe_groups=max(1, moe_groups // dpn),
-                                 last_only=shape_cfg.prefill_last_only)
+            logits, cache = model.prefill(
+                _locals(params, mesh), local, kv_dtype=shape_cfg.kv_dtype,
+                moe_groups=max(1, moe_groups // dpn),
+                last_only=shape_cfg.prefill_last_only)
+        if cp:
+            cache = place_cache(cache, model, mesh, shape_cfg)
+        return logits, cache
     prefill_step.tensor_parallel = tensor_parallel(model.cfg, mesh)
+    prefill_step.context_parallel = cp
     return prefill_step
 
 
 def make_decode_step(model: Model, mesh, shape_cfg: ShapeConfig):
     """decode_step(params, cache, batch) -> (logits, cache) of this rank's
     rows; ``cache`` is this rank's (``make_prefill_step``'s, or
-    ``decode_cache``'s), updated in place."""
+    ``decode_cache``'s), updated in place. Where the batch does not split
+    over the data-parallel axes (the step's attribute
+    ``context_parallel``), the cache holds this rank's blocks of the
+    sequence, and the attention combines the 'data' ranks' partials."""
     @torch.no_grad()
     def decode_step(params, cache, batch):
         local = _serve_rows(batch, mesh, shape_cfg)
-        with policy.use_ctx_mesh(mesh):
+        with _decode_ctx(mesh, shape_cfg):
             return model.decode(_locals(params, mesh), cache, local)
     decode_step.tensor_parallel = tensor_parallel(model.cfg, mesh)
+    decode_step.context_parallel = context_parallel(shape_cfg, mesh)
     return decode_step
 
 
 def decode_cache(model: Model, mesh, shape_cfg: ShapeConfig, device=None):
-    """An empty decode cache of this rank: its rows (``_serve_rows``) and,
-    under a 'model' split, its heads."""
+    """An empty decode cache of this rank: its rows (``_serve_rows``),
+    under a 'model' split its heads, and where the batch does not split
+    over the data-parallel axes its blocks of the sequence."""
     rows = shape_cfg.global_batch // (dp_size(mesh) if batch_shardable(
         shape_cfg, mesh) else 1)
-    with policy.use_ctx_mesh(mesh):
+    with _decode_ctx(mesh, shape_cfg):
         return model.init_cache(rows, shape_cfg.seq_len, shape_cfg.kv_dtype,
                                 device=device)
+
+
+def place_cache(cache, model: Model, mesh, shape_cfg: ShapeConfig):
+    """A prompt's decode cache (a prefill's, whole on this rank: its
+    sequence axes the prompt's, the audio family's cross cache the
+    encoder's frames) placed into this rank's blocks of a
+    ``shape_cfg.seq_len`` cache (``decode_cache``'s layout: each sequence
+    axis split over 'data' where the ranks divide it, the positions
+    outside the prompt zero). The leaves keep the prefill's dtypes; the
+    others (``pos``, the SSM state) are kept as they are."""
+    from repro_torch.serve.kvcache import SEQ_LEAVES, seq_block
+    frames = (model.cfg.encoder.n_frames if model.cfg.encoder is not None
+              else None)
+
+    def put(path, x):
+        if policy.leaf_name(path) not in SEQ_LEAVES:
+            return x
+        start, t = seq_block(frames if path[0] == "cross"
+                             else shape_cfg.seq_len)
+        start = start or 0
+        out = x.new_zeros(x.shape[:2] + (t,) + x.shape[3:])
+        n = max(0, min(t, x.shape[2] - start))
+        out[:, :, :n] = x[:, :, start:start + n]
+        return out
+    with _decode_ctx(mesh, shape_cfg):
+        return policy.tree_map_with_path(put, cache)
 
 
 # --------------------------------------------------------- param helpers ---

@@ -38,6 +38,18 @@ replicated: the normalized latents ``cq``, ``c_kv`` and the shared rope
 key are computed whole on every rank (the decode cache is whole and the
 same on every rank) and enter the rank's heads through
 ``policy.copy_to_tp``.
+
+Context-parallel decode (a decode step under ``policy.ctx_dp``: the batch
+does not split over the data-parallel axes, and each 'data' rank holds a
+block of the cache's sequence): ``cache_attention`` and
+``mla_attention_decode`` compute the rank's partial softmax over its
+block, flash-decoding style (``sdpa_partial``: the running max ``m``,
+the sum of exponentials ``l`` and the unnormalised f32 accumulator
+``o``, keys valid by their global position), and ``combine_partials``
+joins the ranks' partials over 'data' with one max and one sum
+all-reduce. A rank with no valid key in its block contributes exactly
+zero: its ``m`` is -inf and its weight ``exp(m - max m)`` 0. MLA combines
+in the latent space, before ``w_uv``.
 """
 from __future__ import annotations
 
@@ -246,6 +258,76 @@ def sdpa(q, k, v, *, causal: bool = False, k_valid=None, gp: int = 1):
     return ctx.reshape(b, s, h, v.shape[-1])
 
 
+def sdpa_partial(q, k, v, *, k_valid=None, gp: int = 1):
+    """``sdpa`` (not causal) over one block of the keys, unnormalised:
+    (o, m, l) with m (B,S,H) the max of the block's valid scores (-inf
+    where it has none), l (B,S,H) the sum of their exponentials less m,
+    and o (B,S,H,dv) f32 the block's softmax output times l (0 where the
+    block has no valid key). The block's probabilities meet v in q's
+    dtype, as ``sdpa``'s do."""
+    b, s, h, dh = q.shape
+    kh = k.shape[2]
+    if h != kh * gp:
+        raise ValueError(f"sdpa_partial: {h} q heads vs {kh} kv heads x "
+                         f"{gp}")
+    qg = q.reshape(b, s, kh, gp, dh)
+    scores = torch.einsum("bskgd,btkd->bkgst", qg, k).to(torch.float32) \
+        * dh ** -0.5
+    if k_valid is not None:
+        scores = scores.masked_fill(~k_valid[:, None, None, None, :],
+                                    float("-inf"))
+    m, p, l = _partial_softmax(scores)
+    ctx = torch.einsum("bkgst,btkd->bskgd", p.to(q.dtype), v)
+    perm = (0, 3, 1, 2)           # (B,KH,gp,S) -> (B,S,KH,gp)
+    m, l = (x.permute(perm).reshape(b, s, h) for x in (m, l))
+    return ctx.reshape(b, s, h, v.shape[-1]).to(torch.float32) \
+        * l[..., None], m, l
+
+
+def _partial_softmax(scores):
+    """(m, p, l) of f32 scores (..., T) with -inf at invalid keys: their
+    max, the block's softmax (0 where no key is valid) and the sum of
+    exponentials less m."""
+    m = scores.amax(-1)
+    e = torch.exp(scores - torch.where(torch.isinf(m), 0.0, m)[..., None])
+    l = e.sum(-1)
+    return m, e / torch.where(l > 0, l, 1.0)[..., None], l
+
+
+def combine_partials(o, m, l, dp):
+    """The 'data' ranks' partials (``sdpa_partial``'s o, m, l) joined:
+    ``sum o_r exp(m_r - m*) / sum l_r exp(m_r - m*)``, m* the max of the
+    m_r (``policy.max_dp``); the numerators and denominators go in one
+    ``policy.sum_dp``. -> f32 (B,S,H,dv)."""
+    w = torch.exp(m - policy.max_dp(m, dp))
+    ol = policy.sum_dp(torch.cat([o * w[..., None], (l * w)[..., None]], -1),
+                       dp)
+    return ol[..., :-1] / ol[..., -1:]
+
+
+def valid_keys(t: int, pos, start=None):
+    """(B, T) bool: the cache positions up to ``pos`` (B,), counted from
+    ``start`` (a block's first position; None or 0: the sequence's)."""
+    kpos = torch.arange(t, device=pos.device)
+    if start:
+        kpos = kpos + start
+    return kpos[None] <= pos[:, None]
+
+
+def cache_attention(q, k, v, *, gp: int = 1, pos=None, start=None):
+    """Decode attention of q (B,1,H,dh) over a cache's k/v (B,T,KH,dh):
+    the keys at positions up to ``pos`` (B,) valid (all with ``pos``
+    None: the cross cache). ``start`` None: ``sdpa`` over the whole
+    sequence; else the cache is this rank's block from position ``start``
+    in a context-parallel decode step, and the ranks' partials are
+    combined over ``policy.ctx_dp``."""
+    k_valid = None if pos is None else valid_keys(k.shape[1], pos, start)
+    if start is None:
+        return sdpa(q, k, v, causal=False, k_valid=k_valid, gp=gp)
+    o, m, l = sdpa_partial(q, k, v, k_valid=k_valid, gp=gp)
+    return combine_partials(o, m, l, policy.ctx_dp()).to(q.dtype)
+
+
 def chunked_sdpa(q, k, v, *, causal: bool, chunk: int, gp: int = 1):
     """The reference's jnp-flash as a plain function: softmax attention one
     query chunk at a time, so the (S x T) scores are never all held.
@@ -383,13 +465,15 @@ def mla_attention_full(p, x, cfg, cos, sin):
 
 
 def mla_attention_decode(p, x, cfg, cos, sin, c_kv_cache, k_rope_cache,
-                         k_valid):
+                         k_valid, dp=None):
     """Absorbed decode: scores and aggregation in the latent space, W_UK
     folded into q and W_UV applied after, O(T * (r + rope)) a head instead
     of rebuilding K/V. x (B,1,d); c_kv_cache (B,T,r), k_rope_cache
     (B,T,rope), the current token already written; k_valid (B,T). Under a
     'model' split the rank folds its own heads' ``w_uk``/``w_uv`` over the
-    whole latent cache."""
+    whole latent cache. ``dp`` (``policy.ctx_dp``): the caches are this
+    rank's blocks of the sequence (k_valid by global position), and the
+    ranks' latent partials are combined over 'data' before ``w_uv``."""
     m = cfg.mla
     tp, h = mla_split(p, cfg)
     b = x.shape[0]
@@ -402,10 +486,18 @@ def mla_attention_decode(p, x, cfg, cos, sin, c_kv_cache, k_rope_cache,
     scores = (torch.einsum("bshr,btr->bhst", q_lat, c_kv_cache)
               + torch.einsum("bshn,btn->bhst", q_rope, k_rope_cache))
     scores = scores.to(torch.float32) * scale
-    scores = scores.masked_fill(~k_valid[:, None, None, :],
-                                torch.finfo(torch.float32).min)
-    probs = torch.softmax(scores, dim=-1).to(x.dtype)
-    ctx_lat = torch.einsum("bhst,btr->bshr", probs, c_kv_cache)
+    if dp is None:
+        scores = scores.masked_fill(~k_valid[:, None, None, :],
+                                    torch.finfo(torch.float32).min)
+        probs = torch.softmax(scores, dim=-1).to(x.dtype)
+        ctx_lat = torch.einsum("bhst,btr->bshr", probs, c_kv_cache)
+    else:
+        mx, probs, l = _partial_softmax(scores.masked_fill(
+            ~k_valid[:, None, None, :], float("-inf")))
+        mx, l = mx.transpose(1, 2), l.transpose(1, 2)      # (B,S,H)
+        o = torch.einsum("bhst,btr->bshr", probs.to(x.dtype),
+                         c_kv_cache).to(torch.float32) * l[..., None]
+        ctx_lat = combine_partials(o, mx, l, dp).to(x.dtype)
     w_uv = p["w_uv"].reshape(m.kv_lora_rank, h, m.v_head_dim)
     ctx = torch.einsum("bshr,rhv->bshv", ctx_lat, w_uv)   # absorb W_UV
     return _mla_out(p, ctx.reshape(b, 1, h * m.v_head_dim), tp)

@@ -29,6 +29,12 @@ of ``d_ff``, the tied embedding its vocab rows; ``dec_pos`` and the
 sinusoidal table are replicated, and the serving logits are made whole
 (``common.whole_logits``). The cross cache holds the rank's KV heads,
 as the self cache does (``serve/kvcache.init_cache``).
+
+Context-parallel decode, as in ``models/transformer``: in a decode step
+whose batch does not split over the data-parallel axes the self cache is
+this rank's block of the sequence, and the cross cache this rank's block
+of the frames where the 'data' ranks divide them; each attention then
+combines the ranks' partial softmaxes (``attention.cache_attention``).
 """
 from __future__ import annotations
 
@@ -42,8 +48,9 @@ from repro_torch.models import ffn
 from repro_torch.models.common import (
     DTYPES, apply_norm, embed_init, embed_tokens, init_embedding, init_norm,
     lm_logits, pdtype, sinusoidal_positions, whole_logits)
-from repro_torch.models.transformer import (_layers, _remat, _stack,
-                                           full_attention, init_stack)
+from repro_torch.models.transformer import (_cache_start, _layers, _remat,
+                                           _stack, full_attention,
+                                           init_stack)
 from repro_torch.serve import kvcache
 
 
@@ -114,11 +121,10 @@ def _dec_block(lp, h, enc_out, cfg, *, self_cache=None, cross_kv=None,
     gp = q.shape[2] // k.shape[2]     # q heads a KV head (this rank's)
     new_self = collected = None
     if self_cache is not None:
-        new_self = kvcache.write_kv_layer(self_cache, k, v, pos)
+        start = _cache_start(self_cache["k"])
+        new_self = kvcache.write_kv_layer(self_cache, k, v, pos, start)
         kf, vf = kvcache.read_kv_layer(new_self, h.dtype)
-        k_valid = (torch.arange(kf.shape[1], device=h.device)[None]
-                   <= pos[:, None])
-        ctx = attn.sdpa(q, kf, vf, causal=False, k_valid=k_valid, gp=gp)
+        ctx = attn.cache_attention(q, kf, vf, gp=gp, pos=pos, start=start)
     else:
         ctx = full_attention(q, k, v, gp, causal=True)
         if collect:
@@ -129,8 +135,9 @@ def _dec_block(lp, h, enc_out, cfg, *, self_cache=None, cross_kv=None,
     if cross_kv is not None:
         kx, vx = cross_kv
         qx = attn.gqa_q(lp["cross_attn"], xin, cfg)
-        ctx_x = attn.sdpa(qx, kx, vx, causal=False,
-                          gp=qx.shape[2] // kx.shape[2])
+        ctx_x = attn.cache_attention(
+            qx, kx, vx, gp=qx.shape[2] // kx.shape[2],
+            start=_cache_start(kx, cfg.encoder.n_frames))
     else:
         qx, kx, vx = attn.gqa_qkv(lp["cross_attn"], xin, cfg, kv_x=enc_out)
         ctx_x = full_attention(qx, kx, vx, qx.shape[2] // kx.shape[2],

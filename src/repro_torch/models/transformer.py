@@ -54,6 +54,14 @@ the rank's heads. Without the context the code dispatches no collective
 and no extra op: the reference's sharding hints (``ctx_constrain``)
 steer XLA's SPMD partitioner; here model code calls the collectives.
 
+Context parallelism: in a decode step whose batch does not split over
+the data-parallel axes (``policy.ctx_dp``), each cache leaf with a
+sequence axis is this rank's block of it (``_cache_start``): the new
+token is written only in the block that holds its position
+(``kvcache.write_rows``), and GQA's and MLA's decode attention (the
+hybrid's shared block too) combine the 'data' ranks' partial softmaxes
+(``attention.cache_attention``, ``attention.mla_attention_decode``).
+
 The reference's ``attn_chunk`` (query chunks of ``chunked_sdpa`` for long
 prefill) has no counterpart here: on the card the flash kernel tiles the
 queries itself (64 rows a block) whatever chunk the reference would use,
@@ -80,6 +88,7 @@ from repro_torch.models.common import (
     init_norm, lm_logits, mrope_for_heads, pdtype, rope_for_heads,
     whole_logits)
 from repro_torch.serve import kvcache
+from repro_torch.sharding import policy
 
 ATTN_FAMILIES = ("dense", "moe", "vlm")
 FAMILIES = ATTN_FAMILIES + ("ssm", "hybrid")
@@ -250,16 +259,15 @@ def _dense_block(lp, h, cfg, rope, *, moe_groups=1, dp_mean=None,
         if cache_slice is not None:
             c_kv_new, k_rope_new = attn.mla_latent_kv(lp["attn"], ain, cfg,
                                                       cos, sin)
-            bidx = torch.arange(h.shape[0], device=h.device)
-            at = pos.long()
             c_kv, k_rope = cache_slice["c_kv"], cache_slice["k_rope"]
-            c_kv[bidx, at] = c_kv_new[:, 0].to(c_kv.dtype)
-            k_rope[bidx, at] = k_rope_new[:, 0].to(k_rope.dtype)
-            k_valid = (torch.arange(c_kv.shape[1], device=h.device)[None]
-                       <= pos[:, None])
+            start = _cache_start(c_kv)
+            kvcache.write_rows([(c_kv, c_kv_new[:, 0].to(c_kv.dtype)),
+                                (k_rope, k_rope_new[:, 0].to(k_rope.dtype))],
+                               pos, start)
             aout = attn.mla_attention_decode(
                 lp["attn"], ain, cfg, cos, sin, c_kv.to(h.dtype),
-                k_rope.to(h.dtype), k_valid)
+                k_rope.to(h.dtype), attn.valid_keys(c_kv.shape[1], pos, start),
+                dp=None if start is None else policy.ctx_dp())
             new_cache = cache_slice
         else:
             aout, (c_kv, k_rope) = attn.mla_attention_full(
@@ -270,12 +278,11 @@ def _dense_block(lp, h, cfg, rope, *, moe_groups=1, dp_mean=None,
         q, k, v = attn.gqa_qkv(lp["attn"], ain, cfg, rope=rope4)
         gp = q.shape[2] // k.shape[2]     # q heads a KV head (this rank's)
         if cache_slice is not None:
-            new_cache = kvcache.write_kv_layer(cache_slice, k, v, pos)
+            start = _cache_start(cache_slice["k"])
+            new_cache = kvcache.write_kv_layer(cache_slice, k, v, pos, start)
             kf, vf = kvcache.read_kv_layer(new_cache, h.dtype)
-            k_valid = (torch.arange(kf.shape[1], device=h.device)[None]
-                       <= pos[:, None])
-            ctx = attn.sdpa(q, kf, vf, causal=False, k_valid=k_valid,
-                            gp=gp)
+            ctx = attn.cache_attention(q, kf, vf, gp=gp, pos=pos,
+                                       start=start)
         else:
             ctx = full_attention(q, k, v, gp, causal=True)
             collected = {"k": k, "v": v}
@@ -287,6 +294,24 @@ def _dense_block(lp, h, cfg, rope, *, moe_groups=1, dp_mean=None,
     else:
         mout, aux = ffn.apply_mlp(lp["mlp"], fin, cfg), None
     return h + mout, aux, collected, new_cache
+
+
+def _cache_start(leaf, seq=None):
+    """The first position of a decode cache leaf's (one layer's: B, T,
+    ...) block in a context-parallel decode step, or None: the leaf holds
+    the whole sequence. ``seq``: the leaf's whole length (default: the
+    step's cache length). ValueError where the leaf is not the block the
+    step gives this rank."""
+    dp = policy.ctx_dp()
+    if dp is None:
+        return None
+    seq = dp.seq_len if seq is None else seq
+    start, t = kvcache.seq_block(seq)
+    if leaf.shape[1] != t:
+        raise ValueError(f"a decode cache of {leaf.shape[1]} positions on "
+                         f"'data' rank {dp.rank} of {dp.size}, where "
+                         f"{seq} give it {t}")
+    return start
 
 
 def _ssm_layer(lp, h, cfg, **kw):

@@ -24,6 +24,16 @@ heads (the self cache, the audio family's cross cache too) and SSM heads
 prefill writes them; MLA's latent cache is whole and the same on every
 rank (each rank folds its heads' up-projections over it).
 
+In a context-parallel decode step (``policy.ctx_dp``: the batch does not
+split over the data-parallel axes), ``init_cache`` holds this rank's
+block of each sequence axis that the 'data' ranks divide, as the
+reference's ``cache_pspecs`` splits it: the self caches' ``seq / n``
+positions from ``rank * seq / n`` on (``k``/``v`` and their int8 scales,
+MLA's ``c_kv``/``k_rope``, the hybrid's shared-attention k/v), and the
+audio family's cross cache where ``n`` divides its frames
+(``seq_block``). A new token is written only on the rank whose block
+holds its position, at its place in the block (``write_rows``).
+
 Unlike the reference, ``write_kv_layer`` writes the new token into the
 cache tensors in place (the reference returns a new cache): a decode step
 then writes one token per row instead of copying the cache.
@@ -36,6 +46,11 @@ from repro_torch.device import resolve_device
 from repro_torch.models.attention import cache_kv_heads
 from repro_torch.models.common import DTYPES
 from repro_torch.models.ssm import init_ssm_cache
+from repro_torch.sharding import policy
+
+
+# the leaves whose axis 2 is a sequence (stacked over layers: L, B, T, ...)
+SEQ_LEAVES = ("k", "v", "k_scale", "v_scale", "c_kv", "k_rope")
 
 
 def _q8(x):
@@ -51,10 +66,41 @@ def _dq8(q, scale, dtype):
             ).to(dtype)
 
 
+def seq_block(seq: int) -> tuple[int | None, int]:
+    """(first position, length) of this rank's block of a cache sequence
+    axis of ``seq`` positions in a context-parallel decode step
+    (``policy.ctx_dp``); (None, ``seq``) where the axis is whole on every
+    rank (no such step, or the 'data' ranks do not divide ``seq``)."""
+    dp = policy.ctx_dp()
+    start = None if dp is None else dp.block(seq)
+    return start, (seq if start is None else seq // dp.size)
+
+
+def write_rows(pairs, pos, start=None):
+    """``x[b, pos[b]] = new[b]`` in place for each (x, new) of ``pairs``: a
+    cache leaf x (B, T, ...) and the new token's values (B, ...) in x's
+    dtype. With ``start`` (x is the block of positions [start, start +
+    T)), only the rows whose position falls in the block are written, at
+    ``pos - start``; the others keep their values (a row's slot is read
+    and written back: no host sync)."""
+    bidx = torch.arange(pairs[0][1].shape[0], device=pos.device)
+    pos = pos.long()
+    if start is not None:
+        t = pairs[0][0].shape[1]
+        at = pos - start
+        mine = (at >= 0) & (at < t)
+        pos = at.clamp(0, t - 1)
+    for x, new in pairs:
+        if start is not None:
+            new = torch.where(mine.view((-1,) + (1,) * (new.dim() - 1)),
+                              new, x[bidx, pos])
+        x[bidx, pos] = new
+
+
 def init_attn_kv(cfg, batch: int, seq: int, kv_dtype: str = "bfloat16",
                  n_layers: int | None = None, *, device):
     l = n_layers if n_layers is not None else cfg.n_layers
-    shape = (l, batch, seq, cache_kv_heads(cfg), cfg.head_dim)
+    shape = (l, batch, seq_block(seq)[1], cache_kv_heads(cfg), cfg.head_dim)
     if kv_dtype == "int8":
         return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
                 "v": torch.zeros(shape, dtype=torch.int8, device=device),
@@ -65,22 +111,20 @@ def init_attn_kv(cfg, batch: int, seq: int, kv_dtype: str = "bfloat16",
             "v": torch.zeros(shape, dtype=dt, device=device)}
 
 
-def write_kv_layer(layer_cache, k_new, v_new, pos):
+def write_kv_layer(layer_cache, k_new, v_new, pos, start=None):
     """layer_cache: (B,T,KH,Dh) tensors [+ scales]; k_new/v_new (B,1,KH,Dh);
-    pos (B,) write index. Writes in place and returns ``layer_cache``."""
-    bidx = torch.arange(k_new.shape[0], device=k_new.device)
-    pos = pos.long()
+    pos (B,) write index; ``start``: the first position of the cache's
+    block (``seq_block``; None: the whole sequence). Writes in place
+    (``write_rows``) and returns ``layer_cache``."""
     if "k_scale" in layer_cache:
         kq, ks = _q8(k_new)
         vq, vs = _q8(v_new)
-        layer_cache["k"][bidx, pos] = kq[:, 0]
-        layer_cache["v"][bidx, pos] = vq[:, 0]
-        layer_cache["k_scale"][bidx, pos] = ks[:, 0]
-        layer_cache["v_scale"][bidx, pos] = vs[:, 0]
+        new = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
     else:
         dt = layer_cache["k"].dtype
-        layer_cache["k"][bidx, pos] = k_new[:, 0].to(dt)
-        layer_cache["v"][bidx, pos] = v_new[:, 0].to(dt)
+        new = {"k": k_new.to(dt), "v": v_new.to(dt)}
+    write_rows([(layer_cache[k], x[:, 0]) for k, x in new.items()], pos,
+               start)
     return layer_cache
 
 
@@ -96,17 +140,19 @@ def init_mla_kv(cfg, batch: int, seq: int, kv_dtype: str = "bfloat16", *,
                 device):
     m = cfg.mla
     dt = torch.bfloat16 if kv_dtype == "int8" else DTYPES[kv_dtype]
-    return {"c_kv": torch.zeros((cfg.n_layers, batch, seq, m.kv_lora_rank),
+    t = seq_block(seq)[1]
+    return {"c_kv": torch.zeros((cfg.n_layers, batch, t, m.kv_lora_rank),
                                 dtype=dt, device=device),
-            "k_rope": torch.zeros((cfg.n_layers, batch, seq,
+            "k_rope": torch.zeros((cfg.n_layers, batch, t,
                                    m.qk_rope_head_dim), dtype=dt,
                                   device=device)}
 
 
 def init_cache(cfg, batch: int, seq: int, kv_dtype: str = "bfloat16", *,
                device=None):
-    """Full decode cache for any family. 'pos' counts valid tokens. Runs on
-    the card unless ``device`` says otherwise."""
+    """Full decode cache for any family (this rank's heads and sequence
+    blocks under a step's mesh context). 'pos' counts valid tokens. Runs
+    on the card unless ``device`` says otherwise."""
     dev = resolve_device(device)
     cache: dict = {"pos": torch.zeros((batch,), dtype=torch.int32,
                                       device=dev)}

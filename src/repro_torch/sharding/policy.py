@@ -23,7 +23,13 @@ port of the reference's ``sharding/policy.py``. Two independent layers:
    The reference's mesh context (``use_ctx_mesh``) is here too: a step
    that computes each rank's 'model' shard (``launch/steps``) enters it,
    and model code reads the 'model' group and its rank from it
-   (``ctx_tp``) without the mesh threaded through every signature.
+   (``ctx_tp``) without the mesh threaded through every signature. A
+   decode step whose batch does not split over the data-parallel axes
+   enters it with the cache's sequence length: the decode cache's
+   sequence is then split over 'data' in blocks, as the reference's
+   ``cache_pspecs`` splits it, and model code reads the 'data' group
+   (``ctx_dp``) and combines the ranks' partial softmaxes over it
+   (``max_dp``, ``sum_dp``).
    Where the reference's ``ctx_constrain`` hints XLA's SPMD partitioner,
    the port's model code calls Megatron's pair of collectives over the
    'model' group itself (``copy_to_tp``: the identity, whose backward
@@ -247,26 +253,49 @@ class TPGroup(NamedTuple):
     group: object      # the 'model' ProcessGroup
 
 
+class DPGroup(NamedTuple):
+    """The 'data' axis of the ambient mesh in a context-parallel decode
+    step, as this rank sees it: the decode cache's sequence axis split
+    over it in blocks, in rank order (the reference's ``cache_pspecs``
+    puts the sequence over 'data' when the batch does not split over the
+    data-parallel axes; on a mesh with 'pod' the pods hold the same
+    blocks)."""
+    size: int
+    rank: int
+    group: object      # the 'data' ProcessGroup
+    seq_len: int       # the decode cache's sequence length, whole
+
+    def block(self, t: int) -> int | None:
+        """The first position of this rank's block of a sequence axis of
+        ``t`` positions (``t / size`` long), or None where ``size`` does
+        not divide ``t``: the axis is then whole on every rank."""
+        return None if t % self.size else self.rank * (t // self.size)
+
+
 _CTX_TP: TPGroup | None = None
+_CTX_DP: DPGroup | None = None
 
 
 class use_ctx_mesh:
     """``with use_ctx_mesh(mesh):`` model code under it computes this
-    rank's 'model' shard (``ctx_tp``); the previous context comes back on
-    exit."""
+    rank's 'model' shard (``ctx_tp``); with ``seq_len`` (a decode step
+    whose batch does not split over the data-parallel axes) it also holds
+    and reads this rank's blocks of the decode cache's sequence
+    (``ctx_dp``). The previous context comes back on exit."""
 
-    def __init__(self, mesh):
-        self.mesh = mesh
+    def __init__(self, mesh, seq_len: int | None = None):
+        self.mesh, self.seq_len = mesh, seq_len
 
     def __enter__(self):
-        global _CTX_TP
-        self._prev = _CTX_TP
+        global _CTX_TP, _CTX_DP
+        self._prev = _CTX_TP, _CTX_DP
         _CTX_TP = _tp_group(self.mesh)
+        _CTX_DP = _dp_group(self.mesh, self.seq_len)
         return self.mesh
 
     def __exit__(self, *exc):
-        global _CTX_TP
-        _CTX_TP = self._prev
+        global _CTX_TP, _CTX_DP
+        _CTX_TP, _CTX_DP = self._prev
 
 
 def _tp_group(mesh):
@@ -276,10 +305,26 @@ def _tp_group(mesh):
                    mesh.get_local_rank("model"), mesh.get_group("model"))
 
 
+def _dp_group(mesh, seq_len):
+    if mesh is None or seq_len is None or \
+            mesh_axes(mesh).get("data", 1) == 1:
+        return None
+    return DPGroup(mesh.size(mesh.mesh_dim_names.index("data")),
+                   mesh.get_local_rank("data"), mesh.get_group("data"),
+                   seq_len)
+
+
 def ctx_tp() -> TPGroup | None:
     """The ambient mesh's 'model' axis, or None: no context, or an axis
     of 1 (model code then runs as on one card)."""
     return _CTX_TP
+
+
+def ctx_dp() -> DPGroup | None:
+    """The ambient mesh's 'data' axis in a context-parallel decode step,
+    or None: no such step, or an axis of 1 (the decode cache is then
+    whole on every rank)."""
+    return _CTX_DP
 
 
 def _all_reduce(x, op, group):
@@ -372,6 +417,16 @@ def gather_tp(x, dim: int, tp: TPGroup):
 def max_tp(x, tp: TPGroup):
     """The elementwise max over the 'model' ranks (no gradient)."""
     return _all_reduce(x.detach(), "max", tp.group)
+
+
+def max_dp(x, dp: DPGroup):
+    """The elementwise max over the 'data' ranks (decode: no gradient)."""
+    return _all_reduce(x, "max", dp.group)
+
+
+def sum_dp(x, dp: DPGroup):
+    """The elementwise sum over the 'data' ranks (decode: no gradient)."""
+    return _all_reduce(x, "sum", dp.group)
 
 
 def batch_spec(mesh, ndim: int, batch_axis: int = 0) -> PSpec:

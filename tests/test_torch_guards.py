@@ -502,12 +502,18 @@ def test_chip_smoke_rehearsal_runs_every_phase_on_the_cpu():
     assert "pipeline_forward, 2 gloo ranks" in out.stdout and \
         "torch.equal to the stack: True" in out.stdout
     assert "== tensor parallel" in out.stdout
+    tp, cp = out.stdout.split("== tensor parallel")[1].split(
+        "== context parallel")
     # zamba2-1.2b, deepseek-7b, phi3.5-moe, deepseek-v2 and whisper-tiny
-    assert out.stdout.count("float32 against the one-rank path") == 5
+    assert tp.count("float32 against the one-rank path") == 5
     assert out.stdout.count("routing at capacity factor 1.25 (apply_moe "
                             "on the first layer's experts") == 2
     assert "train step zamba2-1.2b f32" in out.stdout
     assert "train step phi3.5-moe-42b-a6.6b f32" in out.stdout
+    # zamba2-1.2b on (data 2, model 1), bf16 then f32
+    assert "2 ranks on a (data 2, model 1) mesh" in cp
+    assert cp.count("every rank's tokens and logits equal: True") == 2
+    assert cp.count("against the one-rank path (mesh (1, 1)") == 2
 
 
 def _c_struct_fields(source: str, struct: str) -> list[str]:

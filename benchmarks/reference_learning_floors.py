@@ -3,12 +3,14 @@ query phase's data? A cut of that phase, run with the JAX reference on
 the CPU.
 
     PYTHONPATH=src python benchmarks/reference_learning_floors.py \
-        [--predicate 1] [--resolutions 28 56] [--steps 120]
+        [--predicate 1] [--resolutions 28 56] [--steps 90]
 
-The data are chip_smoke.py's (FULL): one predicate of
-``DEFAULT_PREDICATES[:3]``, a 1024-frame training split
+The data follow chip_smoke.py's (FULL) image model and sizes: one
+predicate of ``DEFAULT_PREDICATES[:3]``, a 1024-frame training split
 (``make_corpus(spec, 1024, hw=224, seed=seed + 30)``) and the 512-frame
-eval split (``seed + 20``). The grid is cut to the paper's 18
+eval split (``seed + 20``); chip_smoke.py draws frames of the same model
+on the card with torch's generator (``chip_smoke.synth``), so its
+accuracies are another draw of the same task. The grid is cut to the paper's 18
 architectures at the given resolutions in all five colors, plus the
 trusted model at 224 px rgb, trained with ``train_model_grid``'s seeds
 and steps. Prints each model's eval accuracy, the best model's and the
@@ -35,7 +37,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--predicate", type=int, default=1)
     ap.add_argument("--resolutions", type=int, nargs="+", default=[28, 56])
-    ap.add_argument("--steps", type=int, default=120)
+    ap.add_argument("--steps", type=int, default=90)   # chip_smoke's
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 

@@ -1,9 +1,9 @@
-"""The tensor-parallel and context-parallel steps on NCCL ranks, one card a
-rank: chip_smoke.py's ``== tensor parallel`` and ``== context parallel``
-phases (gloo ranks sharing one card, since NCCL refuses two ranks on one
-card) on a machine with several cards.
+"""The tensor-parallel, context-parallel and ZeRO steps on NCCL ranks, one
+card a rank: chip_smoke.py's ``== tensor parallel``, ``== context
+parallel`` and ``== ZeRO layers`` phases (gloo ranks sharing one card,
+since NCCL refuses two ranks on one card) on a machine with several cards.
 
-    python3 benchmarks/torch_tp_nccl.py [--part tp|cp|all]   # repo root
+    python3 benchmarks/torch_tp_nccl.py [--part tp|cp|zero|all]   # repo root
 
 Needs two or more cards: a (data 1, model 2) mesh, and (data 1, model 4)
 where four are present. On each mesh, chip_smoke.tp_check's lines:
@@ -24,8 +24,16 @@ there: chip_smoke.cp_check's lines, zamba2-1.2b whole at long_500k
 greedy steps from its end and across the middle blocks' edge, held
 against the one-rank path on the first card (bf16 logits within 0.05
 of the largest and tokens equal but for near-ties; f32 at seq_len 65536
-within 1e-5, tokens equal). Prints the cards' name and power limit
-(nvidia-smi) first.
+within 1e-5, tokens equal). Then (``--part zero``) the ZeRO train step
+on (data 2, model 1), (data 4, model 1) and (data 2, model 2):
+chip_smoke.zero_check's lines, zamba2-1.2b at its published widths,
+each rank holding its shard of the weights and AdamW state and the step
+gathering each layer's leaves over 'data' as the layer runs: a bf16
+step at full depth (global batch 4 x 512; the rank's memory rise, the
+collectives a micro-batch against the specs, the launches) and an f32
+step at one segment's depth held against the one-rank step on the
+first card (loss, gradients, parameters after AdamW, m and v). Prints
+the cards' name and power limit (nvidia-smi) first.
 """
 from __future__ import annotations
 
@@ -45,7 +53,8 @@ def main(argv=None) -> int:
 
     import chip_smoke
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--part", choices=("tp", "cp", "all"), default="all")
+    ap.add_argument("--part", choices=("tp", "cp", "zero", "all"),
+                    default="all")
     part = ap.parse_args(argv).part
     cards = torch.cuda.device_count()
     if cards < 2:
@@ -58,13 +67,14 @@ def main(argv=None) -> int:
     from repro_torch.kernels import build
     build.build_all()            # once, before the ranks load the kernels
     dev = torch.device("cuda")
-    for n in (2, 4) if part != "cp" else ():
+    for n in (2, 4) if part in ("tp", "all") else ():
         if n > cards:
             break
         print(f"== (data 1, model {n}), {n} NCCL ranks", flush=True)
         chip_smoke.tp_check(dev, dict(chip_smoke.FULL["tp"], model=n),
                             "nccl", 0)
-    for data, model in ((2, 1), (4, 1), (2, 2)) if part != "tp" else ():
+    for data, model in ((2, 1), (4, 1), (2, 2)) if part in ("cp", "all") \
+            else ():
         if data * model > cards:
             continue
         print(f"== context parallel (data {data}, model {model}), "
@@ -72,6 +82,16 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         chip_smoke.cp_check(dev, dict(chip_smoke.FULL["cp"], data=data,
                                       model=model), "nccl", 31)
+        print(f"  {time.perf_counter() - t0:.1f} s", flush=True)
+    for data, model in ((2, 1), (4, 1), (2, 2)) if part in ("zero", "all") \
+            else ():
+        if data * model > cards:
+            continue
+        print(f"== ZeRO layers (data {data}, model {model}), "
+              f"{data * model} NCCL ranks", flush=True)
+        t0 = time.perf_counter()
+        chip_smoke.zero_check(dev, dict(chip_smoke.FULL["zero"], data=data,
+                                        model=model), "nccl", 41)
         print(f"  {time.perf_counter() - t0:.1f} s", flush=True)
     return 0
 

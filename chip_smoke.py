@@ -14,11 +14,16 @@
    shapes and both evaluator shapes, within the reference test's
    tolerances, each rerun bit-identical: split-K adds in a fixed order),
    with kernel, plain, bound and library times.
-3. Query path: three predicates, each initialized on the card by
-   ``initialize_system``: a 361-model bank over the paper grid (18
+3. Query path: the scanned data of this phase and the next (corpus,
+   stream, cameras) is drawn on the card (``synth``:
+   ``repro_torch.data.synthetic``'s image model with torch's generator);
+   the training splits are the generators' own, on the host, as the
+   learning floors were set on them. Three predicates, each initialized
+   on the card by ``initialize_system``: a 361-model bank over the paper grid (18
    architectures x {28, 56, 112, 224} px x 5 colors, plus the trusted
-   model) trained with BCE + AdamW (120 steps, batch 16, lr 3e-3; the
-   trusted model 360) on 1024 frames, thresholds from a 512-frame config
+   model) trained with BCE + AdamW (90 steps, batch 16, lr 3e-3; the
+   trusted model 270; ``initialize_system``'s default is 120, cut for
+   the run's time limit) on 1024 frames, thresholds from a 512-frame config
    split, scores on a 512-frame eval split, and the per-model inference
    costs pinned in COSTS (measured again and printed beside them). Each
    bank is held to the learning floors (best model and trusted model
@@ -200,7 +205,7 @@
    (the absorbed decode against the full path), qwen2-vl at 2 (patches
    and M-RoPE) and whisper whole, batch 2 x 512 tokens.
    LM training: zamba2-1.2b at full width and depth (random bf16 weights
-   from a generator seeded with 0) trains 5 steps of 8 x 512 tokens of
+   from a generator seeded with 0) trains 3 steps of 8 x 512 tokens of
    ``lm_token_batches`` (lr 3e-4, cosine schedule, AdamW, remat "full",
    8 micro-batches) through ``launch.train`` (``setup`` and the runtime's
    loop, as ``main`` runs them) on a mesh of one rank, with one final
@@ -212,7 +217,7 @@
    (``training_launches``). Every loss must be finite, and step 0's
    first sequence, through the trained model, ``loss_drop`` below its
    loss before training (fresh batches of uniform tokens teach little in
-   5 steps: their losses are printed), and no step may fail and be
+   3 steps: their losses are printed), and no step may fail and be
    replayed by the runtime; it prints steps/s, tokens/s, ms per step,
    model TFLOP/s (6 N tokens over the step), peak memory, the final
    checkpoint's bytes and seconds, one more step profiled whole (device
@@ -224,12 +229,12 @@
    (one shared-block pass) at 1 x 256 tokens: gradients through the
    kernels on the card against its CPU copy's (plain versions), leaf by
    leaf within TRAIN_GRAD_TOL. The recovery drill (zamba2 at full width cut
-   to 6 layers, 10 steps of 1 x 512, a checkpoint every 3 steps) runs
-   uninterrupted and with failures injected at steps 4 and 7 (checkpoints
+   to 6 layers, 6 steps of 1 x 512, a checkpoint every 2 steps) runs
+   uninterrupted and with failures injected at steps 2 and 4 (checkpoints
    through ``AsyncSaver``) under ``torch.use_deterministic_algorithms``
    (CUBLAS_WORKSPACE_CONFIG set at start): 2 recoveries, and params and
    optimizer state ``torch.equal`` to the uninterrupted run's, and the
-   checkpoint ``AsyncSaver`` wrote at step 9 byte for byte the
+   checkpoint ``AsyncSaver`` wrote at the last step byte for byte the
    uninterrupted run's; a leaf changed in place right after
    ``AsyncSaver.save`` returns restores as it was. One step each with
    ``--compress topk`` and ``int8``: error feedback holds on the step's
@@ -253,8 +258,7 @@
    prints that the pipeline did not run and why).
    Tensor parallel: two ranks spawned on the one card (gloo: NCCL
    refuses two ranks on one card; the collectives' CUDA tensors stage
-   through the host) on a (data 1, model 2) mesh, started before the
-   fleet phase (which runs on the host alone) and joined after it. Each
+   through the host) on a (data 1, model 2) mesh. Each
    probes the collectives of the model code on its tensors, then serves
    through ``launch/steps``, random bf16 weights at published widths,
    zamba2-1.2b whole (8 prompts x 512 tokens, 8 greedy steps; 32 before
@@ -292,8 +296,8 @@
    prefill's k/v RMS and the prompt's SSM state kept, 8 greedy steps
    across the edge of rank 0's block. The weights are ZeRO over 'data'
    (the reference's long_500k placement) for the prefill and the short
-   steps, which gather them each step, then placed whole for the long
-   steps (the reason printed). It prints each rank's cache against the
+   steps, which gather a layer's leaves as the layer runs, then gathered
+   whole once and placed whole for the long steps (the reason printed). It prints each rank's cache against the
    whole (0.500 of the k/v), its peak memory, its decode ms a step (gloo
    through the host: a correctness phase, not speed), the combine's
    collectives a step, one gather's ms and its launches (counts reset
@@ -305,6 +309,34 @@
    logits within 1e-5 of the largest and tokens equal. The prefill's
    per-rank flash and SSD shapes are held against their plain versions
    and timed (``cp_launches`` both ranks' launches).
+   ZeRO layers: two gloo ranks on the one card on a (data 2, model 1)
+   mesh (started before the fleet phase, which runs on the host alone,
+   and waited for after it), zamba2-1.2b (random weights at published widths) placed by
+   ``sharding.policy.place`` under the policy's ZeRO placements: each
+   rank holds its shard of the parameters and of AdamW's m and v, and
+   the train step (``launch/steps``) gathers each layer's leaves over
+   'data' as the layer runs, again in the backward's recompute, and
+   reduce-scatters the layer's gradient into the rank's f32
+   accumulator. A bf16 step at full depth (global batch 4 x 512, one row
+   a rank and micro-batch, 2 micro-batches, remat "full"): the rank's
+   memory peak is reset just before the gradients and read just after,
+   and its rise over what was allocated before must stay under the
+   whole weights gathered plus an f32 accumulator of the rank's shard
+   (a route that gathers the whole model needs more); it is printed
+   beside the count of the shard's accumulator and one layer's gathered
+   leaves with those outside the stacks (``launch/dryrun.zero_bytes``).
+   The all-gathers and reduce-scatters a micro-batch (counted at the
+   policy's collectives) must equal the count from the specs, the flash
+   and SSD launches (counts reset just before the gradients, read just
+   after) theirs, and the step's and the gathers' ms are printed (gloo
+   through the host: a correctness phase, not speed). Then an f32 step
+   at one segment's depth (6 SSM layers and the shared block), held
+   after the ranks exit against the one-rank path on the same card: the
+   loss within TP_LOSS_TOL relative, each leaf's gradient, its
+   parameter after one AdamW step (eps ZERO_ADAMW_EPS) and its m and v
+   within TRAIN_GRAD_TOL of the leaf's largest. The step's per-rank
+   flash and SSD shapes are held against their plain versions and timed
+   (``zero_launches`` both ranks' bf16 launches).
 5. Kernel entry points (``kernels/ops``), the twin of the reference's
    ``bench_transform_kernel`` at the query path's width: a chunk of 256
    dyadic 224 px frames through ``pyramid_transform_op`` with all 20
@@ -339,6 +371,7 @@ import os
 import subprocess
 import sys
 import time
+import zlib
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -448,6 +481,12 @@ TP_MOE_PREFILL_FACTOR = 4.0
 # over 262144 positions a rank round in another order; f32: the order
 # alone)
 CP_LOGIT_TOL = {"bfloat16": 0.05, "float32": 1e-5}
+# the ZeRO phase's AdamW eps: its first step moves a parameter by
+# lr g / (|g| + eps), and at the default 1e-8 a gradient within f32
+# rounding of 0 moves it by up to lr either way (a zero-initialized bias
+# by its whole largest |x|); at 1e-3 the step is smooth in g, and an
+# order-of-sums difference in g moves the parameter by less than it
+ZERO_ADAMW_EPS = 1e-3
 CP_WHOLE_WHY = ("gathering zamba2-1.2b's 2.34 GB of bf16 weights through "
                 "the host each step (two gloo ranks on one card: the "
                 "gather's ms are printed below) would take most of the "
@@ -460,7 +499,7 @@ FAMILY_MODELS = (("phi3.5-moe-42b-a6.6b", 16, 2), ("deepseek-v2-236b", 4, 1),
 # floors: the least eval accuracy of the best model and of the trusted
 # model (tests/test_system.py's)
 FULL = dict(base=224, chunk=256, out_res=(112, 56, 28), split=512,
-            train=1024, steps=120, floors=(0.85, 0.80), pinned=True,
+            train=1024, steps=90, floors=(0.85, 0.80), pinned=True,
             profile_steps=10, corpus=8192, gen_batch=512, stream=4096,
             stream_batch=512, join=2048,
             serve=dict(requests=4096, hot=64, host=512, pace=0.0005,
@@ -484,16 +523,17 @@ FULL = dict(base=224, chunk=256, out_res=(112, 56, 28), split=512,
                           prompt=512, audio_prompt=128, gen=32,
                           check_batch=2, check_prompt=512, check_at=256,
                           moe_tokens=64, iters=10),
-            # zamba2-1.2b training: 8 steps of 8 x 512 tokens at full
+            # zamba2-1.2b training: 3 steps of 8 x 512 tokens at full
             # width and depth (step 0's first sequence, measured again
             # after training, must have lost loss_drop nats: on an
             # NVIDIA H100 80GB HBM3 at 700 W it went 10.94 -> 5.19 in 20
-            # steps, -> 4.12 in 8; 5 keep the run inside its time limit
-            # beside the tensor-parallel phase); the drill at 6 layers, batch 1, 10
-            # steps, a checkpoint every 3, failures at steps 4 and 7
-            lm_train=dict(full=True, steps=5, batch=8, seq=512, lr=3e-4,
+            # steps, -> 4.12 in 8, -> 3.50 in 5; 3, the fewest that reach
+            # COUNTED_STEP, and the drill's 6 steps keep the run inside
+            # its time limit on a slow host); the drill at 6 layers, batch
+            # 1, 6 steps, a checkpoint every 2, failures at steps 2 and 4
+            lm_train=dict(full=True, steps=3, batch=8, seq=512, lr=3e-4,
                           loss_drop=1.0, drill_layers=6, drill_batch=1,
-                          drill_steps=10, every=3, fail_at=(4, 7),
+                          drill_steps=6, every=2, fail_at=(2, 4),
                           grad_seq=256),
             # the fleet phase: one dry-run cell (256 fake ranks on the
             # host, ~15-30 s) and the two-rank pipeline where there are two
@@ -525,7 +565,14 @@ FULL = dict(base=224, chunk=256, out_res=(112, 56, 28), split=512,
             cp=dict(full=True, arch="zamba2-1.2b", data=2, prompt=512,
                     short=4, steps=8, chunk=8192, timeout=420,
                     seq={"bfloat16": 524288, "float32": 65536},
-                    zero={"bfloat16": True, "float32": False}))
+                    zero={"bfloat16": True, "float32": False}),
+            # the ZeRO phase: zamba2-1.2b on a (data 2, model 1) mesh, a
+            # train step of batch x seq tokens, one row a rank and
+            # micro-batch; bf16 at full depth (at 19 of its 38 layers the
+            # depth-independent activations put the rise at 92% of its
+            # bound), f32 at one segment's depth
+            zero=dict(full=True, arch="zamba2-1.2b", data=2, batch=4,
+                      seq=512, lr=1e-5, timeout=300))
 # the rehearsal's few steps teach its toy models little: no learning floor
 REHEARSE = dict(base=32, chunk=32, out_res=(16, 8, 4), split=48, train=48,
                 steps=3, floors=(0.0, 0.0), pinned=False, corpus=96,
@@ -569,7 +616,9 @@ REHEARSE = dict(base=32, chunk=32, out_res=(16, 8, 4), split=48, train=48,
                 cp=dict(full=False, arch="zamba2-1.2b", data=2, prompt=8,
                         short=4, steps=8, chunk=8, timeout=300,
                         seq={"bfloat16": 64, "float32": 32},
-                        zero={"bfloat16": True, "float32": False}))
+                        zero={"bfloat16": True, "float32": False}),
+                zero=dict(full=False, arch="zamba2-1.2b", data=2, batch=4,
+                          seq=32, lr=1e-5, timeout=300))
 
 
 def log(msg: str) -> None:
@@ -611,38 +660,52 @@ def main(argv=None) -> int:
         return out
     card = phase(setup, dev)
     kern = phase(check_kernels, dev, cfg, card, args.seed)
-    launches, query = phase(query_path, dev, cfg, card, kern, args.seed)
-    ingest, before = phase(ingest_algebra_path, dev, cfg, kern, args.seed,
-                           query)
-    sharded = phase(sharded_path, dev, cfg, kern, query, before)
-    serving = phase(serving_path, dev, cfg, card, kern, query, before)
-    del query, before
-    launches["fused_pyramid_stage0"] += ingest + sharded + serving
-    launches.update(phase(lm_path, dev, cfg, card, kern, args.seed))
-    kern["flash_attention"]["dense_launches"] = phase(
-        dense_lm_path, dev, cfg, card, kern, args.seed)
-    launches["flash_attention"] += kern["flash_attention"]["dense_launches"]
-    kern["flash_attention"]["families_launches"] = phase(
-        families_lm_path, dev, cfg, card, kern, args.seed)
-    launches["flash_attention"] += \
-        kern["flash_attention"]["families_launches"]
-    counted, train = phase(lm_training_path, dev, cfg, card, kern,
-                           args.seed)
-    for name, n in counted.items():
-        kern[name]["training_launches"] = n
-        launches[name] += n
-    # the tensor-parallel ranks run on the card beside the fleet phase,
-    # which runs on the host alone
-    tp_ranks = tp_spawn(dev, cfg["tp"], "gloo", args.seed)
-    phase(fleet_tooling, dev, cfg, card, train)
-    for name, n in phase(tensor_parallel_path, dev, cfg, card, kern,
-                         args.seed, tp_ranks).items():
-        kern[name]["tp_launches"] = n
-        launches[name] += n
-    for name, n in phase(context_parallel_path, dev, cfg, card, kern,
-                         args.seed).items():
-        kern[name]["cp_launches"] = n
-        launches[name] += n
+    try:
+        launches, query = phase(query_path, dev, cfg, card, kern, args.seed)
+        ingest, before = phase(ingest_algebra_path, dev, cfg, kern,
+                               args.seed, query)
+        sharded = phase(sharded_path, dev, cfg, kern, query, before)
+        serving = phase(serving_path, dev, cfg, card, kern, query, before)
+        del query, before
+        launches["fused_pyramid_stage0"] += ingest + sharded + serving
+        launches.update(phase(lm_path, dev, cfg, card, kern, args.seed))
+        kern["flash_attention"]["dense_launches"] = phase(
+            dense_lm_path, dev, cfg, card, kern, args.seed)
+        launches["flash_attention"] += \
+            kern["flash_attention"]["dense_launches"]
+        kern["flash_attention"]["families_launches"] = phase(
+            families_lm_path, dev, cfg, card, kern, args.seed)
+        launches["flash_attention"] += \
+            kern["flash_attention"]["families_launches"]
+        counted, train = phase(lm_training_path, dev, cfg, card, kern,
+                               args.seed)
+        for name, n in counted.items():
+            kern[name]["training_launches"] = n
+            launches[name] += n
+        # the ZeRO ranks run on the card beside the fleet phase, which runs
+        # on the host alone
+        zero = zero_spawn(dev, cfg["zero"], "gloo", args.seed + 41)
+        zero["beside"] = "beside the fleet phase"
+        phase(fleet_tooling, dev, cfg, card, train)
+        # the card to itself again before the next phases time their rows
+        t0 = time.perf_counter()
+        ranks_wait(zero)
+        log(f"  (the ZeRO ranks, {zero['beside']}: waited for "
+            f"{time.perf_counter() - t0:.1f} s after it)")
+        for name, n in phase(tensor_parallel_path, dev, cfg, card, kern,
+                             args.seed).items():
+            kern[name]["tp_launches"] = n
+            launches[name] += n
+        for name, n in phase(context_parallel_path, dev, cfg, card, kern,
+                             args.seed).items():
+            kern[name]["cp_launches"] = n
+            launches[name] += n
+        for name, n in phase(zero_layers_path, dev, cfg, card, kern,
+                             args.seed, zero).items():
+            kern[name]["zero_launches"] = n
+            launches[name] += n
+    finally:
+        ranks_stop()
     launches.update(phase(ops_path, dev, cfg, card, kern, args.seed))
     log(f"all phases: {time.perf_counter() - t_run:.1f} s")
     if "smi" in card:    # again near the end: the card beside the numbers
@@ -980,6 +1043,103 @@ def check_kernels(dev, cfg, card, seed):
 
 
 # ------------------------------------------------------------ phase 3 --
+def synth(gen, labels, specs, hw, quantize=True):
+    """Frames (N, hw, hw, 3) carrying ``labels``' (N, K) bool predicate
+    signals, drawn on ``gen``'s device: ``repro_torch.data.synthetic``'s
+    image model (8 x 8 blocks of N(0, 0.8) clutter repeated to hw px
+    plus N(0, 0.18) a pixel; spec k's sinusoid of ``freq`` cycles at a
+    uniform angle and phase added, ``amplitude`` high, to channel
+    ``channel`` of its positive rows; 0.5 + 0.18 x clipped to [0, 1];
+    with ``quantize`` floored to k/256 dyadics, so pyramid derivation
+    stays bit-exact) with torch's generator for numpy's. The run's
+    ~22500 frames take the card a second; numpy took the host ~170 s."""
+    import torch
+    dev, n = gen.device, len(labels)
+    k = hw // 8
+    x = (torch.randn((n, 8, 8, 3), generator=gen, device=dev) * 0.8
+         ).repeat_interleave(k, 1).repeat_interleave(k, 2)
+    x += 0.18 * torch.randn((n, hw, hw, 3), generator=gen, device=dev)
+    yy, xx = torch.meshgrid(*[torch.arange(hw, device=dev,
+                                           dtype=torch.float32)] * 2,
+                            indexing="ij")
+    for j, spec in enumerate(specs):
+        phase = torch.rand(n, generator=gen, device=dev) * (2 * math.pi)
+        theta = torch.rand(n, generator=gen, device=dev) * math.pi
+        rows = labels[:, j].nonzero()[:, 0]
+        c, s, p = (t[rows, None, None] for t in (theta.cos(), theta.sin(),
+                                                  phase))
+        x[rows, :, :, spec.channel] += spec.amplitude * torch.sin(
+            2 * math.pi * spec.freq * (c * xx + s * yy) / hw + p)
+    x = (0.5 + 0.18 * x).clamp_(0.0, 1.0)
+    if quantize:
+        x = (x * 256).floor_().clamp_(max=255) / 256
+    return x
+
+
+def _gen(dev, seed):
+    import torch
+    return torch.Generator(device=dev).manual_seed(seed)
+
+
+def stream_on(dev, specs, n, hw, seed, hold_max=4):
+    """``make_camera_stream``'s piecewise-constant scenes, drawn on the
+    card: each scene a dyadic frame (its predicates positive at 0.5) held
+    for 1..hold_max frames, each held repeat with independent +-1/256
+    jitter a pixel. -> (frames float32, labels int32, scene id int64),
+    numpy on the host."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed + 1_000_003)
+    holds = []
+    while sum(holds) < n:
+        holds.append(int(rng.integers(1, max(2, hold_max + 1))))
+    scene = np.repeat(np.arange(len(holds)), holds)[:n]
+    gen = _gen(dev, seed)
+    lab = torch.rand((len(holds), len(specs)), generator=gen,
+                     device=dev) < 0.5
+    sid = torch.from_numpy(scene).to(dev)
+    frames = synth(gen, lab, specs, hw)[sid]
+    held = torch.from_numpy(np.r_[False, scene[1:] == scene[:-1]]).to(dev)
+    jitter = torch.randint(-1, 2, (int(held.sum()), hw, hw, 3),
+                           generator=gen, device=dev, dtype=torch.int8)
+    frames[held] = (frames[held] + jitter / 256).clamp_(0.0, 1.0)
+    return (frames.cpu().numpy(), lab[sid].int().cpu().numpy(),
+            scene.astype(np.int64))
+
+
+def cameras_on(dev, specs, n, hw, seed, positive_rate=0.4, corr=0.6,
+               dt_max=2, gap=8):
+    """``make_two_camera_corpus``'s two correlated cameras: its labels and
+    timestamps (the same numpy draws), each camera's dyadic frames drawn
+    on the card; -> ((frames on the card, labels, t), ...), each camera
+    sorted by its timestamps."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed + 7_654_321)
+    t_a = (np.arange(n, dtype=np.int64) * gap
+           + rng.integers(0, max(gap // 2, 1), size=n))
+    lab_a = (rng.random((n, len(specs))) < positive_rate).astype(np.int32)
+    paired = rng.random(n) < corr
+    lab_b = np.empty_like(lab_a)
+    t_b = np.empty(n, np.int64)
+    lab_b[paired] = lab_a[paired]
+    t_b[paired] = t_a[paired] + rng.integers(-dt_max, dt_max + 1,
+                                             size=int(paired.sum()))
+    free = ~paired
+    lab_b[free] = (rng.random((int(free.sum()), len(specs)))
+                   < positive_rate).astype(np.int32)
+    t_b[free] = (rng.integers(0, n, size=int(free.sum())) * gap
+                 + gap // 2)
+    out = []
+    for cam, (labels, t) in enumerate(((lab_a, t_a), (lab_b, t_b))):
+        x = synth(_gen(dev, seed + 31 * (cam + 1)),
+                  torch.from_numpy(labels).to(dev).bool(), specs, hw)
+        order = np.argsort(t, kind="stable")
+        out.append((x[torch.from_numpy(order).to(dev)], labels[order],
+                    t[order]))
+    return out[0], out[1]
+
+
 def grid(cfg):
     """The query phase's model grid: its architectures, its
     representations ({resolutions} x five colors), and {entry name: sized
@@ -1026,11 +1186,10 @@ def pinned_costs(cfg, sized):
 def train_systems(dev, cfg, seed, specs, archs, reps, sized, infer_s):
     """``initialize_system`` per predicate on the card: the grid and the
     trusted model trained on a ``cfg["train"]``-frame split, thresholds
-    from the config split, eval scores, costs pinned to ``infer_s``. Prints
-    training time, steps/s and accuracies and holds them to the learning
-    floors (check a); also measures the costs once more and prints them
-    against the pinned ones. -> ({name: system}, {name: host train
-    split})."""
+    from the config split, eval scores, costs pinned to ``infer_s``. Prints training time, steps/s and
+    accuracies and holds them to the learning floors (check a); also
+    measures the costs once more and prints them against the pinned ones.
+    -> ({name: system}, {name: host train split})."""
     import numpy as np
 
     from repro_torch.core.pipeline import (initialize_system,
@@ -1242,17 +1401,17 @@ def loop_check(dev, raw, y, reps, steps):
 
 
 def make_corpus_on(dev, cfg, specs, seed):
-    """Dyadic multi-predicate corpus, generated in batches on the host and
-    kept on the device as one tensor."""
+    """``make_multi_corpus``'s dyadic multi-predicate corpus (each
+    predicate positive at 0.4), drawn on the card in batches into one
+    tensor."""
     import torch
-
-    from repro_torch.data.synthetic import make_multi_corpus
     n, hw, gb = cfg["corpus"], cfg["base"], cfg["gen_batch"]
     corpus = torch.empty((n, hw, hw, 3), device=dev)
     for i, lo in enumerate(range(0, n, gb)):
-        x, _ = make_multi_corpus(specs, min(gb, n - lo), hw=hw,
-                                 seed=seed + 100 + i, positive_rate=0.4)
-        corpus[lo:lo + len(x)] = torch.from_numpy(x).to(dev)
+        gen = _gen(dev, seed + 100 + i)
+        lab = torch.rand((min(gb, n - lo), len(specs)), generator=gen,
+                         device=dev) < 0.4
+        corpus[lo:lo + len(lab)] = synth(gen, lab, specs, hw)
     return corpus
 
 
@@ -1394,8 +1553,10 @@ def query_path(dev, cfg, card, kern, seed):
     specs = DEFAULT_PREDICATES[:3]
     t0 = time.perf_counter()
     corpus = make_corpus_on(dev, cfg, specs, seed)
+    _sync(dev)
     log(f"  corpus {tuple(corpus.shape)} on {corpus.device}: "
-        f"{corpus.numel() * 4 / 1e9:.2f} GB, {time.perf_counter() - t0:.1f} s")
+        f"{corpus.numel() * 4 / 1e9:.2f} GB, made on {dev.type} in "
+        f"{time.perf_counter() - t0:.1f} s")
     query = QuerySpec(predicates=[PredicateClause(s.name) for s in specs])
     archs, reps, sized = grid(cfg)
     infer_s, cost_label = pinned_costs(cfg, sized)
@@ -1643,8 +1804,6 @@ def ingest_algebra_path(dev, cfg, kern, seed, query):
     import torch
 
     from repro_torch.core.pipeline import build_ingest_pipeline
-    from repro_torch.data.synthetic import (make_camera_stream,
-                                            make_two_camera_corpus)
     from repro_torch.engine.algebra import (And, Join, Not, Or, Pred,
                                             execute_join, execute_tree,
                                             naive_join_pairs,
@@ -1656,13 +1815,13 @@ def ingest_algebra_path(dev, cfg, kern, seed, query):
     log("== ingest and algebra")
     t_phase = time.perf_counter()
     systems, plan, corpus = query["systems"], query["plan"], query["corpus"]
-    specs, chunk, base = query["specs"], cfg["chunk"], cfg["base"]
+    specs, chunk = query["specs"], cfg["chunk"]
     n, batch = cfg["stream"], cfg["stream_batch"]
     t0 = time.perf_counter()
-    frames, labels, scene = make_camera_stream(
-        specs, n, hw=base, seed=seed + 200, hold_max=4, jitter=1)
+    frames, labels, scene = stream_on(dev, specs, n, cfg["base"],
+                                      seed + 200)
     log(f"  camera stream {frames.shape} on the host ({frames.nbytes / 1e9:.2f}"
-        f" GB, {int(scene.max()) + 1} scenes), made in "
+        f" GB, {int(scene.max()) + 1} scenes), made on {dev.type} in "
         f"{time.perf_counter() - t0:.1f} s")
     ids = np.arange(n, dtype=np.int64)
     pending = []        # (label, rows, cascades, corpus, index): explained
@@ -1802,11 +1961,12 @@ def ingest_algebra_path(dev, cfg, kern, seed, query):
 
     # ---- (d) a temporal join over two cameras
     t0 = time.perf_counter()
-    (xa, _, tma), (xb, _, tmb) = make_two_camera_corpus(
-        specs, cfg["join"], hw=base, seed=seed + 300)
-    log(f"  two cameras {xa.shape} + {xb.shape}, int64 timestamps, made in "
-        f"{time.perf_counter() - t0:.1f} s")
-    cams = [torch.from_numpy(x).to(dev) for x in (xa, xb)]
+    (xa, _, tma), (xb, _, tmb) = cameras_on(dev, specs, cfg["join"],
+                                            cfg["base"], seed + 300)
+    _sync(dev)
+    log(f"  two cameras {tuple(xa.shape)} + {tuple(xb.shape)}, int64 "
+        f"timestamps, made on {dev.type} in {time.perf_counter() - t0:.1f} s")
+    cams = [xa, xb]
     del xa, xb
     metas = ({"t": tma}, {"t": tmb})
     join = Join(a, a, delta_t=2)
@@ -3941,8 +4101,8 @@ def lm_training_path(dev, cfg, card, kern, seed):
         log(f"  (the profiled step and its reading took "
             f"{time.perf_counter() - t1:.1f} s)")
     # step 0's first micro-batch again, through the trained model: each
-    # step is a fresh batch of uniform random tokens, and in 5 steps a
-    # token id recurs ~0.3 times, so the per-step losses stay near their
+    # step is a fresh batch of uniform random tokens, and in 3 steps a
+    # token id recurs ~0.2 times, so the per-step losses stay near their
     # start (they are printed, not held); a sequence the model was
     # trained on must have become likelier
     after, grads = micro_grads(st, params, first)
@@ -4579,19 +4739,18 @@ def pipeline_check(dev, pipe):
 
 
 # ----------------------------------------------------------- phase 4f --
-def tensor_parallel_path(dev, cfg, card, kern, seed, ranks):
+def tensor_parallel_path(dev, cfg, card, kern, seed):
     """The steps of ``launch/steps`` on a (data 1, model 2) mesh: two
     ranks on the one card (gloo: NCCL refuses two ranks on one card; the
     collectives' CUDA tensors stage through the host), each computing its
-    'model' shard (``ranks``: ``tp_spawn``'s, started beside the fleet
-    phase, which runs on the host alone), then each per-rank kernel shape
+    'model' shard (``tp_check``), then each per-rank kernel shape
     held against its plain version and timed. Returns the kernels'
     launches on both ranks."""
     import torch
 
     tp = cfg["tp"]
     log("== tensor parallel")
-    res = tp_join(ranks)
+    res = tp_check(dev, tp, "gloo", seed)
     counts = {k: sum(part["launches"][k] for r in res
                      for part in r["serve"] + r["train"])
               for k in ("flash_attention", "ssd_scan")}
@@ -4615,14 +4774,17 @@ def tensor_parallel_path(dev, cfg, card, kern, seed, ranks):
 
 
 def tp_check(dev, tp, backend, seed):
-    """``tp_join(tp_spawn(...))``: the ranks' run, printed and held."""
-    return tp_join(tp_spawn(dev, tp, backend, seed))
+    """``tp["model"]`` ranks on a (1, n) mesh (``_tp_rank``), joined by
+    ``tp_join``: the ranks' run, printed and held."""
+    return tp_join(ranks_spawn(dev, _tp_rank, tp["model"], "tensor_parallel",
+                               tp, backend, seed))
 
 
-def tp_spawn(dev, tp, backend, seed):
-    """Start ``tp["model"]`` ranks on a (1, n) mesh (``_tp_rank``): gloo
-    ranks on one card (or on the CPU in the rehearsal), or NCCL ranks, one
-    card each. Returns the handle ``tp_join`` takes."""
+def ranks_spawn(dev, fn, world, name, part, backend, seed):
+    """Start ``world`` processes ``fn(rank, port, backend, device, part,
+    seed, out_dir)`` (gloo ranks on one card, or on the CPU in the
+    rehearsal, or NCCL ranks, one card each), each writing its results
+    under ``build/<name>``; returns the handle ``ranks_wait`` takes."""
     import shutil
     import socket
 
@@ -4630,44 +4792,70 @@ def tp_spawn(dev, tp, backend, seed):
     import torch.multiprocessing as mp
     if dev.type == "cuda":
         torch.cuda.empty_cache()     # the earlier phases' cached blocks
-    out_dir = ROOT / "build" / "tensor_parallel"
+    out_dir = ROOT / "build" / name
     shutil.rmtree(out_dir, ignore_errors=True)
     out_dir.mkdir(parents=True)
     with socket.socket() as s:
         s.bind(("localhost", 0))
         port = s.getsockname()[1]
-    ctx = mp.start_processes(_tp_rank, args=(port, backend, dev.type, tp,
-                                             seed, str(out_dir)),
-                             nprocs=tp["model"], join=False,
-                             start_method="spawn")
-    return dict(ctx=ctx, dev=dev, tp=tp, backend=backend, out_dir=out_dir,
-                t0=time.perf_counter())
+    ctx = mp.start_processes(fn, args=(port, backend, dev.type, part, seed,
+                                       str(out_dir)),
+                             nprocs=world, join=False, start_method="spawn")
+    _LIVE_RANKS.append(ctx)
+    return dict(ctx=ctx, dev=dev, part=part, backend=backend,
+                out_dir=out_dir, name=name, world=world,
+                t0=time.perf_counter(), t_done=None)
+
+
+_LIVE_RANKS = []    # every rank group started: stopped if the run fails
+
+
+def ranks_wait(h):
+    """Wait for ``ranks_spawn``'s processes to exit (at most
+    ``part["timeout"]`` s from their start; a rank's failure raises);
+    returns the seconds from their start to their end."""
+    if h["t_done"] is None:
+        deadline = h["t0"] + h["part"]["timeout"]
+        while not h["ctx"].join(timeout=1):
+            if time.perf_counter() > deadline:
+                ranks_stop()
+                raise AssertionError(
+                    f"{h['name']}: the {h['world']} ranks did not finish "
+                    f"in {h['part']['timeout']} s")
+        h["t_done"] = time.perf_counter()
+    return h["t_done"] - h["t0"]
+
+
+def ranks_stop():
+    """Kill the processes of every rank group still running."""
+    for ctx in _LIVE_RANKS:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+
+
+def _where(dev, backend, what):
+    return (f"one card, gloo: {what} CUDA tensors stage through the host"
+            if backend == "gloo" and dev.type == "cuda" else
+            f"{backend}, one card a rank" if dev.type == "cuda" else
+            "gloo on the CPU (rehearsal)")
 
 
 def tp_join(h):
-    """Wait for ``tp_spawn``'s ranks (at most ``tp["timeout"]`` s from
+    """Wait for ``tp_check``'s ranks (at most ``tp["timeout"]`` s from
     their start), print each rank's lines and hold what they found;
     returns their results."""
     import shutil
-    ctx, dev, tp, backend, out_dir, t0 = (h[k] for k in (
-        "ctx", "dev", "tp", "backend", "out_dir", "t0"))
+    dev, tp, backend, out_dir = (h[k] for k in (
+        "dev", "part", "backend", "out_dir"))
     n = tp["model"]
-    deadline = t0 + tp["timeout"]
-    while not ctx.join(timeout=1):
-        if time.perf_counter() > deadline:
-            for proc in ctx.processes:
-                proc.kill()
-            raise AssertionError(f"tensor parallel: the {n} ranks did not "
-                                 f"finish in {tp['timeout']} s")
+    secs = ranks_wait(h)
     res = [json.loads((out_dir / f"rank{r}.json").read_text())
            for r in range(n)]
     shutil.rmtree(out_dir)
-    where = ("one card, gloo: the all-reduces' CUDA tensors stage through "
-             "the host" if backend == "gloo" and dev.type == "cuda" else
-             f"{backend}, one card a rank" if dev.type == "cuda" else
-             "gloo on the CPU (rehearsal)")
+    where = _where(dev, backend, "the all-reduces'")
     log(f"  {n} ranks on a (data 1, model {n}) mesh ({where}) in "
-        f"{time.perf_counter() - t0:.1f} s; correctness runs, not speed")
+        f"{secs:.1f} s; correctness runs, not speed")
     for r in res:
         log(f"  rank {r['rank']} collectives on {r['device']} tensors: "
             + ", ".join(f"{k} {v}" for k, v in r["probe"].items()))
@@ -5348,41 +5536,20 @@ def cp_check(dev, cp, backend, seed):
     card against their logits and tokens (``_cp_one``, ``_cp_hold``).
     Prints each rank's lines; returns the ranks' results."""
     import shutil
-    import socket
 
     import torch
-    import torch.multiprocessing as mp
-    t0 = time.perf_counter()
-    n_model = cp.get("model", 1)
-    world = cp["data"] * n_model
-    if dev.type == "cuda":
-        torch.cuda.empty_cache()
-    out_dir = ROOT / "build" / "context_parallel"
-    shutil.rmtree(out_dir, ignore_errors=True)
-    out_dir.mkdir(parents=True)
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        port = s.getsockname()[1]
-    ctx = mp.start_processes(_cp_rank, args=(port, backend, dev.type, cp,
-                                             seed, str(out_dir)),
-                             nprocs=world, join=False, start_method="spawn")
-    while not ctx.join(timeout=1):
-        if time.perf_counter() > t0 + cp["timeout"]:
-            for proc in ctx.processes:
-                proc.kill()
-            raise AssertionError(f"context parallel: the ranks did not "
-                                 f"finish in {cp['timeout']} s")
+    world = cp["data"] * cp.get("model", 1)
+    h = ranks_spawn(dev, _cp_rank, world, "context_parallel", cp, backend,
+                    seed)
+    out_dir, n_model = h["out_dir"], cp.get("model", 1)
+    secs = ranks_wait(h)
     res = [torch.load(out_dir / f"rank{r}.pt", weights_only=False)
            for r in range(world)]
     shutil.rmtree(out_dir)
-    where = ("one card, gloo: the collectives' CUDA tensors stage through "
-             "the host" if backend == "gloo" and dev.type == "cuda" else
-             f"{backend}, one card a rank" if dev.type == "cuda" else
-             "gloo on the CPU (rehearsal)")
+    where = _where(dev, backend, "the collectives'")
     r0 = res[0]
     log(f"  {world} ranks on a (data {cp['data']}, model {n_model}) mesh "
-        f"({where}) in {time.perf_counter() - t0:.1f} s; a correctness "
-        f"run, not speed")
+        f"({where}) in {secs:.1f} s; a correctness run, not speed")
     log(f"  {r0['name']} ({r0['cut']}), long_500k: batch 1; a "
         f"{cp['prompt']}-token prompt prefilled whole on every rank (flash "
         f"+ SSD) and placed into its blocks; {cp['short']} greedy steps from "
@@ -5406,7 +5573,7 @@ def cp_check(dev, cp, backend, seed):
                 f"{cp['prompt']}, {p['long_ms']:.1f} ms/step from "
                 f"{p['at']} ({where.split(':')[0]}); the combine's "
                 f"collectives a step {p['collectives']}; the weights' "
-                f"gather over 'data' (``steps._local``) "
+                f"gather over 'data', whole, once (``steps._locals``) "
                 + (f"{p['gather_ms']:.1f} ms" if p["gather_ms"]
                    is not None else "not run (whole weights)")
                 + (f"; launches {p['launches']}, flash {p['flash_shapes']}, "
@@ -5647,9 +5814,10 @@ def _cp_serve(mesh, dev, rank, cp, seed, dt):
     reset just before the prefill and read after the last step, the
     combine's collectives counted. The weights: whole on every rank, or
     (``cp["zero"]``) ZeRO over 'data', the reference's long_500k
-    placement, for the prefill and the short steps (each gathers them,
-    ``steps._local``), then gathered once more, timed, and placed whole
-    for the long steps (CP_WHOLE_WHY)."""
+    placement, for the prefill and the short steps (each gathers a
+    layer's leaves as the layer runs), then gathered whole once
+    (``steps._locals``), timed, and placed whole for the long steps
+    (CP_WHOLE_WHY)."""
     import torch
     import torch.distributed as dist
     from torch.distributed.tensor import DTensor
@@ -5741,8 +5909,9 @@ def _cp_serve(mesh, dev, rank, cp, seed, dt):
                kv_frac=cache["shared_attn"]["k"].shape[2] / seq,
                weights=("ZeRO over 'data' (the reference's long_500k "
                         "placement) for the prefill and the short steps, "
-                        "gathered whole each step; whole for the long "
-                        "steps: " if zero else "whole: ") + CP_WHOLE_WHY,
+                        "gathered a layer at a time as it runs; whole for "
+                        "the long steps: " if zero else "whole: ")
+               + CP_WHOLE_WHY,
                expect=_tp_expect(arch, mesh.size(1), 1, cp["prompt"]),
                chunk=arch.ssm.chunk_size)
     out["gather_ms"] = gather[0] if gather else None
@@ -5751,6 +5920,377 @@ def _cp_serve(mesh, dev, rank, cp, seed, dt):
         torch.cuda.empty_cache()
     dist.barrier()
     return out
+
+
+# ----------------------------------------------------------- phase 4i --
+def zero_layers_path(dev, cfg, card, kern, seed, ranks):
+    """ZeRO layers (``launch/steps`` on a data-parallel axis of more than
+    1): two gloo ranks on the one card on a (data 2, model 1) mesh, each
+    holding its shard of zamba2-1.2b's weights and AdamW state, a train
+    step gathering each layer's leaves as the layer runs (``ranks``:
+    ``zero_spawn``'s, started beside the fleet phase; ``zero_join``).
+    Then the step's per-rank flash and SSD shapes are held against their
+    plain versions and timed. Returns both ranks' launches in the bf16
+    step."""
+    import torch
+    zc = cfg["zero"]
+    log("== ZeRO layers")
+    t0 = time.perf_counter()
+    res = zero_join(ranks, seed + 41)
+    parts = [r["bfloat16"] for r in res]
+    counts = {k: sum(p["launches"][k] for p in parts)
+              for k in ("flash_attention", "ssd_scan")}
+    gen = torch.Generator(device=dev).manual_seed(seed + 43)
+    note = f"{parts[0]['name']} train step on a rank of ({zc['data']}, 1)"
+    for b, h, s, t, d, causal, _ in parts[0]["expect"]["flash_shapes"]:
+        flash_row(dev, card, kern, cfg["iters"], gen, (b, h, s, d),
+                  "ZeRO rank", note, counts["flash_attention"], t=t,
+                  causal=causal)
+    for b, s, h, pp, nn, _ in parts[0]["expect"]["ssd_shapes"]:
+        ssd_row(dev, card, kern, cfg["iters"], gen, (b, s, h, pp), nn,
+                parts[0]["chunk"], note, counts["ssd_scan"])
+    log(f"  the phase: {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
+def zero_check(dev, zc, backend, seed):
+    """``zero_join(zero_spawn(...))``: the ranks' run, printed and held."""
+    return zero_join(zero_spawn(dev, zc, backend, seed), seed)
+
+
+def zero_spawn(dev, zc, backend, seed):
+    """Start ``zc["data"] x zc.get("model", 1)`` ranks on a (data, model)
+    mesh (``_zero_rank``), a bf16 and an f32 train step each; returns
+    the handle ``zero_join`` takes."""
+    return ranks_spawn(dev, _zero_rank, zc["data"] * zc.get("model", 1),
+                       "zero_layers", zc, backend, seed)
+
+
+def zero_join(h, seed):
+    """Wait for ``zero_spawn``'s ranks; after they exit, the f32 step
+    against the one-rank path on the first card (``_zero_hold``). Prints
+    each rank's lines and holds them; returns the ranks' results."""
+    import shutil
+
+    import torch
+    dev, zc, backend, out_dir, world = (h[k] for k in (
+        "dev", "part", "backend", "out_dir", "world"))
+    n_model = zc.get("model", 1)
+    secs = ranks_wait(h)
+    res = [torch.load(out_dir / f"rank{r}.pt", weights_only=False)
+           for r in range(world)]
+    shutil.rmtree(out_dir)
+    where = _where(dev, backend, "the collectives'")
+    log(f"  {world} ranks on a (data {zc['data']}, model {n_model}) mesh "
+        f"({where}) in {secs:.1f} s"
+        + (f", {h['beside']}" if h.get("beside") else "")
+        + "; a correctness run, not speed")
+    for dt in ("bfloat16", "float32"):
+        parts = [r[dt] for r in res]
+        p0 = parts[0]
+        log(f"  {dt} step, {p0['name']} ({p0['cut']}): {zc['batch']} x "
+            f"{zc['seq']} tokens, {p0['n_micro']} micro-batches of one row "
+            f"a rank, remat {p0['remat']!r}; ZeRO over 'data' on "
+            f"{p0['sharded']} of {p0['leaves']} leaves")
+        for p in parts:
+            frac = p["shard_bytes"] / p["whole_bytes"]
+            log(f"    rank {p['rank']} (data {p['coord'][0]}, model "
+                f"{p['coord'][1]}): weights {_mb(p['shard_bytes'])} of "
+                f"{_mb(p['whole_bytes'])} ({frac:.3f}); "
+                f"the gradients' rise over {_mb(p['before'])} allocated "
+                f"{_mb(p['rise'])} (peak {_mb(p['peak'])}; the optimizer's "
+                f"f32 passes then {_mb(p['opt_peak'])}); bound (the "
+                f"whole weights gathered + an f32 accumulator of the "
+                f"shard) {_mb(p['bound'])}; counted a layer at a time: "
+                f"accumulator {_mb(p['acc_bytes'])} + gathered "
+                f"{_mb(p['gathered_bytes'])} (the largest layer's and the "
+                f"leaves outside the stacks) + activations; gradients "
+                f"{p['grads_ms']:.1f} ms ({where.split(':')[0]}), of it "
+                f"all-gathers {p['gather_ms']:.1f} ms "
+                f"({p['gather_ms'] / p['layer_passes']:.2f} ms a layer's "
+                f"pass) and reduce-scatters {p['scatter_ms']:.1f} ms; "
+                f"collectives a micro-batch {p['collectives']} (from the "
+                f"specs {p['expect']['collectives']}); launches "
+                f"{p['launches']} (expected {p['expect']['launches']})")
+            if p["collectives"] != p["expect"]["collectives"] or (
+                    p["rise"] is not None and p["rise"] >= p["bound"]):
+                raise AssertionError(f"ZeRO rank {p['rank']} {dt}: {p}")
+            if dev.type == "cuda" and dt == "bfloat16" and (
+                    p["launches"] != p["expect"]["launches"]
+                    or [list(k) + [n] for k, n in p["flash_shapes"]]
+                    != p["expect"]["flash_shapes"]
+                    or [list(k) + [n] for k, n in p["ssd_shapes"]]
+                    != p["expect"]["ssd_shapes"]):
+                raise AssertionError(f"ZeRO rank {p['rank']} launches: "
+                                     f"{p['launches']}")
+    _zero_hold(dev, zc, seed, [r["float32"] for r in res], (zc["data"],
+                                                            n_model))
+    return res
+
+
+def _zero_arch(zc, dt):
+    """zamba2-1.2b (or its smoke config) in ``dt``; the f32 step at one
+    segment's depth (its SSM layers and the shared block)."""
+    from repro_torch.configs.registry import get_arch, smoke_config
+    arch = (get_arch(zc["arch"]) if zc["full"] else smoke_config(zc["arch"])
+            ).replace(dtype=dt)
+    return arch if dt == "bfloat16" else arch.replace(
+        n_layers=arch.hybrid_attn_every)
+
+
+def _zero_batch(zc, arch, seed):
+    import numpy as np
+    toks = np.random.default_rng(seed).integers(
+        0, arch.vocab_size, (zc["batch"], zc["seq"] + 1)).astype(np.int32)
+    return {"tokens": toks[:, :-1], "labels": toks[:, 1:].copy()}
+
+
+def _zero_rank(rank, port, backend, device, zc, seed, out_dir):
+    """One rank of ``zero_check``: the bf16 and f32 steps
+    (``_zero_step``) on the (data, 1) mesh; results to ``out_dir``."""
+    sys.path.insert(0, str(SRC))
+    one_card = backend == "gloo"
+    os.environ["LOCAL_RANK"] = "0" if one_card else str(rank)
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.device import resolve_device
+    from repro_torch.launch.mesh import make_mesh_compat
+    dev = resolve_device(torch.device(device, 0 if one_card else rank)
+                         if device == "cuda" else device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    shape = (zc["data"], zc.get("model", 1))
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=shape[0] * shape[1])
+    try:
+        mesh = make_mesh_compat(shape, ("data", "model"), device=dev.type)
+        out = {dt: _zero_step(mesh, dev, rank, zc, seed, dt)
+               for dt in ("bfloat16", "float32")}
+        torch.save(out, Path(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _zero_step(mesh, dev, rank, zc, seed, dt):
+    """One train step of ``_zero_arch`` on this rank: the weights placed
+    under the policy's ZeRO placements, AdamW's m and v as shards of
+    theirs; the gradients (``info["grads"]``) with the memory peak reset
+    just before and read just after, the launch counts and the policy's
+    collectives (counted and timed) likewise; then the optimizer. Returns
+    the rank's figures and, in f32, its shards of the loss, gradients,
+    parameters, m and v (with each leaf's sharded dim)."""
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch import costing, dryrun, steps
+    from repro_torch.models.factory import build_model
+    from repro_torch.sharding import policy
+    from repro_torch.train.optimizer import (adamw, tree_leaves,
+                                             tree_leaves_with_path, tree_map)
+    arch = _zero_arch(zc, dt)
+    model = build_model(arch)
+    params = model.init(torch.Generator(device=dev).manual_seed(seed),
+                        device=dev)
+    whole_bytes = costing.tree_bytes(params)
+    placed = tree_map(torch.clone, policy.place(params, mesh))
+    del params
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    opt = adamw(zc["lr"], eps=ZERO_ADAMW_EPS)
+    state = {k: tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                         placed) for k in ("m", "v")}
+    state["count"] = torch.zeros((), dtype=torch.int32)
+    sc = ShapeConfig("zero", "train", zc["seq"], zc["batch"],
+                     microbatch_seqs_per_shard=1, remat_policy="full")
+    _, info = steps.make_train_step(model, mesh, sc, opt)
+    n_micro = info["n_micro"]
+
+    # what the specs say a micro-batch gathers and scatters, and holds
+    shapes = steps.abstract_params(model)
+    _, specs = steps.params_sds(model, mesh)
+    axes = policy.mesh_axes(mesh)
+    per_leaf = policy.tree_map_with_path(lambda _, sp: sum(
+        axes[a] > 1 for part in sp if part is not None
+        for a in ((part,) if isinstance(part, str) else part)
+        if a in ("pod", "data")), specs)
+    layers = sum(n * arch.n_layers for path, n in tree_leaves_with_path(
+        per_leaf) if path[0] in dryrun.STACKS)
+    total = sum(n for path, n in tree_leaves_with_path(per_leaf)
+                if path[0] not in dryrun.STACKS) + layers
+    _, gathered_bytes = dryrun.zero_bytes(shapes, specs, mesh, sc)
+    shards = [x.to_local() for x in tree_leaves(placed)]
+    shard_bytes = sum(x.numel() * x.element_size() for x in shards)
+    acc_bytes = sum(x.numel() * 4 for x in shards)
+
+    calls = {"all-gather": [0, 0.0], "reduce-scatter": [0, 0.0]}
+    wrapped = policy._all_gather0, policy._reduce_scatter0
+
+    def timed(kind, fn):
+        def run(x, group):
+            _sync(dev)
+            t0 = time.perf_counter()
+            out = fn(x, group)
+            _sync(dev)
+            calls[kind][0] += 1
+            calls[kind][1] += (time.perf_counter() - t0) * 1e3
+            return out
+        return run
+    batch = _zero_batch(zc, arch, seed)
+    policy._all_gather0 = timed("all-gather", wrapped[0])
+    policy._reduce_scatter0 = timed("reduce-scatter", wrapped[1])
+    try:
+        ops.reset_launch_counts()
+        mem0 = _peak_reset(dev)
+        _sync(dev)
+        t0 = time.perf_counter()
+        loss, g = info["grads"](placed, batch)
+        _sync(dev)
+        grads_ms = (time.perf_counter() - t0) * 1e3
+        rise = _peak_extra(dev, mem0)
+        peak = None if mem0 is None else mem0 + rise
+        launches = {k: ops.LAUNCHES[k] for k in ("flash_attention",
+                                                 "ssd_scan")}
+        flash_shapes = sorted(ops.FLASH_SHAPES.items())
+        ssd_shapes = sorted(ops.SSD_SHAPES.items())
+    finally:
+        policy._all_gather0, policy._reduce_scatter0 = wrapped
+    p2, s2, _ = opt.update(g, state, placed)
+    opt_peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
+                else None)
+    expect = _tp_expect(arch, mesh.size(1), 1, zc["seq"])
+    expect["launches"] = {"flash_attention": n_micro * expect["launches"][
+        "flash_attention"], "ssd_scan": 2 * n_micro * arch.n_layers}
+    expect["flash_shapes"] = [k[:-1] + [k[-1] * n_micro]
+                              for k in expect["flash_shapes"]]
+    expect["ssd_shapes"] = [k[:-1] + [2 * k[-1] * n_micro]
+                            for k in expect["ssd_shapes"]]
+    expect["collectives"] = {"all-gather": total + layers,
+                             "reduce-scatter": total}
+    out = dict(rank=rank, coord=tuple(mesh.get_coordinate()), name=arch.name,
+               n_micro=n_micro, remat="full",
+               cut=("published widths, " if zc["full"] else "smoke config, ")
+               + (f"{arch.n_layers} layers" if dt == "bfloat16" else
+                  f"one segment: {arch.n_layers} SSM layers and the shared "
+                  f"block"),
+               leaves=len(shards), sharded=sum(
+                   any(p.is_shard() for p in x.placements)
+                   for x in tree_leaves(placed)),
+               shard_bytes=shard_bytes, whole_bytes=whole_bytes,
+               before=mem0, rise=rise, peak=peak, opt_peak=opt_peak,
+               bound=whole_bytes + acc_bytes, acc_bytes=acc_bytes,
+               gathered_bytes=gathered_bytes, grads_ms=grads_ms,
+               gather_ms=calls["all-gather"][1],
+               scatter_ms=calls["reduce-scatter"][1],
+               layer_passes=n_micro * (2 * arch.n_layers + 1),
+               collectives={k: v[0] / n_micro for k, v in calls.items()},
+               launches=launches, flash_shapes=flash_shapes,
+               ssd_shapes=ssd_shapes, expect=expect,
+               chunk=arch.ssm.chunk_size)
+    if dt == "float32":
+        def local(tree):        # each leaf's shard, its dim on each axis
+            return [(x.to_local().cpu(), tuple(
+                p.dim if p.is_shard() else None for p in x.placements))
+                for x in tree_leaves(tree)]
+        out.update(loss=float(loss), grads=local(g), params=local(p2),
+                   m=local(s2["m"]), v=local(s2["v"]))
+    del placed, state, g, p2, s2
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def _zero_one(dev, zc, seed):
+    """The one-rank path of the f32 step on ``dev``: the model on its
+    whole weights (the ranks' seed), the same micro-batches and
+    normalization, AdamW on the mean gradient. Returns (loss, {name:
+    [leaf, ...]}) in ``tree_leaves`` order."""
+    import torch
+
+    from repro_torch.launch import steps
+    from repro_torch.models.factory import build_model
+    from repro_torch.train.optimizer import (adamw, tree_leaves,
+                                             tree_unflatten)
+    arch = _zero_arch(zc, "float32")
+    model = build_model(arch)
+    params = model.init(torch.Generator(device=dev).manual_seed(seed),
+                        device=dev)
+    leaves = [x.detach().requires_grad_() for x in tree_leaves(params)]
+    batch = _zero_batch(zc, arch, seed)
+    n_micro = zc["batch"] // zc["data"]
+    rows = zc["batch"] // n_micro
+    acc = [torch.zeros_like(x) for x in leaves]
+    loss_sum = 0.0
+    for i in range(n_micro):
+        micro = {k: torch.as_tensor(v[i * rows:(i + 1) * rows]).to(dev)
+                 for k, v in batch.items()}
+        logits, _, _ = model.forward(tree_unflatten(params, leaves), micro)
+        ce, count = steps.lm_loss_parts(logits, micro["labels"],
+                                        arch.vocab_size)
+        loss = ce / torch.clamp(count, min=1.0)
+        for a, x in zip(acc, torch.autograd.grad(
+                loss, leaves, allow_unused=True, materialize_grads=True)):
+            a += x
+        loss_sum += float(loss.detach())
+    g = tree_unflatten(params, [a / n_micro for a in acc])
+    opt = adamw(zc["lr"], eps=ZERO_ADAMW_EPS)
+    p2, s2, _ = opt.update(g, opt.init(params), params)
+    return loss_sum / n_micro, {n: tree_leaves(t) for n, t in (
+        ("grads", g), ("params", p2), ("m", s2["m"]), ("v", s2["v"]))}
+
+
+def _zero_whole(parts, name, i, shape):
+    """Leaf ``i`` of ``name`` whole, from the ranks' shards (``parts``)
+    on a (data, model) mesh of ``shape``."""
+    import torch
+    blocks = {p["coord"]: p[name][i][0] for p in parts}
+    dd, md = parts[0][name][i][1]
+    rows = [[blocks[d, m] for m in range(shape[1] if md is not None else 1)]
+            for d in range(shape[0] if dd is not None else 1)]
+    rows = [torch.cat(r, md) if md is not None else r[0] for r in rows]
+    return torch.cat(rows, dd) if dd is not None else rows[0]
+
+
+def _zero_hold(dev, zc, seed, parts, shape):
+    """The ranks' f32 step (``parts``: each rank's shards, on a mesh of
+    ``shape``) against the one-rank path on ``dev``: the loss within
+    TP_LOSS_TOL relative; each leaf, the ranks' shards put together,
+    within TRAIN_GRAD_TOL of the one-rank leaf's largest |x|, for the
+    gradients, the parameters after one AdamW step and its m and v."""
+    import torch
+
+    from repro_torch.launch.steps import abstract_params
+    from repro_torch.models.factory import build_model
+    from repro_torch.train.optimizer import tree_leaves_with_path
+    names = ["/".join(map(str, path)) for path, _ in tree_leaves_with_path(
+        abstract_params(build_model(_zero_arch(zc, "float32"))))]
+    one_loss, one = _zero_one(dev, zc, seed)
+    worst = {}
+    for name, want in one.items():
+        for i, w in enumerate(want):
+            got = _zero_whole(parts, name, i, shape).to(w.device)
+            rel = float((got - w).abs().max()
+                        / w.abs().max().clamp(min=1e-30))
+            if rel > worst.get(name, (0.0, ""))[0] or name not in worst:
+                worst[name] = (rel, names[i])
+    loss = parts[0]["loss"]
+    log(f"  float32 step against the one-rank path (the whole weights on "
+        f"the same card): loss {loss:.6f}, one-rank {one_loss:.6f} (|diff| "
+        f"{abs(loss - one_loss):.3g}, tol {TP_LOSS_TOL} relative); the "
+        f"largest error over a leaf's largest |x|, the ranks' shards "
+        f"together (tol {TRAIN_GRAD_TOL}): "
+        + ", ".join(f"{n} {r:.3g} ({leaf})"
+                    for n, (r, leaf) in worst.items()))
+    if abs(loss - one_loss) > TP_LOSS_TOL * abs(one_loss) or any(
+            r > TRAIN_GRAD_TOL for r, _ in worst.values()):
+        raise AssertionError(f"ZeRO float32 step: {loss} vs {one_loss}, "
+                             f"{worst}")
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
 
 
 # ------------------------------------------------------------ phase 5 --
@@ -6015,7 +6555,8 @@ def kernels_line(kern, launches):
                                                "dense_launches",
                                                "families_launches",
                                                "training_launches",
-                                               "tp_launches", "cp_launches")
+                                               "tp_launches", "cp_launches",
+                                               "zero_launches")
                        if key in k}})
     print(json.dumps({"kernels": out}), flush=True)
 

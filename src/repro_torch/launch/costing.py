@@ -107,7 +107,8 @@ class OpCounter(TorchDispatchMode):
     """FLOPs and collectives of the ops dispatched while it is active
     (``with OpCounter() as c: fn(...)``): ``c.flops`` (all of them),
     ``c.matmul_flops`` (the matmul-class part), ``c.by_op`` (FLOPs by
-    op name) and ``c.collectives()``."""
+    op name), ``c.collectives()`` and ``c.coll_largest`` (the largest
+    output bytes of one collective, by kind)."""
 
     def __init__(self):
         super().__init__()
@@ -116,6 +117,7 @@ class OpCounter(TorchDispatchMode):
         self.by_op: dict[str, int] = defaultdict(int)
         self.coll_bytes: dict[str, float] = defaultdict(float)
         self.coll_count: dict[str, int] = defaultdict(int)
+        self.coll_largest: dict[str, float] = defaultdict(float)
         self._matmul = _matmul_registry()
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -137,9 +139,10 @@ class OpCounter(TorchDispatchMode):
         if kind is not None:
             outs = (_tensors(args[0]) if pkt is _c10d.recv_
                     else _tensors(out))
-            self.coll_bytes[kind] += float(sum(
-                t.numel() * t.element_size() for t in outs))
+            nbytes = float(sum(t.numel() * t.element_size() for t in outs))
+            self.coll_bytes[kind] += nbytes
             self.coll_count[kind] += 1
+            self.coll_largest[kind] = max(self.coll_largest[kind], nbytes)
             return
         name = pkt.__name__
         if pkt in self._matmul:

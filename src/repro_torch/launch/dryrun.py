@@ -32,6 +32,12 @@ fake tensors placed by ``sharding.policy.place``, and the step of
   data-parallel axes (long_500k) is context-parallel
   (``step_info["context_parallel"]``): rank 0 holds and reads its block
   of the cache's sequence, ``step_info["cache_bytes_rank"]`` bytes.
+  ``step_info["state_bytes_rank"]`` and ``["gathered_bytes_rank"]``
+  (``zero_bytes``) are what rank 0 holds of the parameters' state (its
+  shards, with the AdamW m and v and the gradient accumulator in a train
+  cell) and the most it holds gathered at once: each layer gathers its
+  ZeRO-sharded leaves as it runs (``policy.zero_gather``), so rank 0's
+  all-gathers and reduce-scatters come a layer's at a time.
 * ``collectives`` are rank 0's (``OpCounter.collectives``), and
   ``per_device.hbm_bytes`` is ``costing.analytic_bytes`` over the ranks.
 * ``roofline_terms_s``: ``compute_s`` = rank 0's FLOPs over the bf16
@@ -101,6 +107,46 @@ def _cell_config(arch_name, shape_name, overrides):
     return arch, shape
 
 
+STACKS = ("layers", "enc_layers", "dec_layers")
+
+
+def zero_bytes(shapes, specs, mesh, shape) -> tuple[float, float]:
+    """(``state_bytes_rank``, ``gathered_bytes_rank``) of a cell, counted
+    from the parameters' specs on ``mesh`` (a ``DeviceMesh`` or a
+    ``policy.MeshShape``): the rank's shards of the parameters and, in a
+    train cell, of the AdamW m and v (f32) and of the gradient
+    accumulator (``grad_accum_dtype``); and the most a rank holds
+    gathered at once, the leaves the policy shards over data-parallel
+    axes of more than 1, whole over them (the rank's 'model' shard), of
+    the largest layer of a stack plus those outside the stacks."""
+    import math
+
+    from repro_torch.models.common import DTYPES
+    from repro_torch.sharding import policy
+    from repro_torch.train.optimizer import tree_leaves_with_path
+    sizes = policy.mesh_axes(mesh)
+    extra = (2 * 4 + DTYPES[shape.grad_accum_dtype].itemsize
+             if shape.kind == "train" else 0)
+    state = outside = 0.0
+    layer: dict[str, float] = {}
+    for path, x in tree_leaves_with_path(shapes):
+        spec = policy.at_path(specs, path)
+        axes = [a for part in spec if part is not None
+                for a in ((part,) if isinstance(part, str) else part)]
+        n = math.prod(x.shape)
+        state += n / math.prod(sizes[a] for a in axes) * (
+            x.element_size() + extra)
+        if not any(a in ("pod", "data") and sizes[a] > 1 for a in axes):
+            continue
+        whole = n / math.prod(sizes[a] for a in axes if a == "model") \
+            * x.element_size()
+        if path[0] in STACKS:
+            layer[path[0]] = layer.get(path[0], 0.0) + whole / x.shape[0]
+        else:
+            outside += whole
+    return state, max(layer.values(), default=0.0) + outside
+
+
 def _host_batch(arch, shape, mesh):
     """Zeros of every model input of the cell: integer leaves as numpy
     arrays, float leaves as tensors (fake under ``FakeTensorMode``)."""
@@ -155,6 +201,7 @@ def run_cell(arch_name: str, shape_name: str, multi_pod: bool,
     def fake_zeros(tree):
         return tree_map(lambda m: torch.zeros(m.shape, dtype=m.dtype), tree)
 
+    state_bytes, gathered_bytes = zero_bytes(shapes, specs, mesh, shape)
     info = {"n_micro": 1,
             "tensor_parallel": steps.tensor_parallel(arch, mesh)}
     with FakeTensorMode(allow_non_fake_inputs=True):
@@ -180,6 +227,8 @@ def run_cell(arch_name: str, shape_name: str, multi_pod: bool,
             info["context_parallel"] = steps.context_parallel(shape, mesh)
             info["cache_bytes_rank"] = costing.tree_bytes(cache)
             args = (params, cache, batch)
+        info.update(state_bytes_rank=state_bytes,
+                    gathered_bytes_rank=gathered_bytes)
         t_setup = time.time() - t0
         _, counter = costing.count_ops(step_fn, *args)
     t_count = time.time() - t0 - t_setup

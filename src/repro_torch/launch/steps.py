@@ -10,16 +10,28 @@ mesh. The port runs one process a rank:
   policy's placements (``sharding.policy.place``). On one card the mesh
   is (1, 1), every placement is ``Replicate()`` and nothing is
   communicated.
+* each step hands the model this rank's shard of every parameter
+  (``_shard``) and enters the mesh context (``policy.use_ctx_mesh``) with
+  the leaves' ZeRO gathers (``policy.zero_gathers``, read from their
+  placements): a leaf the policy shards over the data-parallel axes is
+  gathered over them where its layer runs (``policy.zero_gather``:
+  inside the layer's checkpointed body, so the backward's recompute
+  gathers it again; the leaves outside the layer stacks once a call),
+  and its gradient is reduce-scattered, in ``grad_accum_dtype``, into
+  the rank's accumulator, which is the size of its shard. A rank holds
+  its shard, one layer's gathered leaves and those outside the stacks.
+  Nothing is gathered on a data-parallel size of 1 or for weights placed
+  tp-only. ``_local`` (a leaf gathered over the data-parallel axes, its
+  'model' shard kept) is the yardstick of a rank's 'model' shard; no
+  step calls it.
 * on a 'model' axis of more than 1 every family runs tensor-parallel
-  (``tensor_parallel``): each step gathers each parameter over the
-  data-parallel axes only and keeps its 'model' shard (``_local``: the
-  slice the policy's spec gives this rank), enters the mesh context
-  (``policy.use_ctx_mesh``) and the model code computes the rank's share
+  (``tensor_parallel``): the model code computes the rank's share
   of the vocab, heads (GQA and MLA), ``d_ff``, experts and SSM heads,
   with Megatron's pair of collectives over the 'model' group
   (``models/transformer`` and ``models/encdec`` say where). Gradients
-  stay local to the rank's shard and are summed over the data-parallel
-  ranks into the parameters' placements; the loss is taken over the
+  stay local to the rank's shard; a leaf the policy replicates over the
+  data-parallel axes has its gradient all-reduced over them once a step
+  (``_shard_sum``); the loss is taken over the
   vocab shards (``lm_loss_parts``); serving logits are made whole on
   every rank. A leaf the policy replicates (its dim does not divide) is
   computed whole, and so is each block whose projections it replicates.
@@ -62,6 +74,7 @@ from typing import Any, NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.data.pipeline import shard_batch
@@ -69,7 +82,8 @@ from repro_torch.device import resolve_device
 from repro_torch.models.common import DTYPES
 from repro_torch.models.factory import Model
 from repro_torch.sharding import policy
-from repro_torch.train.optimizer import (adamw, tree_leaves, tree_map,
+from repro_torch.train.optimizer import (adamw, tree_leaves,
+                                         tree_leaves_with_path, tree_map,
                                          tree_unflatten)
 
 MOE_AUX_COEF = 0.01
@@ -269,7 +283,9 @@ def _local(x, mesh):
     data-parallel axes, its placement on 'model' kept. The gathers are
     the process groups' own all-gathers (``policy._all_gather0``), the
     minor mesh axis first: DTensor's redistribute takes the functional
-    all-gather, which crashes gloo ranks on CUDA tensors."""
+    all-gather, which crashes gloo ranks on CUDA tensors. No step calls
+    it (the layers gather their own leaves): it is the yardstick of the
+    leaf a rank computes with."""
     from torch.distributed.tensor import DTensor
     if not isinstance(x, DTensor):
         return x
@@ -288,17 +304,27 @@ def _locals(params, mesh):
     return tree_map(lambda x: _local(x, mesh), params)
 
 
-def _dp_placements(mesh, like=None):
+def _shard(x):
+    """This rank's shard of a parameter leaf (``to_local``), which the
+    steps hand to the model: the layers gather it over the data-parallel
+    axes where they run (``policy.zero_gather``)."""
+    from torch.distributed.tensor import DTensor
+    return x.to_local() if isinstance(x, DTensor) else x
+
+
+def _zero(params, mesh) -> policy.Zero:
+    """The serving steps' ZeRO gathers of ``params`` (no gradient)."""
+    return policy.Zero(policy.zero_gathers(params, mesh))
+
+
+def _dp_placements(mesh):
     """Placements of a tensor each rank computed from its own rows:
-    partial sums over the data-parallel axes (those of size > 1); along
-    the others the same value, or with ``like`` (a parameter's gradient
-    on its 'model' shard) ``like``'s placement."""
+    partial sums over the data-parallel axes (those of size > 1), the
+    same value along the others."""
     from torch.distributed.tensor import Partial, Replicate
-    sizes = policy.mesh_axes(mesh)
     dp = policy.dp_axes(mesh)
-    return [Partial() if a in dp and n > 1
-            else (like.placements[i] if like is not None else Replicate())
-            for i, (a, n) in enumerate(sizes.items())]
+    return [Partial() if a in dp and n > 1 else Replicate()
+            for a, n in policy.mesh_axes(mesh).items()]
 
 
 def _dp_sum(x, mesh):
@@ -348,20 +374,34 @@ def make_train_step(model: Model, mesh, shape_cfg: ShapeConfig,
 
     def grads(params, batch):
         """(mean LM loss of the global batch, gradients as DTensors under
-        the parameters' placements, averaged over the micro-batches)."""
+        the parameters' placements, averaged over the micro-batches). The
+        model runs on the rank's shards: each leaf that the policy shards
+        over the data-parallel axes is gathered where its layer runs and
+        its gradient reduce-scattered into the rank's accumulator each
+        micro-batch (``policy.zero_gather``); the others take their
+        gradients here and are summed over the data-parallel ranks once
+        a step."""
         local = shard_batch(batch, mesh, n_micro=n_micro,
                             batch_axes=_BATCH_AXES)
         labels = np.asarray(batch["labels"])
         counts = [max(float((labels[i * mb:(i + 1) * mb] >= 0).sum()), 1.0)
                   for i in range(n_micro)]
-        leaves = [_local(x, mesh).detach().requires_grad_()
-                  for x in tree_leaves(params)]
-        p = tree_unflatten(params, leaves)
+        flat = tree_leaves_with_path(params)
+        gathers = policy.zero_gathers(params, mesh)
+        shards = [_shard(x).detach() for _, x in flat]
         acc = [torch.zeros(x.shape, dtype=acc_dtype, device=x.device)
-               for x in leaves]
-        loss_sum = torch.zeros((), device=leaves[0].device)
+               for x in shards]
+        own = [i for i, (path, _) in enumerate(flat) if path not in gathers]
+        for i in own:
+            shards[i].requires_grad_()
+        token = torch.zeros((), device=shards[0].device, requires_grad=True)
+        zero = policy.Zero(gathers, {path: a for (path, _), a in zip(
+            flat, acc) if path in gathers}, token)
+        p = tree_unflatten(params, shards)
+        wrt = [shards[i] for i in own] + [token]
+        loss_sum = torch.zeros((), device=token.device)
         rows = local["tokens"].shape[0] // n_micro
-        with policy.use_ctx_mesh(mesh):
+        with policy.use_ctx_mesh(mesh, zero=zero):
             for i in range(n_micro):
                 micro = {k: v.narrow(_BATCH_AXES.get(k, 0), i * rows, rows)
                          for k, v in local.items()}
@@ -371,15 +411,14 @@ def make_train_step(model: Model, mesh, shape_cfg: ShapeConfig,
                 ce, _ = lm_loss_parts(logits, micro["labels"],
                                       cfg.vocab_size)
                 loss = ce / counts[i]
-                g = torch.autograd.grad(loss + aux_coef * aux / dpn, leaves,
+                g = torch.autograd.grad(loss + aux_coef * aux / dpn, wrt,
                                         allow_unused=True,
                                         materialize_grads=True)
-                torch._foreach_add_(acc, [x.to(acc_dtype) for x in g])
+                torch._foreach_add_([acc[j] for j in own],
+                                    [x.to(acc_dtype) for x in g[:-1]])
                 loss_sum = loss_sum + loss.detach()
         torch._foreach_div_(acc, n_micro)
-        out = []
-        for a, x in zip(acc, tree_leaves(params)):
-            out.append(_reduce_into(a, x, mesh, _dp_placements(mesh, x)))
+        out = [_shard_sum(a, x, mesh) for a, (_, x) in zip(acc, flat)]
         return _dp_sum(loss_sum, mesh) / n_micro, tree_unflatten(params, out)
 
     @torch.no_grad()
@@ -413,12 +452,18 @@ def make_train_step(model: Model, mesh, shape_cfg: ShapeConfig,
                         "grads": grads, "tensor_parallel": tp}
 
 
-def _reduce_into(acc, like, mesh, place):
-    """This rank's gradient ``acc`` summed over the data-parallel ranks,
-    as a DTensor under ``like``'s placements."""
+def _shard_sum(acc, like, mesh):
+    """This rank's gradient shard ``acc`` (of the parameter ``like``)
+    summed over the data-parallel ranks, as a DTensor under ``like``'s
+    placements: all-reduced over each data-parallel axis of more than 1
+    that replicates the leaf (the process group's own op); along an axis
+    that shards it, the gathers' reduce-scatters summed it already."""
     from torch.distributed.tensor import DTensor
-    return DTensor.from_local(acc, mesh, place, run_check=False
-                              ).redistribute(mesh, like.placements)
+    for i, (axis, n) in enumerate(policy.mesh_axes(mesh).items()):
+        if axis in policy.dp_axes(mesh) and n > 1 \
+                and not like.placements[i].is_shard():
+            dist.all_reduce(acc, group=mesh.get_group(i))
+    return DTensor.from_local(acc, mesh, like.placements, run_check=False)
 
 
 # ------------------------------------------------------ serve step fns -----
@@ -430,11 +475,12 @@ def context_parallel(shape_cfg: ShapeConfig, mesh) -> bool:
             and policy.mesh_axes(mesh).get("data", 1) > 1)
 
 
-def _decode_ctx(mesh, shape_cfg: ShapeConfig):
+def _decode_ctx(mesh, shape_cfg: ShapeConfig, zero=None):
     """The mesh context of a decode step: with the cache's sequence length
-    where it is split over 'data' (``policy.ctx_dp``)."""
+    where it is split over 'data' (``policy.ctx_dp``), and the weights'
+    ZeRO gathers (``zero``)."""
     return policy.use_ctx_mesh(mesh, shape_cfg.seq_len if context_parallel(
-        shape_cfg, mesh) else None)
+        shape_cfg, mesh) else None, zero)
 
 
 def _serve_rows(batch, mesh, shape_cfg: ShapeConfig) -> dict:
@@ -465,9 +511,9 @@ def make_prefill_step(model: Model, mesh, shape_cfg: ShapeConfig):
     @torch.no_grad()
     def prefill_step(params, batch):
         local = _serve_rows(batch, mesh, shape_cfg)
-        with policy.use_ctx_mesh(mesh):
+        with policy.use_ctx_mesh(mesh, zero=_zero(params, mesh)):
             logits, cache = model.prefill(
-                _locals(params, mesh), local, kv_dtype=shape_cfg.kv_dtype,
+                tree_map(_shard, params), local, kv_dtype=shape_cfg.kv_dtype,
                 moe_groups=max(1, moe_groups // dpn),
                 last_only=shape_cfg.prefill_last_only)
         if cp:
@@ -488,8 +534,8 @@ def make_decode_step(model: Model, mesh, shape_cfg: ShapeConfig):
     @torch.no_grad()
     def decode_step(params, cache, batch):
         local = _serve_rows(batch, mesh, shape_cfg)
-        with _decode_ctx(mesh, shape_cfg):
-            return model.decode(_locals(params, mesh), cache, local)
+        with _decode_ctx(mesh, shape_cfg, _zero(params, mesh)):
+            return model.decode(tree_map(_shard, params), cache, local)
     decode_step.tensor_parallel = tensor_parallel(model.cfg, mesh)
     decode_step.context_parallel = context_parallel(shape_cfg, mesh)
     return decode_step

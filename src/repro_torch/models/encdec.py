@@ -48,10 +48,13 @@ from repro_torch.models import ffn
 from repro_torch.models.common import (
     DTYPES, apply_norm, embed_init, embed_tokens, init_embedding, init_norm,
     lm_logits, pdtype, sinusoidal_positions, whole_logits)
-from repro_torch.models.transformer import (_cache_start, _layers, _remat,
-                                           _stack, full_attention,
+from repro_torch.models.transformer import (_cache_start, _gathered,
+                                           _layers, _remat, _stack,
+                                           full_attention, gather_outside,
                                            init_stack)
 from repro_torch.serve import kvcache
+
+STACKS = ("enc_layers", "dec_layers")
 
 
 def _init_enc_layer(gen, cfg, *, device):
@@ -105,9 +108,11 @@ def _enc_layer(lp, h, cfg):
 def encode(params, enc_frames, cfg, remat_policy="none"):
     h = enc_frames.to(pdtype(cfg))
     h = h + _enc_positions(h.shape[1], cfg.d_model, h.device, h.dtype)
-    layer = _remat(_enc_layer, "none" if remat_policy == "none" else "full")
-    for lp in _layers(params["enc_layers"], cfg.encoder.n_layers):
-        h = layer(lp, h, cfg)
+    layer = _remat(_gathered(_enc_layer, ("enc_layers",)),
+                   "none" if remat_policy == "none" else "full")
+    for i, lp in enumerate(_layers(params["enc_layers"],
+                                   cfg.encoder.n_layers)):
+        h = layer(i, lp, h, cfg)
     return apply_norm(params["enc_norm"], h, cfg)
 
 
@@ -153,15 +158,20 @@ def _dec_block(lp, h, enc_out, cfg, *, self_cache=None, cross_kv=None,
 def forward(params, batch, cfg, *, remat_policy="none", collect_cache=False,
             logits_last_only=False, **_):
     """batch: "tokens" (B,S), "enc_frames" (B,T,d). Returns (logits, aux
-    (0), {"self": k/v, "cross": k/v} stacked over layers | None)."""
+    (0), {"self": k/v, "cross": k/v} stacked over layers | None). In a
+    ZeRO step the layers gather their shards as ``transformer.forward``'s
+    do, and the leaves outside both stacks are gathered first."""
+    params = gather_outside(params, STACKS)
     enc_out = encode(params, batch["enc_frames"], cfg, remat_policy)
     tokens = batch["tokens"]
     h = embed_tokens(params["embed"], tokens, cfg).to(pdtype(cfg))
     h = h + params["dec_pos"][None, :tokens.shape[1]]
-    block = _remat(_dec_block, "none" if remat_policy == "none" else "full")
+    block = _remat(_gathered(_dec_block, ("dec_layers",)),
+                   "none" if remat_policy == "none" else "full")
     selfs, crosses = [], []
-    for lp in _layers(params["dec_layers"], cfg.n_layers):
-        h, coll, cross, _ = block(lp, h, enc_out, cfg, collect=collect_cache)
+    for i, lp in enumerate(_layers(params["dec_layers"], cfg.n_layers)):
+        h, coll, cross, _ = block(i, lp, h, enc_out, cfg,
+                                  collect=collect_cache)
         selfs.append(coll)
         crosses.append(cross)
     if logits_last_only:
@@ -192,15 +202,17 @@ def prefill(params, batch, cfg, *, kv_dtype="bfloat16", last_only=False,
 def decode_step(params, cache, batch, cfg, **_):
     """One token: batch["tokens"] (B,1). Returns (logits (B,Vp), cache);
     the self cache is updated in place."""
+    params = gather_outside(params, STACKS)
     tokens = batch["tokens"]
     pos = cache["pos"]
     h = embed_tokens(params["embed"], tokens, cfg).to(pdtype(cfg))
     h = h + params["dec_pos"][pos.long()][:, None]
-    for lp, sc, cc in zip(*(_layers(t, cfg.n_layers) for t in (
-            params["dec_layers"], cache["self"], cache["cross"]))):
+    block = _gathered(_dec_block, ("dec_layers",))
+    for i, (lp, sc, cc) in enumerate(zip(*(_layers(t, cfg.n_layers) for t in (
+            params["dec_layers"], cache["self"], cache["cross"])))):
         cross = kvcache.read_kv_layer(cc, h.dtype)
-        h, _, _, _ = _dec_block(lp, h, None, cfg, self_cache=sc,
-                                cross_kv=cross, pos=pos)
+        h, _, _, _ = block(i, lp, h, None, cfg, self_cache=sc,
+                           cross_kv=cross, pos=pos)
     h = apply_norm(params["final_norm"], h, cfg)
     logits = lm_logits(params, params["embed"], h, cfg)
     cache["pos"] = pos + 1

@@ -370,6 +370,28 @@ def _remat(fn, policy: str):
                                        **extra, **kw)
 
 
+def _gathered(fn, path: tuple):
+    """``fn`` on layer ``i`` of the stacks at ``path``: called as
+    ``(i, the layer's shards, ...)``, it gathers the shards over the
+    data-parallel axes first (``policy.zero_gather``; nothing outside a
+    ZeRO step). Wrapped by ``_remat``, the gather is part of the
+    checkpointed body: the backward's recompute gathers the layer again
+    instead of keeping its weights."""
+    def run(i, lp, *a, **kw):
+        return fn(policy.zero_gather(lp, path, i), *a, **kw)
+    return run
+
+
+def gather_outside(params, stacks=("layers",)):
+    """``params`` with every leaf outside the layer stacks ``stacks``
+    gathered over the data-parallel axes (``policy.zero_gather``), once a
+    call: the embedding, the head, the final norm, the hybrid's shared
+    block. Autograd sums a leaf's uses (the shared block's passes, a
+    tied head) before its one reduce-scatter."""
+    return {k: v if k in stacks else policy.zero_gather(v, (k,))
+            for k, v in params.items()}
+
+
 # ---------------------------------------------------------------- forward --
 def _embed_input(params, batch, cfg):
     h = embed_tokens(params["embed"], batch["tokens"], cfg).to(pdtype(cfg))
@@ -384,8 +406,16 @@ def forward(params, batch, cfg, *, remat_policy="none", moe_groups=1,
     """Full-sequence pass. Returns (logits, aux, cache_pieces|None).
     remat_policy / moe_groups: the training options (module docstring);
     dp_mean: ``ffn.apply_moe``'s, for a data-parallel step.
-    logits_last_only: the LM head on the final position only."""
+    logits_last_only: the LM head on the final position only.
+
+    In a ZeRO step (``policy.use_ctx_mesh(zero=)``) ``params`` are the
+    rank's shards: each layer gathers its own inside its checkpointed
+    body, and the leaves outside the stacks are gathered first
+    (``gather_outside``). Under "none", autograd keeps every layer's
+    gathered weights for the backward, so the rank holds them all, as it
+    would hold them whole."""
     check_family(cfg)
+    params = gather_outside(params)
     h = _embed_input(params, batch, cfg)
     b, s, _ = h.shape
     positions = torch.arange(s, device=h.device)[None].expand(b, s)
@@ -393,9 +423,9 @@ def forward(params, batch, cfg, *, remat_policy="none", moe_groups=1,
     aux = torch.zeros((), device=h.device)
     if cfg.family in ATTN_FAMILIES:
         pieces = []
-        block = _remat(_dense_block, remat_policy)
-        for lp in _layers(params["layers"], cfg.n_layers):
-            h, a, coll, _ = block(lp, h, cfg, rope, moe_groups=moe_groups,
+        block = _remat(_gathered(_dense_block, ("layers",)), remat_policy)
+        for i, lp in enumerate(_layers(params["layers"], cfg.n_layers)):
+            h, a, coll, _ = block(i, lp, h, cfg, rope, moe_groups=moe_groups,
                                   dp_mean=dp_mean)
             if a is not None:
                 aux = aux + a
@@ -404,9 +434,9 @@ def forward(params, batch, cfg, *, remat_policy="none", moe_groups=1,
         cache_pieces = _stack(pieces) if collect_cache else None
     elif cfg.family == "ssm":
         states = []
-        layer = _remat(_ssm_layer, remat_policy)
-        for lp in _layers(params["layers"], cfg.n_layers):
-            h, st = layer(lp, h, cfg, collect_state=collect_cache)
+        layer = _remat(_gathered(_ssm_layer, ("layers",)), remat_policy)
+        for i, lp in enumerate(_layers(params["layers"], cfg.n_layers)):
+            h, st = layer(i, lp, h, cfg, collect_state=collect_cache)
             states.append(st)
         cache_pieces = _stack(states) if collect_cache else None
     else:
@@ -422,12 +452,12 @@ def forward(params, batch, cfg, *, remat_policy="none", moe_groups=1,
 
 def _hybrid_forward(params, h, cfg, rope, *, remat_policy, collect_cache):
     ssm_states, shared_kv = [], []
-    layer = _remat(_ssm_layer, remat_policy)
+    layer = _remat(_gathered(_ssm_layer, ("layers",)), remat_policy)
     layers = _layers(params["layers"], cfg.n_layers)
     lo_i = 0
     for n, has_attn in hybrid_segments(cfg):
         for i in range(lo_i, lo_i + n):
-            h, st = layer(layers[i], h, cfg, collect_state=collect_cache)
+            h, st = layer(i, layers[i], h, cfg, collect_state=collect_cache)
             ssm_states.append(st)
         lo_i += n
         if has_attn:
@@ -480,17 +510,20 @@ def prefill(params, batch, cfg, *, kv_dtype="bfloat16", moe_groups=1,
 def decode_step(params, cache, batch, cfg):
     """One token: batch["tokens"] (B,1) (and the vlm family's
     "mrope_positions" (3,B,1)). Returns (logits (B,Vp), cache); the cache
-    is updated in place."""
+    is updated in place. In a ZeRO step each layer's shards are gathered
+    as the layer runs (``forward`` says how)."""
     check_family(cfg)
+    params = gather_outside(params)
     h = _embed_input(params, batch, cfg)
     pos = cache["pos"]                                  # (B,) write index
     rope = _make_rope(cfg, pos[:, None], batch.get("mrope_positions"))
     if cfg.family in ATTN_FAMILIES:
         name = "mla" if cfg.mla is not None else "kv"
-        for lp, lc in zip(_layers(params["layers"], cfg.n_layers),
-                          _layers(cache[name], cfg.n_layers)):
-            h, _, _, _ = _dense_block(lp, h, cfg, rope, cache_slice=lc,
-                                      pos=pos)
+        block = _gathered(_dense_block, ("layers",))
+        for i, (lp, lc) in enumerate(zip(_layers(params["layers"],
+                                                 cfg.n_layers),
+                                         _layers(cache[name], cfg.n_layers))):
+            h, _, _, _ = block(i, lp, h, cfg, rope, cache_slice=lc, pos=pos)
     else:
         h = _ssm_decode(params, h, cache, cfg, rope, pos)
     h = apply_norm(params["final_norm"], h, cfg)
@@ -506,12 +539,13 @@ def _ssm_decode(params, h, cache, cfg, rope, pos):
     segs = (hybrid_segments(cfg) if cfg.family == "hybrid"
             else [(cfg.n_layers, False)])
     layers = _layers(params["layers"], cfg.n_layers)
+    layer = _gathered(_ssm_layer, ("layers",))
     states = _layers(cache["ssm"], cfg.n_layers)
     passes = iter(_layers(cache["shared_attn"], sum(a for _, a in segs))
                   if cfg.family == "hybrid" else [])
     for n, has_attn in segs:
         for i in range(lo_i, lo_i + n):
-            h, nc = _ssm_layer(layers[i], h, cfg, cache=states[i])
+            h, nc = layer(i, layers[i], h, cfg, cache=states[i])
             for name, val in nc.items():
                 cache["ssm"][name][i] = val
         lo_i += n

@@ -29,7 +29,14 @@ port of the reference's ``sharding/policy.py``. Two independent layers:
    sequence is then split over 'data' in blocks, as the reference's
    ``cache_pspecs`` splits it, and model code reads the 'data' group
    (``ctx_dp``) and combines the ranks' partial softmaxes over it
-   (``max_dp``, ``sum_dp``).
+   (``max_dp``, ``sum_dp``). A step whose parameters are the rank's
+   shards enters it with their ZeRO gathers (``Zero``, ``zero_gathers``:
+   each leaf's gather dims over the data-parallel axes, read from its
+   placements), and model code gathers a layer's leaves where the layer
+   runs (``zero_gather``, ``_GatherDP``: an all-gather whose backward
+   reduce-scatters the gradient, in the step's accumulator dtype, into
+   the rank's accumulator), as XLA gathers one layer's slice inside the
+   reference's scan body.
    Where the reference's ``ctx_constrain`` hints XLA's SPMD partitioner,
    the port's model code calls Megatron's pair of collectives over the
    'model' group itself (``copy_to_tp``: the identity, whose backward
@@ -272,8 +279,23 @@ class DPGroup(NamedTuple):
         return None if t % self.size else self.rank * (t // self.size)
 
 
+class Zero(NamedTuple):
+    """The ZeRO gathers of a step's parameter tree (``zero``): for each
+    leaf the policy shards over data-parallel axes of more than 1, by its
+    path, (the placed leaf's ndim, its gathers in order: (tensor dim,
+    process group), the minor mesh axis first). In a train step also
+    ``sinks``, by the same paths, the rank's f32 gradient accumulators
+    (its shards) that the gathers' backward adds into, and ``token``, the
+    0-d tensor through which autograd reaches each gather (the shards
+    themselves take no gradient)."""
+    gathers: dict
+    sinks: dict | None = None
+    token: torch.Tensor | None = None
+
+
 _CTX_TP: TPGroup | None = None
 _CTX_DP: DPGroup | None = None
+_CTX_ZERO: Zero | None = None
 
 
 class use_ctx_mesh:
@@ -281,21 +303,26 @@ class use_ctx_mesh:
     rank's 'model' shard (``ctx_tp``); with ``seq_len`` (a decode step
     whose batch does not split over the data-parallel axes) it also holds
     and reads this rank's blocks of the decode cache's sequence
-    (``ctx_dp``). The previous context comes back on exit."""
+    (``ctx_dp``); with ``zero`` (a ``Zero``: the parameters are the
+    rank's shards) each layer's leaves are gathered over the
+    data-parallel axes where the layer runs (``zero_gather``). The
+    previous context comes back on exit."""
 
-    def __init__(self, mesh, seq_len: int | None = None):
-        self.mesh, self.seq_len = mesh, seq_len
+    def __init__(self, mesh, seq_len: int | None = None,
+                 zero: Zero | None = None):
+        self.mesh, self.seq_len, self.zero = mesh, seq_len, zero
 
     def __enter__(self):
-        global _CTX_TP, _CTX_DP
-        self._prev = _CTX_TP, _CTX_DP
+        global _CTX_TP, _CTX_DP, _CTX_ZERO
+        self._prev = _CTX_TP, _CTX_DP, _CTX_ZERO
         _CTX_TP = _tp_group(self.mesh)
         _CTX_DP = _dp_group(self.mesh, self.seq_len)
+        _CTX_ZERO = self.zero if self.zero and self.zero.gathers else None
         return self.mesh
 
     def __exit__(self, *exc):
-        global _CTX_TP, _CTX_DP
-        _CTX_TP, _CTX_DP = self._prev
+        global _CTX_TP, _CTX_DP, _CTX_ZERO
+        _CTX_TP, _CTX_DP, _CTX_ZERO = self._prev
 
 
 def _tp_group(mesh):
@@ -325,6 +352,86 @@ def ctx_dp() -> DPGroup | None:
     or None: no such step, or an axis of 1 (the decode cache is then
     whole on every rank)."""
     return _CTX_DP
+
+
+def zero_gathers(params, mesh) -> dict:
+    """``Zero.gathers`` of a tree of DTensors on ``mesh``, read from each
+    leaf's placements: its gathers over the data-parallel axes of more
+    than 1 that shard it, the minor axis first (a dim split over ('pod',
+    'data') comes back pod-major)."""
+    from torch.distributed.tensor import DTensor
+    axes = mesh_axes(mesh)
+    dp = [i for i, (a, n) in enumerate(axes.items())
+          if a in ("pod", "data") and n > 1]
+    out = {}
+
+    def visit(path, x):
+        if not isinstance(x, DTensor):
+            return
+        steps = tuple((x.placements[i].dim, mesh.get_group(i))
+                      for i in reversed(dp) if x.placements[i].is_shard())
+        if steps:
+            out[path] = (x.dim(), steps)
+    tree_map_with_path(visit, params)
+    return out
+
+
+class _GatherDP(torch.autograd.Function):
+    """A leaf's shard gathered over the data-parallel axes (``steps``: (dim,
+    group), minor axis first). The gradient reaches it through ``token``;
+    the backward reduce-scatters the gathered leaf's gradient in the
+    reverse order, in ``sink``'s dtype (the step's ``grad_accum_dtype``,
+    so that the ranks' gradients are summed in it and not in the leaf's
+    own), and adds it into ``sink``, the rank's accumulator of the
+    leaf."""
+
+    @staticmethod
+    def forward(ctx, x, token, steps, sink):
+        ctx.steps, ctx.sink = steps, sink
+        return _gather_dp(x, steps)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.to(ctx.sink.dtype)
+        for dim, group in reversed(ctx.steps):
+            g = _reduce_scatter0(g.movedim(dim, 0), group).movedim(0, dim)
+        ctx.sink.add_(g)
+        return None, None, None, None
+
+
+def _gather_dp(x, steps):
+    """``x`` gathered over ``steps`` ((dim, group), in order)."""
+    for dim, group in steps:
+        x = _all_gather0(x.movedim(dim, 0), group).movedim(0, dim)
+    return x
+
+
+def zero_gather(tree, path: tuple, layer: int | None = None):
+    """``tree``, the rank's shards at ``path`` of the parameter tree (with
+    ``layer``: that layer of the stacks at ``path``, as ``transformer.
+    _layers`` gives it), with each leaf that the ambient step shards over
+    the data-parallel axes gathered whole over them, the others as they
+    are. Under autograd each gather's backward reduce-scatters the
+    leaf's gradient into the rank's accumulator (``_GatherDP``). Without
+    a ZeRO context, ``tree`` itself."""
+    zero = _CTX_ZERO
+    if zero is None:
+        return tree
+    grad = torch.is_grad_enabled() and zero.sinks is not None
+
+    def gather(sub, x):
+        entry = zero.gathers.get(path + sub)
+        if entry is None:
+            return x
+        ndim, steps = entry
+        shift = ndim - x.dim()           # 1 for a layer of a stack
+        steps = tuple((d - shift, g) for d, g in steps)
+        if not grad:
+            return _gather_dp(x, steps)
+        sink = zero.sinks[path + sub]
+        return _GatherDP.apply(x, zero.token, steps,
+                               sink if layer is None else sink[layer])
+    return tree_map_with_path(gather, tree)
 
 
 def _all_reduce(x, op, group):

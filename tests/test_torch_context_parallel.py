@@ -197,10 +197,13 @@ def _collectives(params, inps):
         _, c = costing.count_ops(steps.make_decode_step(model, mesh, sc),
                                  placed, cache, {"tokens": tok})
         out[arch, b] = c.collectives()["count_by_type"]
+    # one all-gather a sharded leaf a layer: each layer gathers its own
+    # shards as it runs, the leaves outside the stack once a step
     out["sharded_leaves"] = sum(
-        any(p.is_shard() for p in x.placements)
-        for x in _flat(place(params["zamba2-1.2b", "float32"], mesh)
-                       ).values())
+        (x.shape[0] if k.startswith("/layers/") else 1)
+        * any(p.is_shard() for p in x.placements)
+        for k, x in _flat(place(params["zamba2-1.2b", "float32"], mesh)
+                          ).items())
     return out
 
 
@@ -483,7 +486,7 @@ def test_a_rank_with_no_valid_key_gives_no_nan(runs, arch):
 
 def test_no_new_collective_on_a_batch_that_splits(runs):
     """A decode step on (2, 1): batch 4 splits (only the parameters'
-    all-gathers over 'data', as before), mamba2-130m has no sequence
+    all-gathers over 'data', a layer's as it runs), mamba2-130m has no sequence
     cache (no all-reduce), zamba2-1.2b's batch 1 adds the combine's max
     and sum for each of its two shared-block passes."""
     ranks, _, _ = runs

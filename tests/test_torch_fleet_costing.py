@@ -440,6 +440,15 @@ def test_dryrun_cell_equals_the_reference_accounting(tmp_path, monkeypatch,
         res["collectives"]["total_bytes"] / hw.NVLINK_BW > 0
     assert res["dominant"] == max(terms, key=terms.get)
     assert 0 < res["useful_flops_ratio"] < 1
+    # rank 0's state and gathered bytes, counted from the specs
+    from repro_torch.launch import dryrun
+    t_model = t_build(t_registry.get_arch("mamba2-130m").replace(
+        head_pad_to=16))
+    mesh = MeshShape(("data", "model"), (16, 16))
+    assert (res["step_info"]["state_bytes_rank"],
+            res["step_info"]["gathered_bytes_rank"]) == dryrun.zero_bytes(
+        t_steps.abstract_params(t_model),
+        t_steps.params_sds(t_model, mesh)[1], mesh, T_SHAPES[shape_name])
 
 
 # ------------------------------------------- dry-run, tensor-parallel ---
@@ -497,3 +506,65 @@ def test_dryrun_decode_cell_computes_each_ranks_model_shard(tmp_path, arch):
     if arch == "zamba2-1.2b":
         assert res["roofline_terms_s"]["collective_s"] <= \
             WHOLE_WEIGHTS_COLLECTIVE_S / 10
+
+
+# ------------------------------------------------ dry-run, ZeRO bytes ---
+@pytest.mark.parametrize("arch,names,shape", [
+    ("deepseek-v2-236b", ("data", "model"), (16, 16)),
+    ("zamba2-1.2b", ("data", "model"), (2, 1)),
+    ("whisper-tiny", ("pod", "data", "model"), (2, 16, 16))])
+def test_zero_bytes_equal_a_count_from_the_reference_specs(arch, names,
+                                                           shape):
+    """``dryrun.zero_bytes`` of a train_4k cell (``state_bytes_rank`` and
+    ``gathered_bytes_rank``) against a count made here from the
+    reference's specs of the parameters' shapes (the port's abstract
+    tree, whose leaves tests/test_torch_train_substrate.py holds to the
+    reference's, as ``ShapeDtypeStruct``s): the rank's shards of
+    the parameters (bf16), AdamW's m and v (f32) and the gradient
+    accumulator (f32); and the leaves sharded over the data-parallel
+    axes, whole over them, of the largest layer plus those outside the
+    stacks. deepseek-v2-236b on the production mesh holds the two under
+    the card's 80 GB (the whole 'model' shard gathered and an f32
+    accumulator of it were 94 GB)."""
+    import types
+
+    from jax.sharding import PartitionSpec
+    from repro.sharding import policy as j_policy
+    from repro_torch.launch import dryrun
+    sizes = dict(zip(names, shape))
+    model = t_build(t_registry.get_arch(arch).replace(head_pad_to=16))
+    shapes = t_steps.abstract_params(model)
+    jshapes = jax.tree.map(lambda x: jax.ShapeDtypeStruct(
+        tuple(x.shape), jnp.bfloat16 if x.dtype == torch.bfloat16
+        else jnp.float32), shapes)
+    specs = j_policy.param_pspecs(jshapes, types.SimpleNamespace(
+        axis_names=names, devices=np.empty(shape)))
+    spec_of = dict(jax.tree_util.tree_flatten_with_path(
+        specs, is_leaf=lambda s: isinstance(s, PartitionSpec))[0])
+    state = outside = 0.0
+    layer = {}
+    for path, x in jax.tree_util.tree_flatten_with_path(jshapes)[0]:
+        axes = [a for part in spec_of[path] if part is not None
+                for a in ((part,) if isinstance(part, str) else part)]
+        n = float(np.prod(x.shape))
+        state += n / np.prod([sizes[a] for a in axes]) * (
+            x.dtype.itemsize + 4 + 4 + 4)
+        if any(a in ("pod", "data") and sizes[a] > 1 for a in axes):
+            whole = n / np.prod([sizes[a] for a in axes if a == "model"]) \
+                * x.dtype.itemsize
+            top = path[0].key
+            if top.endswith("layers"):
+                layer[top] = layer.get(top, 0.0) + whole / x.shape[0]
+            else:
+                outside += whole
+    want = (state, max(layer.values()) + outside)
+
+    mesh = MeshShape(names, shape)
+    got = dryrun.zero_bytes(shapes, t_steps.params_sds(model, mesh)[1],
+                            mesh, T_SHAPES["train_4k"])
+    assert got == pytest.approx(want, rel=1e-12)
+    print(f"{arch} {shape}: state {got[0] / 1e9:.3f} GB, gathered "
+          f"{got[1] / 1e9:.3f} GB a rank")
+    if arch == "deepseek-v2-236b":
+        assert 17e9 < got[0] < 18e9 and 0.6e9 < got[1] < 0.7e9
+        assert sum(got) < 80e9

@@ -504,6 +504,7 @@ def test_chip_smoke_rehearsal_runs_every_phase_on_the_cpu():
     assert "== tensor parallel" in out.stdout
     tp, cp = out.stdout.split("== tensor parallel")[1].split(
         "== context parallel")
+    cp, zero = cp.split("== ZeRO layers")
     # zamba2-1.2b, deepseek-7b, phi3.5-moe, deepseek-v2 and whisper-tiny
     assert tp.count("float32 against the one-rank path") == 5
     assert out.stdout.count("routing at capacity factor 1.25 (apply_moe "
@@ -514,6 +515,11 @@ def test_chip_smoke_rehearsal_runs_every_phase_on_the_cpu():
     assert "2 ranks on a (data 2, model 1) mesh" in cp
     assert cp.count("every rank's tokens and logits equal: True") == 2
     assert cp.count("against the one-rank path (mesh (1, 1)") == 2
+    # zamba2-1.2b's ZeRO train steps on (data 2, model 1), bf16 then f32:
+    # each rank's collectives beside the count from the specs
+    assert "2 ranks on a (data 2, model 1) mesh" in zero
+    assert zero.count("collectives a micro-batch") == 4
+    assert "float32 step against the one-rank path" in zero
 
 
 def _c_struct_fields(source: str, struct: str) -> list[str]:
